@@ -1,0 +1,78 @@
+"""The port imports without jax, and refuses devices it has no path for."""
+
+import os.path as op
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = op.dirname(op.dirname(op.abspath(__file__)))
+
+# a meta-path finder that fails any import of jax, then every module of the
+# port; run in a fresh interpreter because this test process (conftest.py)
+# has imported jax already
+_BLOCKED_IMPORT = r"""
+import importlib, pkgutil, sys
+
+class BlockJax:
+    def find_spec(self, name, path=None, target=None):
+        if name == "jax" or name.startswith(("jax.", "jaxlib")):
+            raise ImportError("blocked import of " + name)
+        return None
+
+sys.meta_path.insert(0, BlockJax())
+import wgbs_tools_tpu_torch
+names = sorted(m.name for m in pkgutil.walk_packages(
+    wgbs_tools_tpu_torch.__path__, "wgbs_tools_tpu_torch."))
+for name in names:
+    importlib.import_module(name)
+assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
+jaxed = [m for m in sys.modules if m.startswith(
+    ("wgbs_tools_tpu.ops", "wgbs_tools_tpu.models", "wgbs_tools_tpu.parallel",
+     "wgbs_tools_tpu.pipeline", "wgbs_tools_tpu.cli"))]
+assert not jaxed, jaxed
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax():
+    r = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    # every module of the port was imported, not an empty walk
+    assert int(r.stdout.split()[-1]) >= 10
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    """Only CPU tensors take the plain twin; tensors on any other device go
+    to the kernel launcher, which accepts CUDA alone and raises."""
+    from wgbs_tools_tpu_torch.ops.pileup_v3 import (Staged, flat_classic,
+                                                    flat_vals_fused)
+
+    def staged(form, dtype, width):
+        dev = torch.device("meta")
+        return Staged(form,
+                      torch.zeros(2, dtype=torch.int32, device=dev),
+                      torch.zeros(2, dtype=torch.int32, device=dev),
+                      torch.zeros((16, 2, 8), dtype=torch.int32, device=dev),
+                      torch.zeros((128, width), dtype=dtype, device=dev),
+                      128, 8, 1)
+
+    with pytest.raises(ValueError, match="CUDA"):
+        flat_vals_fused(staged("vals", torch.uint8, 256), 200)
+    with pytest.raises(ValueError, match="CUDA"):
+        flat_classic(staged("classic", torch.int32, 8), 200)
+    assert flat_vals_fused.launches == 0 and flat_classic.launches == 0
+
+
+def test_resolve_device_raises_without_cuda(monkeypatch):
+    from wgbs_tools_tpu_torch.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")

@@ -1,0 +1,86 @@
+"""Command line of the PyTorch/CUDA port.
+
+    python -m wgbs_tools_tpu_torch pat2beta x.pat.gz -o out/ [--device cpu]
+
+Flags match wgbs_tools_tpu's pat2beta (cli/cmd_pat.py::main_pat2beta)
+without --procs, plus --device. The device defaults to cuda and raises
+when CUDA is absent: the host path runs only when asked for.
+"""
+
+import argparse
+import difflib
+import os.path as op
+import sys
+
+from wgbs_tools_tpu.genome.refdir import Genome
+from wgbs_tools_tpu.utils import (
+    IllegalArgumentError,
+    delete_or_skip,
+    eprint,
+    splitextgz,
+    validate_single_file,
+)
+
+from ..device import resolve_device
+from ..pipeline.pat2beta import pat2beta
+
+
+def main_pat2beta(argv):
+    p = argparse.ArgumentParser(
+        prog="pat2beta",
+        description="Generate a beta file from a pat file (PyTorch/CUDA)")
+    p.add_argument("pat_paths", nargs="+")
+    p.add_argument("-f", "--force", action="store_true")
+    p.add_argument("-o", "--out_dir", default=".")
+    p.add_argument("-l", "--lbeta", action="store_true")
+    p.add_argument("--genome", default=None)
+    p.add_argument("-@", "--threads", type=int, default=None,
+                   help="(compat; the pileup runs on the device)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default; an error without "
+                        "CUDA) or cpu (the kernels' plain PyTorch twins)")
+    args = p.parse_args(argv)
+    device = resolve_device(args.device)
+    g = Genome(args.genome)
+    for pat in args.pat_paths:
+        validate_single_file(pat)
+        suff = ".lbeta" if args.lbeta else ".beta"
+        out = op.join(args.out_dir, splitextgz(op.basename(pat))[0] + suff)
+        if not delete_or_skip(out, args.force):
+            continue
+        pat2beta(pat, args.out_dir, genome=g, lbeta=args.lbeta,
+                 device=device)
+    return 0
+
+
+COMMANDS = {"pat2beta": main_pat2beta}
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    parser = argparse.ArgumentParser(
+        prog="wgbstools-torch",
+        description="wgbs_tools on PyTorch + CUDA (pat/beta formats)")
+    parser.add_argument("command", nargs="?", help="|".join(COMMANDS))
+    parser.add_argument("--version", action="store_true")
+    args, _ = parser.parse_known_args(argv[:1])
+    if args.version:
+        from .. import __version__
+
+        print(__version__)
+        return 0
+    cmd = args.command
+    if cmd is None:
+        parser.print_help()
+        return 1
+    if cmd not in COMMANDS:
+        eprint(f"Invalid command: {cmd}")
+        close = difflib.get_close_matches(cmd, COMMANDS.keys())
+        if close:
+            eprint("did you mean", " or ".join(close), "?")
+        return 1
+    try:
+        return COMMANDS[cmd](argv[1:]) or 0
+    except IllegalArgumentError as e:
+        eprint(f"[wt-torch {cmd}] error: {e}")
+        return 1

@@ -1,0 +1,545 @@
+"""Row-packed pileup (v3): host staging, the two CUDA kernels and their
+plain PyTorch twins.
+
+Port of wgbs_tools_tpu/ops/pileup_tpu3.py (with pileup_tpu2.py's
+`_split_long`). The host staging is the JAX package's, line for line, so
+the staged arrays are identical and the tests compare them one to one:
+fragments are split at 128-site sub-blocks, the pieces are packed into
+rows by the native first-fit packer, and the rows are chunked (at most
+rc - 1 rows, g_max sub-blocks and one output tile per chunk). Two staged
+forms reach a kernel:
+
+- "vals" (every count < 256): one uint8 (rows, 256) plane, lanes 0-127 =
+  the count where the code is a methylation call, 128-255 = the count
+  where the site is observed. Kernel: `flat_vals_fused`.
+- "classic" (any count >= 256, or no fragments): 2-bit planar code words
+  (rows, 8) plus one int32 count per row, split into rc classes (16, 128)
+  by default. Kernel: `flat_classic`, one launch per class; the classes'
+  outputs sum.
+
+The staged layout keeps the TPU's constraints for now (rc a multiple of
+8, base_g stashed in padding row rc-1, pow2 chunk padding): the Hopper
+kernels do not need them, and dropping them is later work guarded by the
+staged-array test.
+
+A kernel wrapper sends CUDA tensors to the kernel (csrc/pileup_v3.cu) and
+CPU tensors to the kernel's plain twin; any other device raises. Each
+wrapper counts its launches in `<wrapper>.launches`.
+"""
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from wgbs_tools_tpu import native
+from wgbs_tools_tpu.formats.pat import CODE_DOT
+
+from .. import _kernels
+
+SB = 128  # sites per sub-block = lanes per row
+# a CTA's shared-memory accumulator is tile_sb x 256 int32; Hopper gives a
+# block at most 227 KB (232,448 bytes) of dynamic shared memory
+MAX_SMEM_BYTES = 232_448
+# default geometry by form: the JAX package's defaults
+# (pileup_tpu3.py:75-97, 1067-1082)
+VALS_GEOMETRY = dict(tile=SB * 64, rc=1024, g_max=64, classes=None)
+CLASSIC_GEOMETRY = dict(tile=SB * 8, rc=256, g_max=8, classes=(16, 128))
+
+
+def require_native():
+    """The native host library that staging packs rows with. Raises when
+    it cannot be built or loaded: the port's staging has no fallback."""
+    lib = native.get_lib()
+    if lib is None:
+        raise RuntimeError("wgbs_tools_tpu.native could not be built or "
+                           "loaded (needs g++ and zlib): v3 staging cannot "
+                           "run without its row packer")
+    return lib
+
+
+def _native_ok(result, what):
+    if result is None:
+        raise RuntimeError(f"native {what} failed or is unavailable: v3 "
+                           "staging has no fallback")
+    return result
+
+
+# ---------------------------------------------------------------------------
+# Host staging (numpy)
+# ---------------------------------------------------------------------------
+
+
+def _split_long(start, length, count, codes, max_piece=SB):
+    """Split fragments longer than max_piece into independent pieces."""
+    start = np.asarray(start, dtype=np.int64)
+    length = np.asarray(length, dtype=np.int32)
+    count = np.asarray(count, dtype=np.int32)
+    codes = np.asarray(codes)
+    long = length > max_piece
+    if not long.any():
+        return start, length, count, codes[:, :max_piece]
+    s_out = [start[~long]]
+    l_out = [length[~long]]
+    c_out = [count[~long]]
+    code_out = [codes[~long][:, :max_piece]]
+    for i in np.nonzero(long)[0]:
+        L = int(length[i])
+        for off in range(0, L, max_piece):
+            ln = min(max_piece, L - off)
+            row = np.full(max_piece, CODE_DOT, dtype=np.uint8)
+            row[:ln] = codes[i, off : off + ln]
+            s_out.append(np.array([start[i] + off]))
+            l_out.append(np.array([ln], dtype=np.int32))
+            c_out.append(np.array([count[i]], dtype=np.int32))
+            code_out.append(row[None])
+    start = np.concatenate(s_out)
+    order = np.argsort(start, kind="stable")
+    return (
+        start[order],
+        np.concatenate(l_out)[order],
+        np.concatenate(c_out)[order],
+        np.concatenate(code_out)[order],
+    )
+
+
+def _prep_window(start, length, count, codes, window_start, window_len):
+    """Split long frags, clip to the window; returns (rel, length, count,
+    codes) with rel in [0, window_len) and length <= SB."""
+    codes = np.asarray(codes)
+    start, length, count, codes = _split_long(start, length, count, codes)
+    rel = (np.asarray(start) - window_start).astype(np.int64)
+    keep = (rel + length > 0) & (rel < window_len)
+    rel, length, count, codes = (rel[keep], length[keep], count[keep],
+                                 codes[keep])
+    neg = np.nonzero(rel < 0)[0]
+    if neg.size:
+        codes = codes.copy()
+        width = codes.shape[1]
+        for idx in neg:
+            sh = int(-rel[idx])
+            row = np.full(width, CODE_DOT, dtype=np.uint8)
+            ln = max(int(length[idx]) - sh, 0)
+            if ln > 0:
+                row[:ln] = codes[idx, sh : sh + ln]
+            codes[idx] = row
+            length[idx] = ln
+            rel[idx] = 0
+        pos = length > 0
+        rel, length, count, codes = (rel[pos], length[pos], count[pos],
+                                     codes[pos])
+    return rel, length, count, codes
+
+
+def stage_v3(start, length, count, codes, window_start, window_len,
+             tile=None, rc=None, g_max=None, classes="auto"):
+    """Host staging of one fragment batch over the 1-based window
+    [window_start, window_start + window_len).
+
+    Returns the JAX package's staged tuple (numpy), byte for byte:
+    (c0, c1, meta, plane, None, max_chunks, tile, rc, g_max, "vals") when
+    every count is < 256, else a list with one classic tuple
+    (c0, c1, meta, words, max_chunks, tile, rc, g_max) per rc class.
+    Geometry left as None takes the form's default (VALS_GEOMETRY or
+    CLASSIC_GEOMETRY); explicit `classes` set rc to the largest class.
+    Raises when the native packer is unavailable."""
+    require_native()
+    rel, length, count, codes = _prep_window(
+        start, length, count, codes, window_start, window_len)
+    F = rel.shape[0]
+
+    # split at sub-block boundaries: each fragment (len <= SB) yields <= 2
+    # pieces, each inside a single sub-block
+    rr_all = (rel % SB).astype(np.int64)
+    g_all = (rel // SB).astype(np.int64)
+    len1 = np.minimum(length, SB - rr_all).astype(np.int64)
+    len2 = (length - len1).astype(np.int64)
+    has2 = len2 > 0
+
+    p_g = np.concatenate([g_all, g_all[has2] + 1])
+    p_rr = np.concatenate([rr_all, np.zeros(int(has2.sum()), np.int64)])
+    p_len = np.concatenate([len1, len2[has2]])
+    p_cnt = np.concatenate([count, count[has2]]).astype(np.int32)
+    # piece code source: (frag index, column offset within the fragment)
+    p_src = np.concatenate([np.arange(F), np.nonzero(has2)[0]])
+    p_off = np.concatenate([np.zeros(F, np.int64), len1[has2]])
+
+    order = np.argsort(p_g, kind="stable")
+    p_g, p_rr, p_len, p_cnt = (p_g[order], p_rr[order], p_len[order],
+                               p_cnt[order])
+    p_src, p_off = p_src[order], p_off[order]
+
+    # value planes hold one count per byte: any count >= 256 (and the
+    # empty batch, as in JAX) takes the classic per-count-row form
+    vals = bool(F and int(p_cnt.max(initial=0)) < 256)
+    geom = VALS_GEOMETRY if vals else CLASSIC_GEOMETRY
+    if classes == "auto":
+        classes = geom["classes"]
+    tile = geom["tile"] if tile is None else tile
+    rc = geom["rc"] if rc is None else rc
+    g_max = geom["g_max"] if g_max is None else g_max
+    if classes is not None:
+        classes = tuple(sorted(int(c) for c in classes))
+        if not classes or classes[0] < 8 or any(c % 8 for c in classes):
+            raise ValueError(f"bad rc classes {classes}: each must be a "
+                             "multiple of 8, >= 8")
+        rc = classes[-1]
+    if tile % SB:
+        raise ValueError(f"tile={tile} must be a multiple of SB={SB}")
+    tile_sb = tile // SB
+
+    if F:
+        # value-plane rows are count-agnostic: pieces of any count share
+        pk_cnt = np.ones_like(p_cnt) if vals else p_cnt
+        packed = _native_ok(native.pack_rows_native(p_g, pk_cnt, p_rr, p_len),
+                            "pack_rows128")
+    else:
+        packed = (np.zeros(0, np.int32),) * 3
+    piece_row, row_g, row_count = packed
+    R = row_g.shape[0]
+
+    if vals:
+        all_mv = np.zeros((max(R, 1), SB), dtype=np.uint8)
+        all_cv = np.zeros((max(R, 1), SB), dtype=np.uint8)
+        _native_ok(native.place_vals_native(codes, p_src, p_off, p_rr, p_len,
+                                            p_cnt, piece_row, all_mv, all_cv),
+                   "place_vals_rows")
+    else:
+        all_words = np.full((max(R, 1), SB // 16), -1, dtype=np.int32)
+        if F:
+            _native_ok(native.place_pack_native(codes, p_src, p_off, p_rr,
+                                                p_len, piece_row, all_words),
+                       "place_pack_rows")
+
+    # chunking over rows: bounded rows, sub-block span, single tile
+    row_tile = row_g // tile_sb
+    breaks = [0]
+    cstart = 0
+    while cstart < R:
+        lim1 = cstart + rc - 1
+        lim2 = int(np.searchsorted(row_g, row_g[cstart] + g_max, side="left"))
+        lim3 = int(np.searchsorted(row_tile, row_tile[cstart] + 1,
+                                   side="left"))
+        nxt = max(min(lim1, lim2, lim3, R), cstart + 1)
+        breaks.append(nxt)
+        cstart = nxt
+    bstarts = np.asarray(breaks[:-1], dtype=np.int64)
+    bends = np.asarray(breaks[1:], dtype=np.int64)
+    if not R:
+        if vals:
+            all_mv = np.zeros((0, SB), dtype=np.uint8)
+            all_cv = np.zeros((0, SB), dtype=np.uint8)
+        else:
+            all_words = np.zeros((0, SB // 16), dtype=np.int32)
+    rows = (all_mv, all_cv) if vals else all_words
+    num_tiles = (window_len + tile - 1) // tile
+    if classes is None:
+        return _assemble_class(row_g, row_tile, row_count, rows, bstarts,
+                               bends, rc, g_max, tile, num_tiles, R)
+    out = []
+    lens_c = bends - bstarts
+    lo = 0
+    for rc_c in classes:
+        # a class-rc_c chunk holds at most rc_c - 1 rows: row rc_c - 1 must
+        # stay padding (it carries the base_g stash)
+        sel = (lens_c > lo) & (lens_c <= rc_c - 1) if rc_c != classes[-1] \
+            else (lens_c > lo)
+        out.append(_assemble_class(
+            row_g, row_tile, row_count, rows, bstarts[sel], bends[sel],
+            rc_c, g_max, tile, num_tiles, R))
+        lo = rc_c - 1
+    return out
+
+
+def _assemble_class(row_g, row_tile, row_count, rows, bstarts, bends, rc,
+                    g_max, tile, num_tiles, R):
+    """One staged tuple from a (sorted, disjoint) subset of chunk row
+    ranges. `rows` is (mv, cv) for the value-plane form, which becomes one
+    fused (n_chunks*rc, 256) plane, or the (R, 8) code words of the classic
+    form. Padding rows are zero values / all-'.' words."""
+    vals = isinstance(rows, tuple)
+    n_real = max(bstarts.shape[0], 1)
+    gran = 1 << max(4, n_real.bit_length() - 3)
+    n_chunks = (n_real + gran - 1) // gran * gran
+
+    meta = np.zeros((n_chunks, 2, rc), dtype=np.int32)
+    meta[:, 1, :] = g_max  # padding rows select no sub-block
+    if vals:
+        plane = np.zeros((n_chunks * rc, 2 * SB), dtype=np.uint8)
+    else:
+        plane = np.full((n_chunks * rc, SB // 16), -1,
+                        dtype=np.int32)  # all '.'
+    if R and bstarts.shape[0]:
+        lens_c = bends - bstarts
+        ci_arr = np.repeat(np.arange(bstarts.shape[0]), lens_c)
+        src = np.repeat(bstarts, lens_c) + (
+            np.arange(int(lens_c.sum())) -
+            np.repeat(np.cumsum(lens_c) - lens_c, lens_c))
+        pos_arr = src - np.repeat(bstarts, lens_c)
+        base_g = row_g[bstarts]
+        meta[ci_arr, 0, pos_arr] = row_count[src]
+        meta[ci_arr, 1, pos_arr] = (row_g[src] - base_g[ci_arr]).astype(
+            np.int32)
+        # base_g stashed in the guaranteed-padding row rc-1 (offset by g_max
+        # so the padding default there still selects no sub-block)
+        meta[: bstarts.shape[0], 1, rc - 1] = base_g + g_max
+        dst = ci_arr * rc + pos_arr
+        if vals:
+            plane[dst, :SB] = rows[0][src]
+            plane[dst, SB:] = rows[1][src]
+        else:
+            plane[dst] = rows[src]
+        chunk_tile = row_tile[bstarts]
+        c0 = np.searchsorted(chunk_tile, np.arange(num_tiles), side="left")
+        c1 = np.searchsorted(chunk_tile, np.arange(num_tiles), side="right")
+    else:
+        c0 = np.zeros(num_tiles, dtype=np.int64)
+        c1 = np.zeros(num_tiles, dtype=np.int64)
+    # kept for layout identity with JAX (its tiled grid's step count)
+    max_chunks = max(int((c1 - c0).max(initial=1)), 1)
+    max_chunks = 1 << (max_chunks - 1).bit_length()
+    c0, c1 = c0.astype(np.int32), c1.astype(np.int32)
+    if vals:
+        return (c0, c1, meta, plane, None, max_chunks, tile, rc, g_max,
+                "vals")
+    return (c0, c1, meta, plane, max_chunks, tile, rc, g_max)
+
+
+# ---------------------------------------------------------------------------
+# Staged batches on a device
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Staged:
+    """One staged batch as tensors on one device.
+
+    form "vals": rows = uint8 (n_chunks*rc, 256), the fused meth|cov value
+    plane. form "classic": rows = int32 (n_chunks*rc, 8), planar 2-bit code
+    words, with each row's repeat count in meta[:, 0]. c0/c1 = int32
+    (num_tiles,) chunk range of each output tile; meta = int32
+    (n_chunks, 2, rc)."""
+
+    form: str
+    c0: torch.Tensor
+    c1: torch.Tensor
+    meta: torch.Tensor
+    rows: torch.Tensor
+    tile: int
+    rc: int
+    g_max: int
+
+    @property
+    def tile_sb(self):
+        return self.tile // SB
+
+    @property
+    def device(self):
+        return self.meta.device
+
+
+def staged_from_numpy(staged, device):
+    """A numpy staged tuple (from this module's or the JAX package's
+    stage_v3), or a list of them, -> Staged tensors on `device`.
+
+    Only the forms with a port kernel are accepted: the fused value plane
+    and the classic words. The chunk ranges are checked here, on the host,
+    because the kernels index chunks with them."""
+    if isinstance(staged, list):
+        return [staged_from_numpy(st, device) for st in staged]
+    if len(staged) == 10:
+        c0, c1, meta, rows, cvp, _max_chunks, tile, rc, g_max, tag = staged
+        if cvp is not None or tag != "vals":
+            raise ValueError("split value planes (cv given) have no kernel "
+                             "in the port; stage the fused plane")
+        form = "vals"
+    elif len(staged) == 8:
+        c0, c1, meta, rows, _max_chunks, tile, rc, g_max = staged
+        form = "classic"
+    else:
+        raise ValueError(f"a staged tuple of {len(staged)} fields (the "
+                         "lane-count form) has no kernel in the port")
+    c0, c1 = np.asarray(c0), np.asarray(c1)
+    n_chunks = np.asarray(meta).shape[0]
+    if ((c0 < 0) | (c0 > c1) | (c1 > n_chunks)).any():
+        raise ValueError("staged chunk ranges c0/c1 out of bounds")
+    dev = torch.device(device)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return Staged(form, put(c0), put(c1), put(meta), put(rows), int(tile),
+                  int(rc), int(g_max))
+
+
+def _check(st, form, window_len):
+    """Validate a staged batch for `form`'s kernel; returns num_tiles."""
+    if st.form != form:
+        raise ValueError(f"staged form {st.form!r} given to the {form!r} "
+                         "kernel")
+    if window_len < 1:
+        raise ValueError(f"window_len={window_len} must be >= 1")
+    if st.tile % SB or st.tile < SB:
+        raise ValueError(f"tile={st.tile} must be a positive multiple of "
+                         f"{SB}")
+    if st.rc < 2 or st.g_max < 1:
+        raise ValueError(f"rc={st.rc}, g_max={st.g_max}: a chunk needs a "
+                         "padding row (rc >= 2) and g_max >= 1")
+    if st.tile_sb * 2 * SB * 4 > MAX_SMEM_BYTES:
+        raise ValueError(f"tile={st.tile}: the tile accumulator exceeds "
+                         f"{MAX_SMEM_BYTES} bytes of shared memory")
+    num_tiles = (window_len + st.tile - 1) // st.tile
+    n_chunks = st.meta.shape[0]
+    width, dtype = ((2 * SB, torch.uint8) if form == "vals"
+                    else (SB // 16, torch.int32))
+    want = {"c0": ((num_tiles,), torch.int32),
+            "c1": ((num_tiles,), torch.int32),
+            "meta": ((n_chunks, 2, st.rc), torch.int32),
+            "rows": ((n_chunks * st.rc, width), dtype)}
+    for name, (shape, dt) in want.items():
+        x = getattr(st, name)
+        if (tuple(x.shape) != shape or x.dtype != dt
+                or x.device != st.device or not x.is_contiguous()):
+            raise ValueError(
+                f"staged {name}: got {x.dtype} {tuple(x.shape)} on "
+                f"{x.device} (contiguous={x.is_contiguous()}), want {dt} "
+                f"{shape} on {st.device}, contiguous")
+    return num_tiles
+
+
+def _launch(name, st, window_len, num_tiles):
+    """Launch a kernel of csrc/pileup_v3.cu on the current stream; returns
+    the (window_len, 2) int32 output, every row written by the kernel."""
+    dev = st.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: tensors on {dev}; the kernel takes CUDA "
+                         "tensors and its plain twin CPU tensors")
+    lib = _kernels.load()
+    out = torch.empty((window_len, 2), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = getattr(lib, name)(
+        dev.index, st.c0.data_ptr(), st.c1.data_ptr(), st.meta.data_ptr(),
+        st.rows.data_ptr(), out.data_ptr(), num_tiles, window_len,
+        st.tile_sb, st.rc, st.g_max, stream)
+    _kernels.check(err, name)
+    return out
+
+
+def flat_vals_fused(st, window_len):
+    """Pileup of a "vals" staged batch -> int32 (window_len, 2) [meth, cov].
+
+    Replaces pileup_tpu3.py::_kernel_flat_vals_fused. CUDA tensors launch
+    the kernel; CPU tensors take flat_vals_fused_plain."""
+    num_tiles = _check(st, "vals", window_len)
+    if st.device.type == "cpu":
+        return flat_vals_fused_plain(st, window_len)
+    out = _launch("pileup_flat_vals_fused", st, window_len, num_tiles)
+    flat_vals_fused.launches += 1
+    return out
+
+
+flat_vals_fused.launches = 0
+
+
+def flat_classic(st, window_len):
+    """Pileup of a "classic" staged batch -> int32 (window_len, 2).
+
+    Replaces pileup_tpu3.py::_kernel_flat. CUDA tensors launch the kernel;
+    CPU tensors take flat_classic_plain."""
+    num_tiles = _check(st, "classic", window_len)
+    if st.device.type == "cpu":
+        return flat_classic_plain(st, window_len)
+    out = _launch("pileup_flat_classic", st, window_len, num_tiles)
+    flat_classic.launches += 1
+    return out
+
+
+flat_classic.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch twins (the CPU path, and the kernels' oracle on the card)
+# ---------------------------------------------------------------------------
+
+
+def _row_targets(st, num_tiles):
+    """Accumulator row (global sub-block) of every staged row, or the drop
+    row num_tiles * tile_sb where a kernel skips the row: padding rows
+    (dg outside [0, g_max)), chunks in no tile's range, and sub-blocks
+    outside their chunk's tile."""
+    dev = st.device
+    n_chunks = st.meta.shape[0]
+    lens = (st.c1 - st.c0).to(torch.int64)
+    n_in = int(lens.sum())
+    tiles = torch.repeat_interleave(
+        torch.arange(num_tiles, dtype=torch.int64, device=dev), lens)
+    firsts = torch.repeat_interleave(st.c0.to(torch.int64), lens)
+    offs = (torch.arange(n_in, dtype=torch.int64, device=dev)
+            - torch.repeat_interleave(torch.cumsum(lens, 0) - lens, lens))
+    chunk_tile = torch.full((n_chunks,), -1, dtype=torch.int64, device=dev)
+    chunk_tile[firsts + offs] = tiles
+    ct = chunk_tile[:, None]
+    dg = st.meta[:, 1, :].to(torch.int64)
+    sb = dg[:, -1:] - st.g_max - ct * st.tile_sb + dg  # sub-block in tile
+    ok = ((ct >= 0) & (dg >= 0) & (dg < st.g_max) & (sb >= 0)
+          & (sb < st.tile_sb))
+    return torch.where(ok, ct * st.tile_sb + sb,
+                       num_tiles * st.tile_sb).reshape(-1)
+
+
+def _scatter_rows(st, vals, window_len):
+    """index_add_ int32 (rows, 256) meth|cov values into a per-sub-block
+    accumulator -> (window_len, 2)."""
+    num_tiles = (window_len + st.tile - 1) // st.tile
+    acc = torch.zeros((num_tiles * st.tile_sb + 1, 2 * SB),
+                      dtype=torch.int32, device=st.device)
+    acc.index_add_(0, _row_targets(st, num_tiles), vals)
+    acc = acc[:-1]
+    return torch.stack([acc[:, :SB].reshape(-1), acc[:, SB:].reshape(-1)],
+                       dim=1)[:window_len]
+
+
+def flat_vals_fused_plain(st, window_len):
+    """Twin of the flat_vals_fused kernel in plain PyTorch."""
+    return _scatter_rows(st, st.rows.to(torch.int32), window_len)
+
+
+def flat_classic_plain(st, window_len):
+    """Twin of the flat_classic kernel in plain PyTorch: decode the planar
+    words (site l = field l // 8 of word l % 8), mask the row counts."""
+    lane = torch.arange(SB, dtype=torch.int32, device=st.device)
+    codes = (st.rows[:, (lane % 8).long()] >> (2 * (lane // 8))) & 3
+    cnt = st.meta[:, 0, :].reshape(-1, 1)
+    meth = torch.where((codes == 1) | (codes == 2), cnt, 0)
+    cov = torch.where(codes != CODE_DOT, cnt, 0)
+    return _scatter_rows(st, torch.cat([meth, cov], dim=1), window_len)
+
+
+# ---------------------------------------------------------------------------
+# Dispatch
+# ---------------------------------------------------------------------------
+
+
+def call_staged(staged, window_len):
+    """Run a Staged batch (or a list: the classic form's rc classes, whose
+    disjoint chunk sets sum exactly) through its kernel -> int32
+    (window_len, 2) [meth, cov] on the staged device."""
+    if isinstance(staged, list):
+        out = None
+        for st in staged:
+            res = call_staged(st, window_len)
+            out = res if out is None else out.add_(res)
+        return out
+    if staged.form == "vals":
+        return flat_vals_fused(staged, window_len)
+    return flat_classic(staged, window_len)
+
+
+def pileup_v3(start, length, count, codes, window_start, window_len, device,
+              **geometry):
+    """Pileup over the 1-based window [window_start, window_start +
+    window_len) -> int32 (window_len, 2) [meth, cov] on `device`: staging,
+    upload, kernel."""
+    staged = stage_v3(start, length, count, codes, window_start, window_len,
+                      **geometry)
+    return call_staged(staged_from_numpy(staged, device), window_len)
