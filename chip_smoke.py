@@ -13,17 +13,30 @@ result line:
      over hg19's 28,217,448 CpG sites and a small pat with counts up to
      3000 are written. Each CUDA kernel is held against its plain PyTorch
      twin on the card on the batch the main path gives it: the first
-     streamed slab of its pat (the big pat's for the value-plane kernel,
-     the deep pat's for the classic one), staged as PileupAccumulator.add
-     stages it at the default geometry; then on the same slab with the
-     middle third of its span emptied, so the window has empty tiles.
-     Exactly equal (tolerance 0, the counts are integers); kernel and twin
-     times (CUDA events) on the unaltered slab.
+     streamed slab of its pat (the big pat's for the value-plane kernels,
+     fused and split planes, the deep pat's for the classic one), staged
+     as PileupAccumulator.add stages it at the default geometry; then on
+     the same slab with the middle third of its span emptied, so the
+     window has empty tiles. flat_vals_add, in both plane forms, starts
+     from a seeded nonzero total, and the rows of the empty tiles must
+     come back unchanged. Exactly equal (tolerance 0, the counts are
+     integers); kernel and twin times (CUDA events) on the unaltered slab;
+     no launch may change the current CUDA device.
   4. pat2beta end to end: both pats go through the port's CLI on cuda,
      with the kernels' launch counters set to 0 just before and read just
      after; each .beta / .lbeta must equal the host oracle's bytes (the
      port's "native" backend: wgbs_tools_tpu.native.pileup_native, then
      trim_to_uint). A second, timed run prints seconds per stage.
+  5. sharded: pat2beta over 4 site shards on the one card
+     (devices=shard_devices("cuda", n_shards=4)) writes phase 4's oracle
+     bytes for both pats (flat_vals_add and flat_classic must launch);
+     then the big pat's first slab through the sharded and the
+     single-device accumulator with split planes (flat_vals_add's split
+     form, and flat_vals) equals the sharded default.
+  6. processes: `python -m wgbs_tools_tpu_torch pat2beta big.pat.gz
+     --procs 2`, both workers on cuda:0, writes the oracle bytes, and each
+     worker's launch line shows flat_vals_add; the same CLI in one process
+     runs beside it for the wall.
 Then a summary (the card line again, build, end to end), one
 {"kernels": [...]} line, and last {"ok": true, "device": ...}.
 
@@ -36,6 +49,7 @@ import os
 import os.path as op
 import re
 import shutil
+import signal
 import struct
 import subprocess
 import sys
@@ -52,7 +66,9 @@ MAX_LEN = 24
 SLAB = 2_000_000      # fragments generated per slab
 SOURCE = "wgbs_tools_tpu_torch/csrc/pileup_v3.cu"
 REPLACES = {"flat_vals_fused": "wgbs_tools_tpu/ops/pileup_tpu3.py:457",
-            "flat_classic": "wgbs_tools_tpu/ops/pileup_tpu3.py:177"}
+            "flat_classic": "wgbs_tools_tpu/ops/pileup_tpu3.py:177",
+            "flat_vals": "wgbs_tools_tpu/ops/pileup_tpu3.py:391",
+            "flat_vals_add": "wgbs_tools_tpu/ops/pileup_tpu3.py:569"}
 BGZF_EOF = bytes.fromhex("1f8b08040000000000ff0600424302001b0003000000000000"
                          "000000")
 
@@ -212,6 +228,26 @@ def phase_build():
     return build_s, regs
 
 
+def _zero_launches():
+    from wgbs_tools_tpu_torch.ops import pileup_v3 as pv3
+
+    for name in REPLACES:
+        getattr(pv3, name).launches = 0
+
+
+def _read_launches():
+    from wgbs_tools_tpu_torch.ops import pileup_v3 as pv3
+
+    return {name: getattr(pv3, name).launches for name in REPLACES}
+
+
+def _require_launches(what, launches, names):
+    missing = [n for n in names if launches.get(n, 0) < 1]
+    if missing:
+        raise RuntimeError(f"{what}: a kernel of the path never launched "
+                           f"({', '.join(missing)}): {launches}")
+
+
 def _time_ms(fn, reps):
     import torch
 
@@ -246,22 +282,59 @@ def phase_data(work, n_frags):
     return big, deep
 
 
-def _stage(frags, lo, span, dev):
+def _first_slab(pat):
+    """The first streamed slab of a pat, as the main path reads it:
+    (fragments overlapping the genome, lo, span)."""
+    from wgbs_tools_tpu.formats.pat import iter_pat
+    from wgbs_tools_tpu_torch.ops.pileup import overlap_span
+    from wgbs_tools_tpu_torch.pipeline.pat2beta import DEF_CHUNK_BYTES
+
+    it = iter_pat(pat, chunk_bytes=DEF_CHUNK_BYTES)
+    sel, lo, hi = overlap_span(next(it), (1, N_SITES + 1))
+    it.close()
+    return sel, lo, hi - lo
+
+
+def _holed(sel, lo, span):
+    """The slab with no fragment starting in the middle third of its span:
+    a window with empty tiles. Returns (fragments, number taken out)."""
+    import numpy as np
+
+    start = np.asarray(sel.start)
+    hole = (start >= lo + span // 3) & (start < lo + 2 * span // 3)
+    return sel.take(np.nonzero(~hole)[0]), int(hole.sum())
+
+
+def _stage(frags, lo, span, dev, fused=True):
     """A batch staged as PileupAccumulator.add stages it for the kernels
     (default geometry), as a list of Staged on `dev`."""
     from wgbs_tools_tpu_torch.ops import pileup_v3 as pv3
 
     staged = pv3.stage_v3(frags.start, frags.length, frags.count,
-                          frags.codes, lo, span)
+                          frags.codes, lo, span, fused=fused)
     return pv3.staged_from_numpy(
         staged if isinstance(staged, list) else [staged], dev)
+
+
+def _launch_checked(kernel, *args, **kwargs):
+    """A call that launches kernels and must leave the current CUDA device
+    as it was."""
+    import torch
+
+    before = torch.cuda.current_device()
+    out = kernel(*args, **kwargs)
+    after = torch.cuda.current_device()
+    if after != before:
+        raise RuntimeError(f"{kernel.__name__} moved the current device "
+                           f"from {before} to {after}")
+    return out
 
 
 def _kernel_vs_twin(name, kernel, plain, sts, span):
     """Exact comparison of a kernel with its twin; returns max abs err."""
     import torch
 
-    got = sum(kernel(st, span) for st in sts)
+    got = sum(_launch_checked(kernel, st, span) for st in sts)
     want = sum(plain(st, span) for st in sts)
     torch.cuda.synchronize()
     err = int((got.to(torch.int64) - want).abs().max())
@@ -270,29 +343,57 @@ def _kernel_vs_twin(name, kernel, plain, sts, span):
     return err
 
 
+def _empty_rows(st, span):
+    """Boolean (span,) mask of the sites in tiles that get no chunk."""
+    import torch
+
+    return torch.repeat_interleave((st.c1 - st.c0) == 0, st.tile)[:span]
+
+
+def _add_vs_twin(st, span, total0):
+    """flat_vals_add against its twin from the same nonzero total: exactly
+    equal, and the rows of tiles without chunks unchanged. Returns (max
+    abs err, number of empty tiles)."""
+    import torch
+
+    from wgbs_tools_tpu_torch.ops import pileup_v3 as pv3
+
+    got = _launch_checked(pv3.flat_vals_add, total0.clone(), st, span)
+    want = pv3.flat_vals_add_plain(total0.clone(), st, span)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - want).abs().max())
+    if not torch.equal(got, want):
+        raise RuntimeError(f"flat_vals_add ({st.form}): kernel != twin "
+                           f"(max abs err {err})")
+    empty = _empty_rows(st, span)
+    if not torch.equal(got[empty], total0[empty]):
+        raise RuntimeError(f"flat_vals_add ({st.form}): rows of tiles "
+                           "without chunks changed")
+    return err, int(((st.c1 - st.c0) == 0).sum())
+
+
 def phase_kernels(big, deep):
     """Each kernel vs its twin on the first streamed slab of its pat,
-    staged as the main path stages it, and on that slab with a hole."""
+    staged as the main path stages it, and on that slab with a hole.
+    Returns (per-kernel results, the big pat's first slab)."""
     import numpy as np
     import torch
 
-    from wgbs_tools_tpu.formats.pat import iter_pat
     from wgbs_tools_tpu_torch.ops import pileup_v3 as pv3
-    from wgbs_tools_tpu_torch.ops.pileup import overlap_span
-    from wgbs_tools_tpu_torch.pipeline.pat2beta import DEF_CHUNK_BYTES
 
     dev = torch.device("cuda")
-    out = {}
+    slabs = {big: _first_slab(big), deep: _first_slab(deep)}
+    out, kept = {}, {}  # kept: form -> (staged slab, staged holed slab)
     for name, pat, form, kernel, plain in (
             ("flat_vals_fused", big, "vals", pv3.flat_vals_fused,
              pv3.flat_vals_fused_plain),
+            ("flat_vals", big, "vals_split", pv3.flat_vals,
+             pv3.flat_vals_plain),
             ("flat_classic", deep, "classic", pv3.flat_classic,
              pv3.flat_classic_plain)):
-        it = iter_pat(pat, chunk_bytes=DEF_CHUNK_BYTES)
-        sel, lo, hi = overlap_span(next(it), (1, N_SITES + 1))
-        it.close()
-        span = hi - lo
-        sts = _stage(sel, lo, span, dev)
+        sel, lo, span = slabs[pat]
+        fused = form != "vals_split"
+        sts = _stage(sel, lo, span, dev, fused)
         if any(st.form != form for st in sts):
             raise RuntimeError(f"{name}: the slab staged as "
                                f"{[st.form for st in sts]}, not {form!r}")
@@ -302,11 +403,8 @@ def phase_kernels(big, deep):
         rows = sum(st.rows.shape[0] for st in sts)
         geo = ", ".join(f"rc={st.rc} tile={st.tile} g_max={st.g_max} "
                         f"chunks={st.meta.shape[0]}" for st in sts)
-        # the same slab with no fragment starting in the middle third of
-        # its span: a window with empty tiles
-        start = np.asarray(sel.start)
-        hole = (start >= lo + span // 3) & (start < lo + 2 * span // 3)
-        holed = _stage(sel.take(np.nonzero(~hole)[0]), lo, span, dev)
+        holed_frags, n_out = _holed(sel, lo, span)
+        holed = _stage(holed_frags, lo, span, dev, fused)
         empty = int((sum(st.c1 - st.c0 for st in holed) == 0).sum())
         if not empty:
             raise RuntimeError(f"{name}: the holed slab has no empty tile")
@@ -314,12 +412,42 @@ def phase_kernels(big, deep):
         log(f"phase 3: {name}: kernel == twin (max_abs_err {err}) on the "
             f"first slab of {op.basename(pat)}: {sel.nr_frags:,} frags over "
             f"{span:,} sites, {rows:,} staged rows [{geo}], and on it with "
-            f"{int(hole.sum()):,} frags taken out ({empty} empty tiles); "
+            f"{n_out:,} frags taken out ({empty} empty tiles); "
             f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms per slab "
             f"({len(sts)} launch(es))")
         out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "slab_frags": sel.nr_frags, "slab_sites": span}
-    return out
+        kept[form] = (sts[0], holed[0])
+
+    # flat_vals_add in both plane forms, from a seeded nonzero total
+    sel, lo, span = slabs[big]
+    total0 = torch.from_numpy(np.random.default_rng(3).integers(
+        -(1 << 20), 1 << 20, size=(span, 2), dtype=np.int32)).to(dev)
+    res = {}
+    for st, holed in (kept["vals"], kept["vals_split"]):
+        err, _ = _add_vs_twin(st, span, total0)
+        herr, empty = _add_vs_twin(holed, span, total0)
+        if not empty:
+            raise RuntimeError("flat_vals_add: the holed slab has no empty "
+                               "tile")
+        total = total0.clone()
+        ms = _time_ms(lambda: pv3.flat_vals_add(total, st, span), 20)
+        plain_ms = _time_ms(lambda: pv3.flat_vals_add_plain(total, st, span),
+                            5)
+        res[st.form] = {"max_abs_err": max(err, herr), "ms": ms,
+                        "plain_ms": plain_ms, "empty_tiles": empty}
+        log(f"phase 3: flat_vals_add ({st.form}): kernel == twin (max_abs_err "
+            f"{max(err, herr)}) from a nonzero total on the big pat's first "
+            f"slab and on it with a hole ({empty} empty tiles, their rows "
+            f"unchanged); kernel {ms:.4f} ms, twin {plain_ms:.4f} ms per "
+            "slab")
+    out["flat_vals_add"] = {
+        "max_abs_err": max(r["max_abs_err"] for r in res.values()),
+        "ms": res["vals"]["ms"], "plain_ms": res["vals"]["plain_ms"],
+        "split_ms": res["vals_split"]["ms"],
+        "split_plain_ms": res["vals_split"]["plain_ms"],
+        "slab_frags": sel.nr_frags, "slab_sites": span}
+    return out, slabs[big]
 
 
 def _same(a, b):
@@ -337,22 +465,19 @@ def phase_pat2beta(work, big, deep, n_frags):
 
     out_gpu = op.join(work, "gpu")
     os.makedirs(out_gpu)
-    pv3.flat_vals_fused.launches = 0
-    pv3.flat_classic.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     if cli_main(["pat2beta", big, deep, "-o", out_gpu, "--device", "cuda"]):
         raise RuntimeError("pat2beta CLI failed")
     wall = time.perf_counter() - t0
     if cli_main(["pat2beta", deep, "-l", "-o", out_gpu, "--device", "cuda"]):
         raise RuntimeError("pat2beta -l CLI failed")
-    launches = {"flat_vals_fused": pv3.flat_vals_fused.launches,
-                "flat_classic": pv3.flat_classic.launches}
+    launches = _read_launches()
     cli = (f"CLI pat2beta on cuda: {wall:.3f} s for both pats "
            f"({(n_frags + 200_000) / wall / 1e6:.3f} M frags/s); kernel "
            f"launches {launches}")
     log("phase 4: " + cli)
-    if min(launches.values()) < 1:
-        raise RuntimeError(f"a kernel of the path never launched: {launches}")
+    _require_launches("phase 4", launches, ("flat_vals_fused", "flat_classic"))
 
     t0 = time.perf_counter()
     for pat, lbeta in ((big, False), (deep, False), (deep, True)):
@@ -387,6 +512,136 @@ def phase_pat2beta(work, big, deep, n_frags):
     return launches, cli + "; " + stages
 
 
+def phase_sharded(work, big, deep, n_frags, slab):
+    """pat2beta over 4 site shards on the one card against phase 4's
+    oracle files, then the first big slab through the split-plane paths.
+    Returns (launches of the sharded pat2beta, launches of the split run,
+    summary line)."""
+    import torch
+
+    from wgbs_tools_tpu_torch.ops.pileup import PileupAccumulator
+    from wgbs_tools_tpu_torch.parallel.mesh import shard_devices
+    from wgbs_tools_tpu_torch.parallel.sharded import ShardedPileupV3
+    from wgbs_tools_tpu_torch.pipeline.pat2beta import pat2beta
+
+    devs = shard_devices("cuda", n_shards=4)
+    out = op.join(work, "sharded")
+    os.makedirs(out)
+    _zero_launches()
+    t0 = time.perf_counter()
+    walls = {}
+    for pat, lbeta in ((big, False), (deep, False), (deep, True)):
+        suff = ".lbeta" if lbeta else ".beta"
+        name = op.basename(pat)[: -len(".pat.gz")]
+        t1 = time.perf_counter()
+        got = _launch_checked(pat2beta, pat, lbeta=lbeta, devices=devs,
+                              out_path=op.join(out, name + suff))
+        walls[name + suff] = time.perf_counter() - t1
+        if not _same(got, op.join(work, name + ".oracle" + suff)):
+            raise RuntimeError(f"sharded {name}{suff} differs from the host "
+                               "oracle")
+        log(f"phase 5: sharded {name}{suff} == host oracle "
+            f"({walls[name + suff]:.3f} s)")
+    launches = _read_launches()
+    wall = walls["big.beta"] + walls["deep.beta"]
+    line = (f"sharded pat2beta, 4 shards on one card: {wall:.3f} s for both "
+            f"pats' .beta ({(n_frags + 200_000) / wall / 1e6:.3f} M frags/s), "
+            f"big {walls['big.beta']:.3f} s; kernel launches {launches}")
+    log("phase 5: " + line)
+    _require_launches("phase 5", launches, ("flat_vals_add", "flat_classic"))
+
+    # the first big slab, staged with split planes: the sharded path (the
+    # split form of flat_vals_add) and the single-device accumulator (the
+    # flat_vals kernel), against the default sharded path (fused planes)
+    sel, _, _ = slab
+    window = (1, N_SITES + 1)
+    ref = ShardedPileupV3(devs, window)
+    ref.add(sel)
+    want = ref.result()
+    _zero_launches()
+    split = ShardedPileupV3(devs, window, fused=False)
+    split.add(sel)
+    single = PileupAccumulator(window, torch.device("cuda"), fused=False)
+    single.add(sel)
+    torch.cuda.synchronize()
+    split_launches = _read_launches()
+    for what, acc in (("sharded fused=False", split),
+                      ("single-device fused=False", single)):
+        if not (acc.result() == want).all():
+            raise RuntimeError(f"{what} != the sharded default on the "
+                               "first big slab")
+    log(f"phase 5: the first big slab ({sel.nr_frags:,} frags) through the "
+        "sharded and the single-device accumulator with split planes == the "
+        f"sharded default; kernel launches {split_launches}")
+    _require_launches("phase 5 (split planes)", split_launches,
+                      ("flat_vals", "flat_vals_add"))
+    return launches, split_launches, line
+
+
+def _run_group(cmd, timeout):
+    """Run a command in its own process group (it starts workers); on a
+    timeout kill the whole group. Returns (rc, stdout, stderr)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise RuntimeError(f"{' '.join(cmd)} timed out after {timeout} s:\n"
+                           f"{err[-3000:]}")
+    return proc.returncode, out, err
+
+
+def phase_procs(work, big, n_frags):
+    """`pat2beta --procs 2` through the CLI, both workers on cuda:0,
+    against phase 4's oracle; the same CLI without --procs beside it.
+    Returns (per-worker launches, summary line)."""
+    walls, workers = {}, {}
+    for procs in (2, 1):
+        out = op.join(work, f"procs{procs}")
+        os.makedirs(out)
+        cmd = [sys.executable, "-m", "wgbs_tools_tpu_torch", "pat2beta", big,
+               "-o", out, "--device", "cuda"] + (
+                   ["--procs", str(procs)] if procs > 1 else [])
+        t0 = time.perf_counter()
+        rc, _, stderr = _run_group(cmd, 600)
+        walls[procs] = time.perf_counter() - t0
+        if rc:
+            raise RuntimeError(f"{' '.join(cmd)} exited {rc}:\n"
+                               f"{stderr[-3000:]}")
+        if not _same(op.join(out, "big.beta"),
+                     op.join(work, "big.oracle.beta")):
+            raise RuntimeError(f"pat2beta --procs {procs}: big.beta differs "
+                               "from the host oracle")
+        if procs > 1:
+            for m in re.finditer(r"\[wgbs-torch worker (\d+)\] launches "
+                                 r"(\{.*\})", stderr):
+                workers[int(m.group(1))] = json.loads(m.group(2))
+            if sorted(workers) != list(range(procs)):
+                raise RuntimeError(f"expected a launch line from each of "
+                                   f"{procs} workers, got {workers}:\n"
+                                   f"{stderr[-3000:]}")
+            for r, launches in workers.items():
+                _require_launches(f"phase 6 worker {r}", launches,
+                                  ("flat_vals_add",))
+            for m in re.finditer(r"multihost pat2beta: (p\d+ (streamed|total)"
+                                 r".*)", stderr):
+                log("phase 6: worker " + m.group(1))
+    line = (f"CLI pat2beta --procs 2 (both workers on cuda:0): "
+            f"{walls[2]:.3f} s for the big pat "
+            f"({n_frags / walls[2] / 1e6:.3f} M frags/s) against "
+            f"{walls[1]:.3f} s for the same CLI in one process (both timed "
+            f"from process start); worker launches {workers}")
+    log("phase 6: big.beta == host oracle through both; " + line)
+    return workers, line
+
+
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--frags", type=int, default=20_000_000,
@@ -401,17 +656,32 @@ def main():
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=op.join(REPO, "build"))
     try:
         big, deep = phase_data(work, args.frags)
-        kernels = phase_kernels(big, deep)
-        launches, e2e = phase_pat2beta(work, big, deep, args.frags)
+        kernels, slab = phase_kernels(big, deep)
+        single, e2e = phase_pat2beta(work, big, deep, args.frags)
+        sharded, split, e2e_sharded = phase_sharded(work, big, deep,
+                                                    args.frags, slab)
+        del slab
+        workers, e2e_procs = phase_procs(work, big, args.frags)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    if torch.cuda.current_device() != 0:
+        raise RuntimeError("the current CUDA device moved off cuda:0")
+    # each kernel's launches on its main path: the single-device CLI
+    # (phase 4), the sharded pat2beta (phase 5), the split-plane
+    # accumulator (phase 5)
+    launches = {"flat_vals_fused": ("phase 4 CLI", single),
+                "flat_classic": ("phase 4 CLI", single),
+                "flat_vals_add": ("phase 5 sharded pat2beta", sharded),
+                "flat_vals": ("phase 5 split-plane slab", split)}
     # a summary at the end, which a log that keeps only its tail still shows
     print(smi, flush=True)
     log("end to end: " + e2e)
+    log("end to end: " + e2e_sharded)
+    log("end to end: " + e2e_procs)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[name], "launches": launches[name],
-         **kernels[name], "build_s": build_s,
+         "replaces": REPLACES[name], "launches": launches[name][1][name],
+         "path": launches[name][0], **kernels[name], "build_s": build_s,
          "registers": regs.get(name)} for name in REPLACES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

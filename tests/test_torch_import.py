@@ -33,7 +33,7 @@ jaxed = [m for m in sys.modules if m.startswith(
     ("wgbs_tools_tpu.ops", "wgbs_tools_tpu.models", "wgbs_tools_tpu.parallel",
      "wgbs_tools_tpu.pipeline", "wgbs_tools_tpu.cli"))]
 assert not jaxed, jaxed
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -42,29 +42,44 @@ def test_port_imports_without_jax():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     # every module of the port was imported, not an empty walk
-    assert int(r.stdout.split()[-1]) >= 10
+    names = set(r.stdout.split())
+    assert len(names) >= 14
+    assert {"wgbs_tools_tpu_torch.parallel.mesh",
+            "wgbs_tools_tpu_torch.parallel.sharded",
+            "wgbs_tools_tpu_torch.parallel.multihost"} <= names
 
 
 def test_kernel_wrappers_refuse_other_devices():
     """Only CPU tensors take the plain twin; tensors on any other device go
     to the kernel launcher, which accepts CUDA alone and raises."""
     from wgbs_tools_tpu_torch.ops.pileup_v3 import (Staged, flat_classic,
+                                                    flat_vals, flat_vals_add,
                                                     flat_vals_fused)
 
-    def staged(form, dtype, width):
-        dev = torch.device("meta")
+    dev = torch.device("meta")
+
+    def staged(form, dtype, width, cv=None):
         return Staged(form,
                       torch.zeros(2, dtype=torch.int32, device=dev),
                       torch.zeros(2, dtype=torch.int32, device=dev),
                       torch.zeros((16, 2, 8), dtype=torch.int32, device=dev),
                       torch.zeros((128, width), dtype=dtype, device=dev),
-                      128, 8, 1)
+                      128, 8, 1, cv)
 
+    split = staged("vals_split", torch.uint8, 128,
+                   torch.zeros((128, 128), dtype=torch.uint8, device=dev))
+    total = torch.zeros((200, 2), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="CUDA"):
         flat_vals_fused(staged("vals", torch.uint8, 256), 200)
     with pytest.raises(ValueError, match="CUDA"):
         flat_classic(staged("classic", torch.int32, 8), 200)
+    with pytest.raises(ValueError, match="CUDA"):
+        flat_vals(split, 200)
+    for st in (split, staged("vals", torch.uint8, 256)):
+        with pytest.raises(ValueError, match="CUDA"):
+            flat_vals_add(total, st, 200)
     assert flat_vals_fused.launches == 0 and flat_classic.launches == 0
+    assert flat_vals.launches == 0 and flat_vals_add.launches == 0
 
 
 def test_resolve_device_raises_without_cuda(monkeypatch):

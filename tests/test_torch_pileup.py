@@ -26,11 +26,15 @@ def test_pileup_torch_equals_pileup_xla(ws, wl, batch):
     assert np.array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("backend", ["torch", "cuda", "native"])
+@pytest.mark.parametrize("backend", ["torch", "cuda", "cuda_split",
+                                     "native"])
 def test_accumulator_equals_jax(backend):
     """Streaming batches (one of them unsorted) into the port's accumulator
     on the CPU == the JAX accumulator on the xla backend; the "cuda"
-    backend runs the v3 staging and the kernels' twins here."""
+    backend runs the v3 staging and the kernels' twins here ("cuda_split":
+    with split value planes, fused=False)."""
+    fused = backend != "cuda_split"
+    backend = backend.replace("_split", "")
     if backend == "native" and get_lib() is None:
         pytest.skip("native library unavailable")
     rng = np.random.default_rng(17)
@@ -38,7 +42,7 @@ def test_accumulator_equals_jax(backend):
     win = (1, 40_017)
     ref = jax_pileup.PileupAccumulator(win, backend="xla",
                                        device_total=False)
-    acc = pileup.PileupAccumulator(win, "cpu", backend=backend)
+    acc = pileup.PileupAccumulator(win, "cpu", backend=backend, fused=fused)
     batches = [f.take(slice(lo, lo + 2_500))
                for lo in range(0, f.nr_frags, 2_500)]
     batches.append(f.take(rng.permutation(f.nr_frags)[:1_000]))

@@ -1,12 +1,14 @@
 """The v3 kernels' plain twins equal the JAX package's Pallas kernels
 (interpret mode) on identical staged inputs, with tolerance 0; the CUDA
-kernels equal their twins on the card."""
+kernels equal their twins on the card, and leave the caller's current
+device as it was."""
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax.numpy as jnp  # noqa: E402
 from synth import random_frags  # noqa: E402
 from wgbs_tools_tpu.native import get_lib  # noqa: E402
 from wgbs_tools_tpu.ops import pileup_tpu3 as jax_v3  # noqa: E402
@@ -84,20 +86,107 @@ def test_pileup_v3_equals_jax_default_geometry():
 
 
 def test_staged_from_numpy_rejects_unported_forms():
+    """Split value planes are a ported form now; the lane-count form
+    (TPU kernel 5) is not, and bad chunk ranges never reach a kernel."""
     f = random_frags(np.random.default_rng(8), 200, 3000)
     split = jax_v3.stage_v3(f.start, f.length, f.count, f.codes, 1, 3000,
                             fused=False, **SMALL)
-    with pytest.raises(ValueError, match="split value planes"):
-        pileup_v3.staged_from_numpy(split, "cpu")
+    st = pileup_v3.staged_from_numpy(split, "cpu")
+    assert st.form == "vals_split" and st.cv is not None
+    assert tuple(st.rows.shape) == tuple(st.cv.shape) == split[3].shape
     lane = jax_v3.stage_v3(f.start, f.length, f.count, f.codes, 1, 3000,
                            vals=False, **SMALL)
-    with pytest.raises(ValueError, match="lane-count"):
+    with pytest.raises(ValueError, match="lane-count.*_kernel_flat_lc"):
         pileup_v3.staged_from_numpy(lane, "cpu")
     good = list(jax_v3.stage_v3(f.start, f.length, f.count, f.codes, 1, 3000,
                                 **SMALL))
     good[1] = good[1] + 10**6  # c1 past the chunk count
     with pytest.raises(ValueError, match="out of bounds"):
         pileup_v3.staged_from_numpy(tuple(good), "cpu")
+
+
+VALS_CASES = sorted(n for n in CASES if CASES[n][4] == "vals")
+
+
+def _jax_flat_vals_args(staged):
+    """(ctile, covered, meta, mv, cv) of a JAX value-plane tuple as the
+    Pallas call takes them, and its geometry (tile, rc, g_max)."""
+    c0, c1, meta, mv, cv, _mc, tile, rc, g_max, _tag = staged
+    ctile, covered = jax_v3._flat_args(c0, c1, meta.shape[0])
+    args = (jnp.asarray(ctile), jnp.asarray(covered), jnp.asarray(meta),
+            jnp.asarray(mv), None if cv is None else jnp.asarray(cv))
+    return args, (tile, rc, g_max)
+
+
+@pytest.mark.parametrize("name", VALS_CASES)
+def test_split_twin_equals_jax_kernel(name):
+    """flat_vals_plain (the split-plane twin) == _call_flat_vals with cv
+    given (TPU kernel 4), interpret mode; call_staged routes to it."""
+    f, ws, wl, geo, _ = _case(name)
+    staged = jax_v3.stage_v3(f.start, f.length, f.count, f.codes, ws, wl,
+                             fused=False, **geo)
+    assert staged[4] is not None
+    args, (tile, rc, g_max) = _jax_flat_vals_args(staged)
+    m, c = jax_v3._call_flat_vals(*args, wl, tile, rc, g_max, interpret=True)
+    want = np.stack([np.asarray(m), np.asarray(c)], axis=1)
+    st = pileup_v3.staged_from_numpy(staged, "cpu")
+    got = pileup_v3.flat_vals_plain(st, wl)
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    assert torch.equal(pileup_v3.call_staged(st, wl), got)
+
+
+def _total0(rng, wl):
+    """A seeded nonzero int32 running total, with entries near the int32
+    limit so that an add wraps, as the JAX package's int32 add does."""
+    t = rng.integers(-(1 << 20), 1 << 20, size=(wl, 2)).astype(np.int32)
+    t[: min(wl, 64)] = np.iinfo(np.int32).max - 3
+    return t
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("name", VALS_CASES)
+def test_vals_add_twin_equals_jax(name, fused):
+    """flat_vals_add_plain == pileup_vals_add (TPU kernel 3), interpret
+    mode, from a seeded nonzero total, in both plane forms; the twin adds
+    in place, and rows of tiles without chunks stay as they were."""
+    f, ws, wl, geo, _ = _case(name)
+    staged = jax_v3.stage_v3(f.start, f.length, f.count, f.codes, ws, wl,
+                             fused=fused, **geo)
+    args, (tile, rc, g_max) = _jax_flat_vals_args(staged)
+    total0 = _total0(np.random.default_rng(wl), wl)
+    want = np.asarray(jax_v3.pileup_vals_add(
+        jnp.asarray(total0), *args, wl, tile, rc, g_max, interpret=True))
+    st = pileup_v3.staged_from_numpy(staged, "cpu")
+    assert st.form == ("vals" if fused else "vals_split")
+    total = torch.from_numpy(total0.copy())
+    out = pileup_v3.flat_vals_add(total, st, wl)
+    assert out is total and np.array_equal(total.numpy(), want)
+    # a row slice of a larger table is a valid total
+    big = torch.zeros((wl + 10, 2), dtype=torch.int32)
+    big[3 : 3 + wl] = torch.from_numpy(total0)
+    pileup_v3.flat_vals_add(big[3 : 3 + wl], st, wl)
+    assert np.array_equal(big[3 : 3 + wl].numpy(), want)
+    assert not big[:3].any() and not big[3 + wl :].any()
+    empty = np.repeat((staged[1] - staged[0]) == 0, tile)[:wl]
+    assert np.array_equal(want[empty], total0[empty])
+    if name.endswith("empty_tiles"):
+        assert empty.any()
+
+
+def test_vals_add_rejects_bad_totals():
+    f, ws, wl, geo, _ = _case("vals_dense")
+    st = pileup_v3.staged_from_numpy(pileup_v3.stage_v3(
+        f.start, f.length, f.count, f.codes, ws, wl, **geo), "cpu")
+    for bad in (torch.zeros((wl, 2), dtype=torch.int64),
+                torch.zeros((wl + 1, 2), dtype=torch.int32),
+                torch.zeros((2, wl), dtype=torch.int32).t()):
+        with pytest.raises(ValueError, match="total"):
+            pileup_v3.flat_vals_add(bad, st, wl)
+    classic = pileup_v3.staged_from_numpy(pileup_v3.stage_v3(
+        f.start, f.length, f.count * 300, f.codes, ws, wl, **geo), "cpu")
+    with pytest.raises(ValueError, match="classic"):
+        pileup_v3.flat_vals_add(torch.zeros((wl, 2), dtype=torch.int32),
+                                classic[0], wl)
 
 
 @pytest.fixture
@@ -128,3 +217,60 @@ def test_cuda_kernel_equals_twin(cuda_device, name):
     assert torch.equal(got, want)
     assert np.array_equal(got.cpu().numpy(), pileup_xla(
         f.start, f.length, f.count, f.codes, ws, wl))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", VALS_CASES)
+def test_cuda_split_and_add_kernels_equal_twins(cuda_device, name):
+    """flat_vals and flat_vals_add (both plane forms, from a seeded nonzero
+    total) equal their twins on the card."""
+    f, ws, wl, geo, _ = _case(name)
+    for fused in (True, False):
+        st = pileup_v3.staged_from_numpy(pileup_v3.stage_v3(
+            f.start, f.length, f.count, f.codes, ws, wl, fused=fused, **geo),
+            cuda_device)
+        if not fused:
+            before = pileup_v3.flat_vals.launches
+            got = pileup_v3.call_staged(st, wl)
+            torch.cuda.synchronize()
+            assert pileup_v3.flat_vals.launches == before + 1
+            assert torch.equal(got, pileup_v3.flat_vals_plain(st, wl))
+        total0 = torch.from_numpy(_total0(np.random.default_rng(wl), wl)).to(
+            cuda_device)
+        total = total0.clone()
+        before = pileup_v3.flat_vals_add.launches
+        pileup_v3.flat_vals_add(total, st, wl)
+        torch.cuda.synchronize()
+        assert pileup_v3.flat_vals_add.launches == before + 1
+        assert torch.equal(total,
+                           pileup_v3.flat_vals_add_plain(total0.clone(), st,
+                                                         wl))
+
+
+@pytest.mark.cuda
+def test_cuda_launch_keeps_current_device():
+    """Each kernel, launched on the last visible card, leaves the caller's
+    current device as it was (the launcher sets no device of its own)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    torch.cuda.set_device(0)
+    for name in ("vals_dense", "classic_counts_3000"):
+        f, ws, wl, geo, _ = _case(name)
+        for fused in (True, False):
+            port = pileup_v3.staged_from_numpy(pileup_v3.stage_v3(
+                f.start, f.length, f.count, f.codes, ws, wl, fused=fused,
+                **geo), dev)
+            sts = port if isinstance(port, list) else [port]
+            for st in sts:
+                out = pileup_v3.call_staged(st, wl)
+                assert torch.cuda.current_device() == 0
+                assert out.device == dev
+                if st.form != "classic":
+                    total = torch.zeros((wl, 2), dtype=torch.int32,
+                                        device=dev)
+                    pileup_v3.flat_vals_add(total, st, wl)
+                    assert torch.cuda.current_device() == 0
+            # a later default allocation lands on the current device
+            assert torch.empty(1, device="cuda").device.index == 0
+    torch.cuda.synchronize(dev)

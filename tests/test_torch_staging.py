@@ -1,6 +1,6 @@
 """The port's v3 host staging equals the JAX package's stage_v3, array for
-array (tolerance 0), for the fused value-plane and the classic form, and
-raises where the JAX package would fall back."""
+array (tolerance 0), for the value-plane form (fused and split planes) and
+the classic form, and raises where the JAX package would fall back."""
 
 import numpy as np
 import pytest
@@ -37,6 +37,18 @@ CASES = {
                           dict(SMALL, classes=(16, 32, 64))),
     "default_geometry": (dict(nr_frags=3000, nr_sites=30000, max_len=24),
                          1, 30000, {}),
+    # split planes: the JAX package's WGBS_TPU_V3_FUSED_PLANE=0
+    "vals_split": (dict(nr_frags=2000, nr_sites=5000, max_len=16,
+                        h_rate=0.05), 1, 5000, dict(SMALL, fused=False)),
+    "vals_split_left_edge_long": (dict(nr_frags=300, nr_sites=6000,
+                                       max_len=300), 2500, 2048,
+                                  dict(SMALL, fused=False)),
+    "vals_split_default_geometry": (dict(nr_frags=3000, nr_sites=30000,
+                                         max_len=24), 1, 30000,
+                                    dict(fused=False)),
+    "classic_fused_false": (dict(nr_frags=500, nr_sites=4000, max_len=10,
+                                 max_count=3000), 1, 4000,
+                            dict(SMALL, fused=False)),
 }
 
 
@@ -69,6 +81,8 @@ def test_stage_v3_equals_jax(case):
                                      geo.get("classes", "auto") is not None)
     one = got[0] if isinstance(got, list) else got
     assert (len(one) == 10) == (form == "vals")
+    if form == "vals":  # cv is None exactly for the fused plane
+        assert (one[4] is None) == geo.get("fused", True)
 
 
 def test_stage_v3_empty_batch_equals_jax():

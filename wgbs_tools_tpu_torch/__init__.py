@@ -6,8 +6,10 @@ its pipelines with PyTorch tensors and hand-written CUDA kernels
 host modules (`formats`, `genome`, `native`, `utils`) are imported, not
 copied. Importing this package never imports jax.
 
-Ported so far: `pat2beta` on one GPU (`pipeline.pat2beta`, CLI
-`python -m wgbs_tools_tpu_torch pat2beta`).
+Ported so far: `pat2beta` (`pipeline.pat2beta`, CLI
+`python -m wgbs_tools_tpu_torch pat2beta`) on one GPU, over site shards
+on several devices (`parallel.sharded`) and over worker processes
+(`--procs`, `parallel.multihost`).
 """
 
 __version__ = "0.1.0"

@@ -8,7 +8,8 @@ library. A failed build raises with nvcc's output: there is no fallback.
 
 Every C entry point returns a cudaError_t (0 = success) from
 cudaGetLastError() right after its launch; `check` turns a nonzero code
-into a RuntimeError naming the call.
+into a RuntimeError naming the call. No entry point sets the CUDA device:
+the caller makes the tensors' device current around the call.
 """
 
 import ctypes
@@ -77,12 +78,14 @@ def build(force=False):
 
 def _bind(lib):
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    # (device, c0, c1, meta, rows, out, num_tiles, window_len, tile_sb, rc,
-    #  g_max, stream)
-    launch_args = [i32] + [vp] * 5 + [i64] * 5 + [vp]
-    for name in ("pileup_flat_vals_fused", "pileup_flat_classic"):
+    # (c0, c1, meta, <planes>, out, num_tiles, window_len, tile_sb, rc,
+    #  g_max, stream): one plane pointer (rows), or two (mv, cv)
+    for name, n_planes in (("pileup_flat_vals_fused", 1),
+                           ("pileup_flat_classic", 1),
+                           ("pileup_flat_vals", 2),
+                           ("pileup_flat_vals_add", 2)):
         fn = getattr(lib, name)
-        fn.argtypes = launch_args
+        fn.argtypes = [vp] * (4 + n_planes) + [i64] * 5 + [vp]
         fn.restype = i32
     lib.wgbs_cuda_error_string.argtypes = [i32]
     lib.wgbs_cuda_error_string.restype = ctypes.c_char_p

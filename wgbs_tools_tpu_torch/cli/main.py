@@ -1,10 +1,13 @@
 """Command line of the PyTorch/CUDA port.
 
     python -m wgbs_tools_tpu_torch pat2beta x.pat.gz -o out/ [--device cpu]
+        [--procs N]
 
-Flags match wgbs_tools_tpu's pat2beta (cli/cmd_pat.py::main_pat2beta)
-without --procs, plus --device. The device defaults to cuda and raises
-when CUDA is absent: the host path runs only when asked for.
+Flags match wgbs_tools_tpu's pat2beta (cli/cmd_pat.py::main_pat2beta),
+plus --device. The device defaults to cuda and raises when CUDA is
+absent: the host path runs only when asked for. With more than one
+visible card the table is sharded over the cards; --procs N (N > 1) runs
+N worker processes, one site range each (parallel/multihost.py).
 """
 
 import argparse
@@ -20,8 +23,10 @@ from wgbs_tools_tpu.utils import (
     splitextgz,
     validate_single_file,
 )
+from wgbs_tools_tpu.utils.log import logger
 
 from ..device import resolve_device
+from ..parallel.multihost import run_pat2beta_multiprocess
 from ..pipeline.pat2beta import pat2beta
 
 
@@ -36,6 +41,10 @@ def main_pat2beta(argv):
     p.add_argument("--genome", default=None)
     p.add_argument("-@", "--threads", type=int, default=None,
                    help="(compat; the pileup runs on the device)")
+    p.add_argument("--procs", type=int, default=None,
+                   help="run as N torch.distributed worker processes, one "
+                        "site range each (rank r on cuda:{r %% cards}); "
+                        "byte-identical to the single-process path")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default; an error without "
                         "CUDA) or cpu (the kernels' plain PyTorch twins)")
@@ -47,6 +56,13 @@ def main_pat2beta(argv):
         suff = ".lbeta" if args.lbeta else ".beta"
         out = op.join(args.out_dir, splitextgz(op.basename(pat))[0] + suff)
         if not delete_or_skip(out, args.force):
+            continue
+        if args.procs and args.procs > 1:
+            run_pat2beta_multiprocess(pat, out, g.get_nr_sites(),
+                                      num_processes=args.procs,
+                                      lbeta=args.lbeta, device=args.device)
+            logger.info("pat2beta: %s -> %s (%d processes)", pat, out,
+                        args.procs)
             continue
         pat2beta(pat, args.out_dir, genome=g, lbeta=args.lbeta,
                  device=device)

@@ -1,6 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels for the pat2beta pileup.
 //
-// Both kernels consume the staged batch of wgbs_tools_tpu_torch/ops/pileup_v3.py
+// Every kernel consumes the staged batch of wgbs_tools_tpu_torch/ops/pileup_v3.py
 // (the same layout as wgbs_tools_tpu/ops/pileup_tpu3.py::stage_v3):
 //
 //   c0, c1  int32 [num_tiles]          chunk range [c0[t], c1[t]) of output tile t
@@ -10,12 +10,16 @@
 //                                      [0, g_max) marks a padding row, and the
 //                                      padding row rc-1 stashes base_g + g_max
 //   rows    one row per 128-site sub-block slice:
-//           flat_vals_fused: uint8 [n_chunks*rc][256], lanes 0-127 = meth value,
-//                            128-255 = cov value (count pre-masked by the code)
-//           flat_classic:    int32 [n_chunks*rc][8], 2-bit planar codes: site l
-//                            of the sub-block is (word[l % 8] >> 2*(l / 8)) & 3
+//           value planes: uint8 meth values (count where the code is a
+//                         methylation call) and cov values (count where the site
+//                         is observed), either fused side by side in one
+//                         [n_chunks*rc][256] plane (lanes 0-127 meth, 128-255
+//                         cov) or split into two [n_chunks*rc][128] planes
+//           flat_classic: int32 [n_chunks*rc][8], 2-bit planar codes: site l
+//                         of the sub-block is (word[l % 8] >> 2*(l / 8)) & 3
 //
-// and write the (window_len, 2) int32 [meth, cov] pileup of the window.
+// and write the (window_len, 2) int32 [meth, cov] pileup of the window, or, for
+// flat_vals_add, add it into a given (window_len, 2) int32 total.
 //
 // Design: one CTA per output tile (tile_sb sub-blocks of 128 sites). The CTA
 // walks its chunks in order; each thread owns one lane of the row, so every
@@ -24,17 +28,23 @@
 // grouping of integer adds does not change the bits). The accumulator is
 // tile_sb x 256 int32 in dynamic shared memory (64 KB at the default
 // tile_sb = 64, above the 48 KB static limit, hence the attribute call). A
-// tile with no chunks still writes zeros: every site of the window is
-// written, so the wrapper allocates the output with torch.empty.
+// tile with no chunks still writes zeros in the kernels that write a fresh
+// output (every site of the window is written, so the wrapper allocates it
+// with torch.empty); flat_vals_add leaves such a tile's rows of the total as
+// they were.
 //
 // Bound: load latency, not bandwidth. The planes are read once (256 B per
-// row for the fused form, 32 B + the count for the classic form) and the
+// row for the value planes, 32 B + the count for the classic form) and the
 // output written once, with almost no arithmetic, so the floor is the
-// device-memory bytes; but each thread loads one byte (fused) or one word
-// (classic) per row and a CTA walks its rows one after another, so few
+// device-memory bytes; but each thread loads one byte (value planes) or one
+// word (classic) per row and a CTA walks its rows one after another, so few
 // loads are in flight and measured throughput stays far below that floor
 // (PERF.md). The fix is later work: wider per-thread loads (16 B vectors)
 // and several rows in flight per CTA (unrolling, cp.async or TMA).
+//
+// No entry point sets the CUDA device: the caller makes the tensors' device
+// current around the call (ops/pileup_v3.py::_launch, with PyTorch's own
+// device guard), so the caller's current device is never changed here.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,40 +68,119 @@ __device__ __forceinline__ void store_tile(const int* acc, int2* out, int t,
     }
 }
 
+// total[site] += (meth, cov) for the tile's sites, clipped to the window.
+// Each site belongs to exactly one tile, so exactly one CTA reads, adds and
+// writes it: the plain read-add-write is race-free without atomics. The add
+// wraps modulo 2^32, as the JAX package's int32 add does (no widening).
+__device__ __forceinline__ void add_tile(const int* acc, int2* total, int t,
+                                         int tile_sb, int64_t window_len) {
+    const int64_t site0 = (int64_t)t * tile_sb * SB;
+    for (int i = threadIdx.x; i < tile_sb * SB; i += blockDim.x) {
+        const int64_t site = site0 + i;
+        if (site < window_len) {
+            const int* a = acc + (i / SB) * ROW_W + (i % SB);
+            int2 v = total[site];
+            v.x = (int)((unsigned)v.x + (unsigned)a[0]);
+            v.y = (int)((unsigned)v.y + (unsigned)a[SB]);
+            total[site] = v;
+        }
+    }
+}
+
 __device__ __forceinline__ void zero_acc(int* acc, int tile_sb) {
     for (int i = threadIdx.x; i < tile_sb * ROW_W; i += blockDim.x) acc[i] = 0;
 }
 
+// The value-plane pileup shared by flat_vals_fused, flat_vals and
+// flat_vals_add: 256 threads, thread = lane of the meth|cov row. FUSED: one
+// (rows, 256) plane, lane l reads plane[row * 256 + l]. Split: lanes 0-127
+// read mv[row * 128 + lane], lanes 128-255 cv[row * 128 + lane - 128]. With
+// ADD the tile is added into `out` (the running total), and a tile with no
+// chunks returns at once, leaving its rows of the total untouched; without
+// ADD the tile is written, zeros for a tile with no chunks.
+//
+// The plane form is a template parameter, so the row stride is a constant and
+// the fused plane is read through one direct pointer, and the plane and meta
+// loads carry __ldg. Measured on the H100 (PERF.md, Findings): the same loop with
+// the stride and the plane form chosen at run time, or with the per-lane
+// pointer select and no __ldg, ran 36-50 % slower, although every variant's
+// plane loads compile to read-only-cache loads (LDG.E.U8.CONSTANT).
+template <bool ADD, bool FUSED>
+__device__ __forceinline__ void pile_vals(const int* __restrict__ c0,
+                                          const int* __restrict__ c1,
+                                          const int* __restrict__ meta,
+                                          const uint8_t* __restrict__ mv,
+                                          const uint8_t* __restrict__ cv,
+                                          int2* __restrict__ out,
+                                          int64_t window_len, int tile_sb,
+                                          int rc, int g_max) {
+    constexpr int STRIDE = FUSED ? ROW_W : SB;
+    extern __shared__ int acc[];
+    const int t = blockIdx.x;
+    const int lane = threadIdx.x;
+    const int c_beg = c0[t];
+    const int c_end = c1[t];
+    if (ADD && c_beg == c_end) return;  // uniform over the block
+    zero_acc(acc, tile_sb);
+    __syncthreads();
+    const uint8_t* lane_col =
+        FUSED ? mv + lane : (lane < SB ? mv + lane : cv + (lane - SB));
+    for (int c = c_beg; c < c_end; ++c) {
+        const int* dg_row = meta + ((int64_t)c * 2 + 1) * rc;
+        // sub-block of dg = 0, relative to this tile
+        const int base = __ldg(dg_row + rc - 1) - g_max - t * tile_sb;
+        const uint8_t* col = lane_col + (int64_t)c * rc * STRIDE;
+#pragma unroll 8
+        for (int r = 0; r < rc; ++r) {
+            const int dg = __ldg(dg_row + r);
+            const int sb = base + dg;
+            if (dg >= 0 && dg < g_max && sb >= 0 && sb < tile_sb)
+                acc[sb * ROW_W + lane] += __ldg(col + (int64_t)r * STRIDE);
+        }
+    }
+    __syncthreads();
+    if (ADD)
+        add_tile(acc, out, t, tile_sb, window_len);
+    else
+        store_tile(acc, out, t, tile_sb, window_len);
+}
+
 // Replaces wgbs_tools_tpu/ops/pileup_tpu3.py::_kernel_flat_vals_fused (the
 // default pileup kernel: a one-hot (g_max x rc) x (rc x 256) MXU dot per chunk).
-// Here: 256 threads, thread = lane of the fused meth|cov plane.
 __global__ void __launch_bounds__(ROW_W)
 flat_vals_fused_kernel(const int* __restrict__ c0, const int* __restrict__ c1,
                        const int* __restrict__ meta,
                        const uint8_t* __restrict__ plane,
                        int2* __restrict__ out, int64_t window_len, int tile_sb,
                        int rc, int g_max) {
-    extern __shared__ int acc[];
-    const int t = blockIdx.x;
-    const int lane = threadIdx.x;
-    zero_acc(acc, tile_sb);
-    __syncthreads();
-    const int c_end = c1[t];
-    for (int c = c0[t]; c < c_end; ++c) {
-        const int* dg_row = meta + ((int64_t)c * 2 + 1) * rc;
-        // sub-block of dg = 0, relative to this tile
-        const int base = dg_row[rc - 1] - g_max - t * tile_sb;
-        const uint8_t* col = plane + (int64_t)c * rc * ROW_W + lane;
-#pragma unroll 8
-        for (int r = 0; r < rc; ++r) {
-            const int dg = dg_row[r];
-            const int sb = base + dg;
-            if (dg >= 0 && dg < g_max && sb >= 0 && sb < tile_sb)
-                acc[sb * ROW_W + lane] += col[(int64_t)r * ROW_W];
-        }
-    }
-    __syncthreads();
-    store_tile(acc, out, t, tile_sb, window_len);
+    pile_vals<false, true>(c0, c1, meta, plane, nullptr, out, window_len,
+                           tile_sb, rc, g_max);
+}
+
+// Replaces wgbs_tools_tpu/ops/pileup_tpu3.py::_kernel_flat_vals (the same math
+// over two separate (rc, 128) planes, two one-hot dots per chunk on the TPU).
+__global__ void __launch_bounds__(ROW_W)
+flat_vals_kernel(const int* __restrict__ c0, const int* __restrict__ c1,
+                 const int* __restrict__ meta, const uint8_t* __restrict__ mv,
+                 const uint8_t* __restrict__ cv, int2* __restrict__ out,
+                 int64_t window_len, int tile_sb, int rc, int g_max) {
+    pile_vals<false, false>(c0, c1, meta, mv, cv, out, window_len, tile_sb, rc,
+                            g_max);
+}
+
+// Replaces wgbs_tools_tpu/ops/pileup_tpu3.py::pileup_vals_add (either value-
+// plane kernel, then total + stack([meth, cov]) on a donated total, in one
+// dispatch): the pileup with an in-place add epilogue, in one launch. One
+// instantiation per plane form (cv is unused when FUSED).
+template <bool FUSED>
+__global__ void __launch_bounds__(ROW_W)
+flat_vals_add_kernel(const int* __restrict__ c0, const int* __restrict__ c1,
+                     const int* __restrict__ meta,
+                     const uint8_t* __restrict__ mv,
+                     const uint8_t* __restrict__ cv, int2* __restrict__ total,
+                     int64_t window_len, int tile_sb, int rc, int g_max) {
+    pile_vals<true, FUSED>(c0, c1, meta, mv, cv, total, window_len, tile_sb,
+                           rc, g_max);
 }
 
 // Replaces wgbs_tools_tpu/ops/pileup_tpu3.py::_kernel_flat (the classic form,
@@ -138,21 +227,18 @@ flat_classic_kernel(const int* __restrict__ c0, const int* __restrict__ c1,
     store_tile(acc, out, t, tile_sb, window_len);
 }
 
-template <typename Kernel, typename Row>
-int launch(Kernel kernel, int threads, int device, const void* c0,
-           const void* c1, const void* meta, const void* rows, void* out,
-           int64_t num_tiles, int64_t window_len, int64_t tile_sb, int64_t rc,
-           int64_t g_max, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return (int)err;
+// Sets the kernel's dynamic shared memory on the current device (the
+// attribute is per device), launches it on `stream`, and returns the launch's
+// cudaError_t.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int threads, int64_t num_tiles, int64_t tile_sb,
+           void* stream, Args... args) {
     const size_t smem = (size_t)tile_sb * ROW_W * sizeof(int);
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     kernel<<<(unsigned)num_tiles, threads, smem, (cudaStream_t)stream>>>(
-        (const int*)c0, (const int*)c1, (const int*)meta, (const Row*)rows,
-        (int2*)out, window_len, (int)tile_sb, (int)rc, (int)g_max);
+        args...);
     return (int)cudaGetLastError();
 }
 
@@ -160,24 +246,49 @@ int launch(Kernel kernel, int threads, int device, const void* c0,
 
 extern "C" {
 
-int pileup_flat_vals_fused(int device, const void* c0, const void* c1,
-                           const void* meta, const void* plane, void* out,
-                           int64_t num_tiles, int64_t window_len,
-                           int64_t tile_sb, int64_t rc, int64_t g_max,
-                           void* stream) {
-    return launch<decltype(&flat_vals_fused_kernel), uint8_t>(
-        flat_vals_fused_kernel, ROW_W, device, c0, c1, meta, plane, out,
-        num_tiles, window_len, tile_sb, rc, g_max, stream);
+int pileup_flat_vals_fused(const void* c0, const void* c1, const void* meta,
+                           const void* plane, void* out, int64_t num_tiles,
+                           int64_t window_len, int64_t tile_sb, int64_t rc,
+                           int64_t g_max, void* stream) {
+    return launch(flat_vals_fused_kernel, ROW_W, num_tiles, tile_sb, stream,
+                  (const int*)c0, (const int*)c1, (const int*)meta,
+                  (const uint8_t*)plane, (int2*)out, window_len, (int)tile_sb,
+                  (int)rc, (int)g_max);
 }
 
-int pileup_flat_classic(int device, const void* c0, const void* c1,
-                        const void* meta, const void* words, void* out,
-                        int64_t num_tiles, int64_t window_len,
-                        int64_t tile_sb, int64_t rc, int64_t g_max,
-                        void* stream) {
-    return launch<decltype(&flat_classic_kernel), uint32_t>(
-        flat_classic_kernel, SB, device, c0, c1, meta, words, out, num_tiles,
-        window_len, tile_sb, rc, g_max, stream);
+int pileup_flat_vals(const void* c0, const void* c1, const void* meta,
+                     const void* mv, const void* cv, void* out,
+                     int64_t num_tiles, int64_t window_len, int64_t tile_sb,
+                     int64_t rc, int64_t g_max, void* stream) {
+    return launch(flat_vals_kernel, ROW_W, num_tiles, tile_sb, stream,
+                  (const int*)c0, (const int*)c1, (const int*)meta,
+                  (const uint8_t*)mv, (const uint8_t*)cv, (int2*)out,
+                  window_len, (int)tile_sb, (int)rc, (int)g_max);
+}
+
+// cv == NULL: mv is the fused (rows, 256) plane; else mv and cv are the two
+// split (rows, 128) planes.
+int pileup_flat_vals_add(const void* c0, const void* c1, const void* meta,
+                         const void* mv, const void* cv, void* total,
+                         int64_t num_tiles, int64_t window_len,
+                         int64_t tile_sb, int64_t rc, int64_t g_max,
+                         void* stream) {
+    return launch(cv == nullptr ? flat_vals_add_kernel<true>
+                                : flat_vals_add_kernel<false>,
+                  ROW_W, num_tiles, tile_sb, stream, (const int*)c0,
+                  (const int*)c1, (const int*)meta, (const uint8_t*)mv,
+                  (const uint8_t*)cv, (int2*)total, window_len, (int)tile_sb,
+                  (int)rc, (int)g_max);
+}
+
+int pileup_flat_classic(const void* c0, const void* c1, const void* meta,
+                        const void* words, void* out, int64_t num_tiles,
+                        int64_t window_len, int64_t tile_sb, int64_t rc,
+                        int64_t g_max, void* stream) {
+    return launch(flat_classic_kernel, SB, num_tiles, tile_sb, stream,
+                  (const int*)c0, (const int*)c1, (const int*)meta,
+                  (const uint32_t*)words, (int2*)out, window_len, (int)tile_sb,
+                  (int)rc, (int)g_max);
 }
 
 const char* wgbs_cuda_error_string(int err) {

@@ -85,9 +85,12 @@ class PileupAccumulator:
     span of the site axis; it piles up over that span only and is added
     in place into the device-resident int32 total. With `timings` (a dict)
     each stage's seconds accumulate there, the device synchronized after
-    each (see device.timed)."""
+    each (see device.timed). fused=False stages value-plane batches as two
+    split planes (the flat_vals kernel) instead of the fused plane
+    (flat_vals_fused); the counts are the same."""
 
-    def __init__(self, window, device, backend="cuda", timings=None):
+    def __init__(self, window, device, backend="cuda", timings=None,
+                 fused=True):
         if backend not in BACKENDS:
             raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
         if backend != "cuda" and torch.device(device).type != "cpu":
@@ -99,6 +102,7 @@ class PileupAccumulator:
         self.device = resolve_device(device)
         self.backend = backend
         self.timings = timings
+        self.fused = fused
         if backend == "native":
             self.total = np.zeros((self.n, 2), dtype=np.int64)
         else:
@@ -132,7 +136,7 @@ class PileupAccumulator:
         else:
             with self._timed("stage"):
                 staged = stage_v3(sel.start, sel.length, sel.count, sel.codes,
-                                  lo, span)
+                                  lo, span, fused=self.fused)
             with self._timed("h2d"):
                 staged = staged_from_numpy(staged, self.device)
             with self._timed("kernel"):

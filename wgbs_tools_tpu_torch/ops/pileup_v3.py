@@ -6,16 +6,23 @@ Port of wgbs_tools_tpu/ops/pileup_tpu3.py (with pileup_tpu2.py's
 the staged arrays are identical and the tests compare them one to one:
 fragments are split at 128-site sub-blocks, the pieces are packed into
 rows by the native first-fit packer, and the rows are chunked (at most
-rc - 1 rows, g_max sub-blocks and one output tile per chunk). Two staged
+rc - 1 rows, g_max sub-blocks and one output tile per chunk). Three staged
 forms reach a kernel:
 
-- "vals" (every count < 256): one uint8 (rows, 256) plane, lanes 0-127 =
-  the count where the code is a methylation call, 128-255 = the count
-  where the site is observed. Kernel: `flat_vals_fused`.
+- "vals" (every count < 256; `stage_v3(fused=True)`, the default): one
+  uint8 (rows, 256) plane, lanes 0-127 = the count where the code is a
+  methylation call, 128-255 = the count where the site is observed.
+  Kernel: `flat_vals_fused`.
+- "vals_split" (every count < 256, `stage_v3(fused=False)`): the same
+  values in two uint8 (rows, 128) planes, mv and cv. Kernel: `flat_vals`.
 - "classic" (any count >= 256, or no fragments): 2-bit planar code words
   (rows, 8) plus one int32 count per row, split into rc classes (16, 128)
   by default. Kernel: `flat_classic`, one launch per class; the classes'
   outputs sum.
+
+`flat_vals_add` piles up a batch of either value-plane form and adds it
+in place into a given int32 total, in one launch (the sharded path's
+kernel).
 
 The staged layout keeps the TPU's constraints for now (rc a multiple of
 8, base_g stashed in padding row rc-1, pow2 chunk padding): the Hopper
@@ -132,14 +139,16 @@ def _prep_window(start, length, count, codes, window_start, window_len):
 
 
 def stage_v3(start, length, count, codes, window_start, window_len,
-             tile=None, rc=None, g_max=None, classes="auto"):
+             tile=None, rc=None, g_max=None, classes="auto", fused=True):
     """Host staging of one fragment batch over the 1-based window
     [window_start, window_start + window_len).
 
     Returns the JAX package's staged tuple (numpy), byte for byte:
     (c0, c1, meta, plane, None, max_chunks, tile, rc, g_max, "vals") when
-    every count is < 256, else a list with one classic tuple
-    (c0, c1, meta, words, max_chunks, tile, rc, g_max) per rc class.
+    every count is < 256, or with fused=False the split planes
+    (c0, c1, meta, mv, cv, max_chunks, tile, rc, g_max, "vals") (the JAX
+    package's WGBS_TPU_V3_FUSED_PLANE=0); else a list with one classic
+    tuple (c0, c1, meta, words, max_chunks, tile, rc, g_max) per rc class.
     Geometry left as None takes the form's default (VALS_GEOMETRY or
     CLASSIC_GEOMETRY); explicit `classes` set rc to the largest class.
     Raises when the native packer is unavailable."""
@@ -235,7 +244,7 @@ def stage_v3(start, length, count, codes, window_start, window_len,
     num_tiles = (window_len + tile - 1) // tile
     if classes is None:
         return _assemble_class(row_g, row_tile, row_count, rows, bstarts,
-                               bends, rc, g_max, tile, num_tiles, R)
+                               bends, rc, g_max, tile, num_tiles, R, fused)
     out = []
     lens_c = bends - bstarts
     lo = 0
@@ -246,17 +255,18 @@ def stage_v3(start, length, count, codes, window_start, window_len,
             else (lens_c > lo)
         out.append(_assemble_class(
             row_g, row_tile, row_count, rows, bstarts[sel], bends[sel],
-            rc_c, g_max, tile, num_tiles, R))
+            rc_c, g_max, tile, num_tiles, R, fused))
         lo = rc_c - 1
     return out
 
 
 def _assemble_class(row_g, row_tile, row_count, rows, bstarts, bends, rc,
-                    g_max, tile, num_tiles, R):
+                    g_max, tile, num_tiles, R, fused):
     """One staged tuple from a (sorted, disjoint) subset of chunk row
     ranges. `rows` is (mv, cv) for the value-plane form, which becomes one
-    fused (n_chunks*rc, 256) plane, or the (R, 8) code words of the classic
-    form. Padding rows are zero values / all-'.' words."""
+    fused (n_chunks*rc, 256) plane, or with fused=False two (n_chunks*rc,
+    128) planes; or the (R, 8) code words of the classic form. Padding rows
+    are zero values / all-'.' words."""
     vals = isinstance(rows, tuple)
     n_real = max(bstarts.shape[0], 1)
     gran = 1 << max(4, n_real.bit_length() - 3)
@@ -264,8 +274,12 @@ def _assemble_class(row_g, row_tile, row_count, rows, bstarts, bends, rc,
 
     meta = np.zeros((n_chunks, 2, rc), dtype=np.int32)
     meta[:, 1, :] = g_max  # padding rows select no sub-block
-    if vals:
+    cvp = None
+    if vals and fused:
         plane = np.zeros((n_chunks * rc, 2 * SB), dtype=np.uint8)
+    elif vals:
+        plane = np.zeros((n_chunks * rc, SB), dtype=np.uint8)
+        cvp = np.zeros((n_chunks * rc, SB), dtype=np.uint8)
     else:
         plane = np.full((n_chunks * rc, SB // 16), -1,
                         dtype=np.int32)  # all '.'
@@ -286,7 +300,10 @@ def _assemble_class(row_g, row_tile, row_count, rows, bstarts, bends, rc,
         dst = ci_arr * rc + pos_arr
         if vals:
             plane[dst, :SB] = rows[0][src]
-            plane[dst, SB:] = rows[1][src]
+            if fused:
+                plane[dst, SB:] = rows[1][src]
+            else:
+                cvp[dst] = rows[1][src]
         else:
             plane[dst] = rows[src]
         chunk_tile = row_tile[bstarts]
@@ -300,7 +317,7 @@ def _assemble_class(row_g, row_tile, row_count, rows, bstarts, bends, rc,
     max_chunks = 1 << (max_chunks - 1).bit_length()
     c0, c1 = c0.astype(np.int32), c1.astype(np.int32)
     if vals:
-        return (c0, c1, meta, plane, None, max_chunks, tile, rc, g_max,
+        return (c0, c1, meta, plane, cvp, max_chunks, tile, rc, g_max,
                 "vals")
     return (c0, c1, meta, plane, max_chunks, tile, rc, g_max)
 
@@ -315,10 +332,12 @@ class Staged:
     """One staged batch as tensors on one device.
 
     form "vals": rows = uint8 (n_chunks*rc, 256), the fused meth|cov value
-    plane. form "classic": rows = int32 (n_chunks*rc, 8), planar 2-bit code
-    words, with each row's repeat count in meta[:, 0]. c0/c1 = int32
-    (num_tiles,) chunk range of each output tile; meta = int32
-    (n_chunks, 2, rc)."""
+    plane. form "vals_split": rows = the uint8 (n_chunks*rc, 128) meth
+    plane mv, and cv the cov plane of the same shape. form "classic": rows
+    = int32 (n_chunks*rc, 8), planar 2-bit code words, with each row's
+    repeat count in meta[:, 0]. c0/c1 = int32 (num_tiles,) chunk range of
+    each output tile; meta = int32 (n_chunks, 2, rc). cv is None except in
+    the "vals_split" form."""
 
     form: str
     c0: torch.Tensor
@@ -328,6 +347,7 @@ class Staged:
     tile: int
     rc: int
     g_max: int
+    cv: torch.Tensor = None
 
     @property
     def tile_sb(self):
@@ -342,23 +362,25 @@ def staged_from_numpy(staged, device):
     """A numpy staged tuple (from this module's or the JAX package's
     stage_v3), or a list of them, -> Staged tensors on `device`.
 
-    Only the forms with a port kernel are accepted: the fused value plane
-    and the classic words. The chunk ranges are checked here, on the host,
-    because the kernels index chunks with them."""
+    Only the forms with a port kernel are accepted: the value planes, fused
+    or split, and the classic words. The chunk ranges are checked here, on
+    the host, because the kernels index chunks with them."""
     if isinstance(staged, list):
         return [staged_from_numpy(st, device) for st in staged]
+    cvp = None
     if len(staged) == 10:
         c0, c1, meta, rows, cvp, _max_chunks, tile, rc, g_max, tag = staged
-        if cvp is not None or tag != "vals":
-            raise ValueError("split value planes (cv given) have no kernel "
-                             "in the port; stage the fused plane")
-        form = "vals"
+        if tag != "vals":
+            raise ValueError(f"a 10-field staged tuple tagged {tag!r}: only "
+                             "the value-plane form ('vals') exists")
+        form = "vals" if cvp is None else "vals_split"
     elif len(staged) == 8:
         c0, c1, meta, rows, _max_chunks, tile, rc, g_max = staged
         form = "classic"
     else:
         raise ValueError(f"a staged tuple of {len(staged)} fields (the "
-                         "lane-count form) has no kernel in the port")
+                         "lane-count form, TPU kernel _kernel_flat_lc) has "
+                         "no kernel in the port")
     c0, c1 = np.asarray(c0), np.asarray(c1)
     n_chunks = np.asarray(meta).shape[0]
     if ((c0 < 0) | (c0 > c1) | (c1 > n_chunks)).any():
@@ -369,14 +391,20 @@ def staged_from_numpy(staged, device):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     return Staged(form, put(c0), put(c1), put(meta), put(rows), int(tile),
-                  int(rc), int(g_max))
+                  int(rc), int(g_max), None if cvp is None else put(cvp))
 
 
-def _check(st, form, window_len):
-    """Validate a staged batch for `form`'s kernel; returns num_tiles."""
-    if st.form != form:
-        raise ValueError(f"staged form {st.form!r} given to the {form!r} "
-                         "kernel")
+# (width, dtype) of the rows (and of cv, for "vals_split") by form
+_ROWS = {"vals": (2 * SB, torch.uint8), "vals_split": (SB, torch.uint8),
+         "classic": (SB // 16, torch.int32)}
+
+
+def _check(st, forms, window_len):
+    """Validate a staged batch for a kernel that takes `forms`; returns
+    num_tiles."""
+    if st.form not in forms:
+        raise ValueError(f"staged form {st.form!r} given to a kernel of "
+                         f"form {' or '.join(map(repr, forms))}")
     if window_len < 1:
         raise ValueError(f"window_len={window_len} must be >= 1")
     if st.tile % SB or st.tile < SB:
@@ -390,12 +418,15 @@ def _check(st, form, window_len):
                          f"{MAX_SMEM_BYTES} bytes of shared memory")
     num_tiles = (window_len + st.tile - 1) // st.tile
     n_chunks = st.meta.shape[0]
-    width, dtype = ((2 * SB, torch.uint8) if form == "vals"
-                    else (SB // 16, torch.int32))
+    width, dtype = _ROWS[st.form]
     want = {"c0": ((num_tiles,), torch.int32),
             "c1": ((num_tiles,), torch.int32),
             "meta": ((n_chunks, 2, st.rc), torch.int32),
             "rows": ((n_chunks * st.rc, width), dtype)}
+    if st.form == "vals_split":
+        want["cv"] = want["rows"]
+    elif st.cv is not None:
+        raise ValueError(f"staged form {st.form!r} carries no cv plane")
     for name, (shape, dt) in want.items():
         x = getattr(st, name)
         if (tuple(x.shape) != shape or x.dtype != dt
@@ -407,22 +438,32 @@ def _check(st, form, window_len):
     return num_tiles
 
 
-def _launch(name, st, window_len, num_tiles):
-    """Launch a kernel of csrc/pileup_v3.cu on the current stream; returns
-    the (window_len, 2) int32 output, every row written by the kernel."""
+def _launch(name, st, window_len, num_tiles, planes, out):
+    """Launch the kernel `name` of csrc/pileup_v3.cu on the staged device's
+    current stream, writing or adding into `out`; returns `out`.
+
+    The staged device is made current for the call only, with PyTorch's
+    own guard: the C side never sets a device, so the caller's current
+    device is what it was, and the per-device shared-memory attribute is
+    set on the right device. `planes` are the data pointers of the rows
+    (None for an absent cv)."""
     dev = st.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: tensors on {dev}; the kernel takes CUDA "
                          "tensors and its plain twin CPU tensors")
     lib = _kernels.load()
-    out = torch.empty((window_len, 2), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = getattr(lib, name)(
-        dev.index, st.c0.data_ptr(), st.c1.data_ptr(), st.meta.data_ptr(),
-        st.rows.data_ptr(), out.data_ptr(), num_tiles, window_len,
-        st.tile_sb, st.rc, st.g_max, stream)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, name)(
+            st.c0.data_ptr(), st.c1.data_ptr(), st.meta.data_ptr(), *planes,
+            out.data_ptr(), num_tiles, window_len, st.tile_sb, st.rc,
+            st.g_max, stream)
     _kernels.check(err, name)
     return out
+
+
+def _new_out(st, window_len):
+    return torch.empty((window_len, 2), dtype=torch.int32, device=st.device)
 
 
 def flat_vals_fused(st, window_len):
@@ -430,10 +471,11 @@ def flat_vals_fused(st, window_len):
 
     Replaces pileup_tpu3.py::_kernel_flat_vals_fused. CUDA tensors launch
     the kernel; CPU tensors take flat_vals_fused_plain."""
-    num_tiles = _check(st, "vals", window_len)
+    num_tiles = _check(st, ("vals",), window_len)
     if st.device.type == "cpu":
         return flat_vals_fused_plain(st, window_len)
-    out = _launch("pileup_flat_vals_fused", st, window_len, num_tiles)
+    out = _launch("pileup_flat_vals_fused", st, window_len, num_tiles,
+                  (st.rows.data_ptr(),), _new_out(st, window_len))
     flat_vals_fused.launches += 1
     return out
 
@@ -441,15 +483,67 @@ def flat_vals_fused(st, window_len):
 flat_vals_fused.launches = 0
 
 
+def flat_vals(st, window_len):
+    """Pileup of a "vals_split" staged batch -> int32 (window_len, 2).
+
+    Replaces pileup_tpu3.py::_kernel_flat_vals. CUDA tensors launch the
+    kernel; CPU tensors take flat_vals_plain."""
+    num_tiles = _check(st, ("vals_split",), window_len)
+    if st.device.type == "cpu":
+        return flat_vals_plain(st, window_len)
+    out = _launch("pileup_flat_vals", st, window_len, num_tiles,
+                  (st.rows.data_ptr(), st.cv.data_ptr()),
+                  _new_out(st, window_len))
+    flat_vals.launches += 1
+    return out
+
+
+flat_vals.launches = 0
+
+
+def flat_vals_add(total, st, window_len):
+    """total += the pileup of a value-plane staged batch ("vals" or
+    "vals_split"), in place; returns total.
+
+    `total` is int32 (window_len, 2), contiguous (a row slice of a larger
+    table will do) and on the staged device. Replaces
+    pileup_tpu3.py::pileup_vals_add (kernel, stack and add on a donated
+    total, one dispatch) with one launch that adds each tile into the total;
+    tiles that get no chunk leave their rows untouched, and the add wraps as
+    int32. The launch is queued on the current stream, with no
+    synchronisation. CPU tensors take flat_vals_add_plain."""
+    num_tiles = _check(st, ("vals", "vals_split"), window_len)
+    if (total.dtype != torch.int32 or tuple(total.shape) != (window_len, 2)
+            or total.device != st.device or not total.is_contiguous()):
+        raise ValueError(
+            f"total: got {total.dtype} {tuple(total.shape)} on "
+            f"{total.device} (contiguous={total.is_contiguous()}), want "
+            f"torch.int32 {(window_len, 2)} on {st.device}, contiguous")
+    if st.device.type == "cpu":
+        return flat_vals_add_plain(total, st, window_len)
+    if total.data_ptr() % 8:
+        raise ValueError("total: the kernel reads (meth, cov) pairs as "
+                         "8-byte words; its data pointer must be 8-aligned")
+    _launch("pileup_flat_vals_add", st, window_len, num_tiles,
+            (st.rows.data_ptr(), None if st.cv is None else st.cv.data_ptr()),
+            total)
+    flat_vals_add.launches += 1
+    return total
+
+
+flat_vals_add.launches = 0
+
+
 def flat_classic(st, window_len):
     """Pileup of a "classic" staged batch -> int32 (window_len, 2).
 
     Replaces pileup_tpu3.py::_kernel_flat. CUDA tensors launch the kernel;
     CPU tensors take flat_classic_plain."""
-    num_tiles = _check(st, "classic", window_len)
+    num_tiles = _check(st, ("classic",), window_len)
     if st.device.type == "cpu":
         return flat_classic_plain(st, window_len)
-    out = _launch("pileup_flat_classic", st, window_len, num_tiles)
+    out = _launch("pileup_flat_classic", st, window_len, num_tiles,
+                  (st.rows.data_ptr(),), _new_out(st, window_len))
     flat_classic.launches += 1
     return out
 
@@ -504,6 +598,19 @@ def flat_vals_fused_plain(st, window_len):
     return _scatter_rows(st, st.rows.to(torch.int32), window_len)
 
 
+def flat_vals_plain(st, window_len):
+    """Twin of the flat_vals kernel in plain PyTorch."""
+    return _scatter_rows(st, torch.cat([st.rows, st.cv], dim=1)
+                         .to(torch.int32), window_len)
+
+
+def flat_vals_add_plain(total, st, window_len):
+    """Twin of the flat_vals_add kernel in plain PyTorch: total += the
+    batch's pileup, in place (a tile with no chunk adds zeros)."""
+    plain = flat_vals_fused_plain if st.form == "vals" else flat_vals_plain
+    return total.add_(plain(st, window_len))
+
+
 def flat_classic_plain(st, window_len):
     """Twin of the flat_classic kernel in plain PyTorch: decode the planar
     words (site l = field l // 8 of word l % 8), mask the row counts."""
@@ -530,9 +637,9 @@ def call_staged(staged, window_len):
             res = call_staged(st, window_len)
             out = res if out is None else out.add_(res)
         return out
-    if staged.form == "vals":
-        return flat_vals_fused(staged, window_len)
-    return flat_classic(staged, window_len)
+    kernel = {"vals": flat_vals_fused, "vals_split": flat_vals,
+              "classic": flat_classic}[staged.form]
+    return kernel(staged, window_len)
 
 
 def pileup_v3(start, length, count, codes, window_start, window_len, device,

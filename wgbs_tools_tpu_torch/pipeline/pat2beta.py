@@ -1,11 +1,14 @@
-"""pat -> beta conversion on one torch device.
+"""pat -> beta conversion on torch devices.
 
-Port of wgbs_tools_tpu/pipeline/pat2beta.py (its single-device branch).
-The pat file streams in slabs of 32 MB of file bytes
-(formats/pat.py::iter_pat, the native multithreaded BGZF inflater and
-parser), each slab piles up into the device-resident total (ops/pileup.py::PileupAccumulator), and the total is
-saturated on the device and written as .beta / .lbeta. Counts are integer
-adds, so every backend and device writes the same bytes.
+Port of wgbs_tools_tpu/pipeline/pat2beta.py. The pat file streams in
+slabs of 32 MB of file bytes (formats/pat.py::iter_pat, the native
+multithreaded BGZF inflater and parser), each slab piles up into a
+device-resident total, and the total is saturated on the device and
+written as .beta / .lbeta. On one device the total is
+ops/pileup.py::PileupAccumulator's; over site shards on several devices
+(or several shards on one) it is parallel/sharded.py::ShardedPileupV3's.
+Counts are integer adds, so every backend, device and sharding writes the
+same bytes.
 """
 
 import os.path as op
@@ -16,8 +19,12 @@ from wgbs_tools_tpu.genome.refdir import Genome
 from wgbs_tools_tpu.utils import splitextgz
 from wgbs_tools_tpu.utils.log import logger
 
-from ..device import timed
+import torch
+
+from ..device import resolve_device, timed
 from ..ops.pileup import PileupAccumulator
+from ..parallel.mesh import shard_devices
+from ..parallel.sharded import ShardedPileupV3
 
 # one streamed slab: iter_pat reads this many bytes of the file at a time,
 # so a BGZF pat.gz slab is 32 MB compressed (~5M fragments of <= 24 sites)
@@ -25,36 +32,68 @@ from ..ops.pileup import PileupAccumulator
 DEF_CHUNK_BYTES = 32 << 20
 
 
-def _accumulate_pat(pat_path, nr_sites, device, backend="cuda",
-                    chunk_bytes=DEF_CHUNK_BYTES, timings=None):
-    """Stream a pat file into a pileup accumulator. Returns
-    (accumulator, nr_frags). With `timings`, "decode" is the time spent
-    waiting for the lookahead's next slab."""
-    acc = PileupAccumulator((1, nr_sites + 1), device, backend,
-                            timings=timings)
+def _accumulator(window, device, backend, timings, sharded, devices):
+    """The single-device accumulator or the sharded one. sharded=None
+    means sharded when `device` is CUDA and more than one card is visible
+    (as the JAX package decides by its visible devices); an explicit
+    `devices` list forces the sharded path, one shard per list entry."""
+    if devices is None:
+        dev = resolve_device(device)
+        if sharded is None:
+            sharded = dev.type == "cuda" and torch.cuda.device_count() > 1
+        if not sharded:
+            return PileupAccumulator(window, dev, backend, timings=timings)
+        devices = shard_devices(dev)
+    elif sharded is False:
+        raise ValueError("sharded=False contradicts an explicit devices list")
+    if backend != "cuda":
+        raise ValueError(f"the sharded path runs the kernels (backend "
+                         f"'cuda'), not {backend!r}")
+    return ShardedPileupV3([resolve_device(d) for d in devices], window,
+                           timings=timings)
+
+
+def stream_into(acc, batches, timings=None):
+    """Fold an iterator of PatFrags batches into the accumulator `acc`;
+    returns the number of fragments. One-slab lookahead: the next slab
+    decompresses and parses (native code, GIL released) in a thread while
+    the current one stages and piles up. With `timings`, "decode" is the
+    time spent waiting for the next slab."""
     nf = 0
-    it = iter_pat(pat_path, chunk_bytes=chunk_bytes)
-    # one-slab lookahead: the next slab decompresses and parses (native
-    # code, GIL released) while the current one stages and piles up
     with ThreadPoolExecutor(1) as ex:
-        fut = ex.submit(next, it, None)
+        fut = ex.submit(next, batches, None)
         while True:
             with timed(timings, "decode", None):
                 chunk = fut.result()
             if chunk is None:
                 break
-            fut = ex.submit(next, it, None)
+            fut = ex.submit(next, batches, None)
             acc.add(chunk)
             nf += chunk.nr_frags
+    return nf
+
+
+def _accumulate_pat(pat_path, nr_sites, device, backend="cuda",
+                    chunk_bytes=DEF_CHUNK_BYTES, timings=None, sharded=None,
+                    devices=None):
+    """Stream a pat file into a pileup accumulator. Returns
+    (accumulator, nr_frags)."""
+    acc = _accumulator((1, nr_sites + 1), device, backend, timings, sharded,
+                       devices)
+    nf = stream_into(acc, iter_pat(pat_path, chunk_bytes=chunk_bytes),
+                     timings)
     return acc, nf
 
 
 def pat2beta(pat_path, out_dir=".", genome=None, lbeta=False, backend="cuda",
              out_path=None, chunk_bytes=DEF_CHUNK_BYTES, device="cuda",
-             timings=None):
+             timings=None, sharded=None, devices=None):
     """Convert a pat[.gz] file to a beta/lbeta file on `device` ('cuda'
     raises without CUDA; 'cpu' runs the kernels' plain twins). Returns the
-    output path. With `timings` (a dict), the seconds of each stage
+    output path. With more than one visible card (sharded=None), with
+    sharded=True, or with an explicit `devices` list (one site shard per
+    entry, see parallel/mesh.py::shard_devices) the table is sharded over
+    the site axis. With `timings` (a dict), the seconds of each stage
     (decode wait, stage, h2d, kernel, saturate_fetch, write) accumulate
     there; the device is synchronized at the end of each device stage, and
     the decode lookahead runs as it does untimed."""
@@ -62,7 +101,8 @@ def pat2beta(pat_path, out_dir=".", genome=None, lbeta=False, backend="cuda",
     nr_sites = g.get_nr_sites() if hasattr(g, "get_nr_sites") else g.nr_sites
 
     acc, nf = _accumulate_pat(pat_path, nr_sites, device, backend=backend,
-                              chunk_bytes=chunk_bytes, timings=timings)
+                              chunk_bytes=chunk_bytes, timings=timings,
+                              sharded=sharded, devices=devices)
     beta = acc.finalize(lbeta)
     suff = ".lbeta" if lbeta else ".beta"
     if out_path is None:
@@ -70,11 +110,14 @@ def pat2beta(pat_path, out_dir=".", genome=None, lbeta=False, backend="cuda",
     with timed(timings, "write", None):
         beta.tofile(out_path)
     logger.info("pat2beta: %s -> %s (%d frags, %d sites, %s)", pat_path,
-                out_path, nf, nr_sites, acc.device)
+                out_path, nf, nr_sites,
+                getattr(acc, "devices", None) or acc.device)
     return out_path
 
 
-def pat2beta_counts(pat_path, nr_sites, backend="cuda", device="cuda"):
+def pat2beta_counts(pat_path, nr_sites, backend="cuda", device="cuda",
+                    sharded=None, devices=None):
     """Raw (nr_sites, 2) int64 counts (before saturation) of a pat file."""
-    acc, _ = _accumulate_pat(pat_path, nr_sites, device, backend=backend)
+    acc, _ = _accumulate_pat(pat_path, nr_sites, device, backend=backend,
+                             sharded=sharded, devices=devices)
     return acc.result()
