@@ -6,22 +6,24 @@
 Phases, each printed as it runs; any failure exits nonzero and prints no
 result line:
   1. the card: `nvidia-smi` name and power limit; fails without CUDA.
-  2. build: nvcc compiles csrc/*.cu for sm_90a (seconds and ptxas
-     register counts printed); the native host library that the staging
-     needs must load.
+  2. build: nvcc compiles the three sources csrc/*.cu for sm_90a, in
+     parallel (seconds and ptxas register counts printed); the native host
+     library that the staging needs must load.
   3. data, then kernels vs twins: a 20M-fragment pat.gz (<= 24 sites each)
      over hg19's 28,217,448 CpG sites and a small pat with counts up to
-     3000 are written. Each CUDA kernel is held against its plain PyTorch
-     twin on the card on the batch the main path gives it: the first
-     streamed slab of its pat (the big pat's for the value-plane kernels,
-     fused and split planes, the deep pat's for the classic one), staged
-     as PileupAccumulator.add stages it at the default geometry; then on
-     the same slab with the middle third of its span emptied, so the
-     window has empty tiles. flat_vals_add, in both plane forms, starts
-     from a seeded nonzero total, and the rows of the empty tiles must
-     come back unchanged. Exactly equal (tolerance 0, the counts are
-     integers); kernel and twin times (CUDA events) on the unaltered slab;
-     no launch may change the current CUDA device.
+     3000 are written. Each of the 8 CUDA kernels is held against its plain
+     PyTorch twin on the card on the batches its paths give it: the first
+     streamed slab of a pat, staged as PileupAccumulator.add stages it for
+     that path at the default geometry -- the big pat's for the value-
+     plane kernels (fused and split planes) and for flat_lc (vals=False),
+     the deep pat's for flat_classic, both pats' for tiled_classic
+     (lane_counts=False), tiles_v2 (stage_v2) and tiles_v1 (v1's prep);
+     then on each slab with the middle third of its span emptied, so the
+     window has empty tiles, where zeros must come back. flat_vals_add, in
+     both plane forms, starts from a seeded nonzero total, and the rows of
+     the empty tiles must come back unchanged. Exactly equal (tolerance 0,
+     the counts are integers); kernel and twin times (CUDA events) on the
+     unaltered slabs; no launch may change the current CUDA device.
   4. pat2beta end to end: both pats go through the port's CLI on cuda,
      with the kernels' launch counters set to 0 just before and read just
      after; each .beta / .lbeta must equal the host oracle's bytes (the
@@ -37,6 +39,11 @@ result line:
      --procs 2`, both workers on cuda:0, writes the oracle bytes, and each
      worker's launch line shows flat_vals_add; the same CLI in one process
      runs beside it for the wall.
+  7. the other pileup forms: pat2beta of both pats (.beta, and .lbeta of
+     the deep one) on one device through vals=False (flat_lc),
+     grid="tiled" (tiled_classic), backend="cuda_v2" (tiles_v2) and
+     backend="cuda_v1" (tiles_v1) writes phase 4's oracle bytes, each with
+     its kernel's launch counter >= 1, and the wall of each configuration.
 Then a summary (the card line again, build, end to end), one
 {"kernels": [...]} line, and last {"ok": true, "device": ...}.
 
@@ -44,6 +51,7 @@ Scratch data goes to build/ (ignored by git) and is deleted at the end.
 """
 
 import argparse
+import importlib
 import json
 import os
 import os.path as op
@@ -64,11 +72,22 @@ sys.path.insert(0, REPO)
 N_SITES = 28_217_448  # hg19 CpG sites
 MAX_LEN = 24
 SLAB = 2_000_000      # fragments generated per slab
-SOURCE = "wgbs_tools_tpu_torch/csrc/pileup_v3.cu"
-REPLACES = {"flat_vals_fused": "wgbs_tools_tpu/ops/pileup_tpu3.py:457",
-            "flat_classic": "wgbs_tools_tpu/ops/pileup_tpu3.py:177",
-            "flat_vals": "wgbs_tools_tpu/ops/pileup_tpu3.py:391",
-            "flat_vals_add": "wgbs_tools_tpu/ops/pileup_tpu3.py:569"}
+_CSRC = "wgbs_tools_tpu_torch/csrc/"
+_TPU3 = "wgbs_tools_tpu/ops/pileup_tpu3.py:"
+# kernel wrapper -> (module of wgbs_tools_tpu_torch.ops, CUDA source, the
+# TPU kernel it replaces)
+KERNELS = {
+    "flat_vals_fused": ("pileup_v3", _CSRC + "pileup_v3.cu", _TPU3 + "457"),
+    "flat_classic": ("pileup_v3", _CSRC + "pileup_v3.cu", _TPU3 + "177"),
+    "flat_vals": ("pileup_v3", _CSRC + "pileup_v3.cu", _TPU3 + "391"),
+    "flat_vals_add": ("pileup_v3", _CSRC + "pileup_v3.cu", _TPU3 + "569"),
+    "flat_lc": ("pileup_v3", _CSRC + "pileup_v3.cu", _TPU3 + "314"),
+    "tiled_classic": ("pileup_v3", _CSRC + "pileup_v3.cu", _TPU3 + "115"),
+    "tiles_v2": ("pileup_v2", _CSRC + "pileup_v2.cu",
+                 "wgbs_tools_tpu/ops/pileup_tpu2.py:62"),
+    "tiles_v1": ("pileup_v1", _CSRC + "pileup_v1.cu",
+                 "wgbs_tools_tpu/ops/pileup_tpu.py:54"),
+}
 BGZF_EOF = bytes.fromhex("1f8b08040000000000ff0600424302001b0003000000000000"
                          "000000")
 
@@ -204,7 +223,7 @@ def _ptxas_registers(build_log):
     with open(build_log) as f:
         for line in f:
             if "Compiling entry function" in line:
-                entry = next((k for k in REPLACES if k + "_kernel" in line),
+                entry = next((k for k in KERNELS if k + "_kernel" in line),
                              None)
             m = re.search(r"Used (\d+) registers", line)
             if m and entry is not None:
@@ -228,17 +247,20 @@ def phase_build():
     return build_s, regs
 
 
-def _zero_launches():
-    from wgbs_tools_tpu_torch.ops import pileup_v3 as pv3
+def _wrapper(name):
+    """The kernel wrapper `name` (it carries the launch counter)."""
+    module = importlib.import_module("wgbs_tools_tpu_torch.ops."
+                                     + KERNELS[name][0])
+    return getattr(module, name)
 
-    for name in REPLACES:
-        getattr(pv3, name).launches = 0
+
+def _zero_launches():
+    for name in KERNELS:
+        _wrapper(name).launches = 0
 
 
 def _read_launches():
-    from wgbs_tools_tpu_torch.ops import pileup_v3 as pv3
-
-    return {name: getattr(pv3, name).launches for name in REPLACES}
+    return {name: _wrapper(name).launches for name in KERNELS}
 
 
 def _require_launches(what, launches, names):
@@ -305,13 +327,20 @@ def _holed(sel, lo, span):
     return sel.take(np.nonzero(~hole)[0]), int(hole.sum())
 
 
-def _stage(frags, lo, span, dev, fused=True):
-    """A batch staged as PileupAccumulator.add stages it for the kernels
-    (default geometry), as a list of Staged on `dev`."""
+def _stage(frags, lo, span, dev, path):
+    """A batch staged as PileupAccumulator.add stages it for a path (default
+    geometry): "v2", "v1", or a dict of stage_v3's form keywords. Returns
+    a list of staged batches on `dev`."""
+    from wgbs_tools_tpu_torch.ops import pileup_v1 as pv1
+    from wgbs_tools_tpu_torch.ops import pileup_v2 as pv2
     from wgbs_tools_tpu_torch.ops import pileup_v3 as pv3
 
-    staged = pv3.stage_v3(frags.start, frags.length, frags.count,
-                          frags.codes, lo, span, fused=fused)
+    args = (frags.start, frags.length, frags.count, frags.codes, lo, span)
+    if path == "v2":
+        return [pv2.staged_v2_from_numpy(pv2.stage_v2(*args), dev)]
+    if path == "v1":
+        return [pv1.staged_v1_from_numpy(pv1.stage_v1(*args), dev)]
+    staged = pv3.stage_v3(*args, **path)
     return pv3.staged_from_numpy(
         staged if isinstance(staged, list) else [staged], dev)
 
@@ -331,7 +360,8 @@ def _launch_checked(kernel, *args, **kwargs):
 
 
 def _kernel_vs_twin(name, kernel, plain, sts, span):
-    """Exact comparison of a kernel with its twin; returns max abs err."""
+    """Exact comparison of a kernel with its twin; returns (max abs err,
+    the kernel's output)."""
     import torch
 
     got = sum(_launch_checked(kernel, st, span) for st in sts)
@@ -340,7 +370,17 @@ def _kernel_vs_twin(name, kernel, plain, sts, span):
     err = int((got.to(torch.int64) - want).abs().max())
     if not torch.equal(got, want):
         raise RuntimeError(f"{name}: kernel != twin (max abs err {err})")
-    return err
+    return err, got
+
+
+def _zero_tiles(out, tile):
+    """Number of `tile`-site tiles of a (span, 2) pileup with no coverage."""
+    import torch
+
+    n = -(-out.shape[0] // tile)
+    cov = torch.zeros(n * tile, dtype=out.dtype, device=out.device)
+    cov[: out.shape[0]] = out[:, 1]
+    return int((cov.view(n, tile) == 0).all(dim=1).sum())
 
 
 def _empty_rows(st, span):
@@ -372,55 +412,87 @@ def _add_vs_twin(st, span, total0):
     return err, int(((st.c1 - st.c0) == 0).sum())
 
 
+def _geometry(st):
+    if hasattr(st, "rc"):
+        return (f"rc={st.rc} tile={st.tile} g_max={st.g_max} "
+                f"chunks={st.meta.shape[0]}")
+    return f"tile={st.tile} fc={st.fc} chunks={st.meta.shape[0]}"
+
+
+# kernel -> (its pats, the path that stages its batches, the staged form
+# where stage_v3 stages them); the flat_vals_add kernel comes after these
+PHASE3 = {
+    "flat_vals_fused": (("big",), {}, "vals"),
+    "flat_vals": (("big",), dict(fused=False), "vals_split"),
+    "flat_classic": (("deep",), {}, "classic"),
+    "flat_lc": (("big",), dict(vals=False), "lane"),
+    "tiled_classic": (("big", "deep"), dict(lane_counts=False), "classic"),
+    "tiles_v2": (("big", "deep"), "v2", None),
+    "tiles_v1": (("big", "deep"), "v1", None),
+}
+
+
 def phase_kernels(big, deep):
-    """Each kernel vs its twin on the first streamed slab of its pat,
-    staged as the main path stages it, and on that slab with a hole.
-    Returns (per-kernel results, the big pat's first slab)."""
+    """Each kernel vs its twin on the first streamed slab of its pats,
+    staged as its path stages it, and on each slab with a hole. Returns
+    (per-kernel results, the big pat's first slab)."""
     import numpy as np
     import torch
 
     from wgbs_tools_tpu_torch.ops import pileup_v3 as pv3
 
     dev = torch.device("cuda")
-    slabs = {big: _first_slab(big), deep: _first_slab(deep)}
+    pats = {"big": big, "deep": deep}
+    slabs = {name: _first_slab(pat) for name, pat in pats.items()}
     out, kept = {}, {}  # kept: form -> (staged slab, staged holed slab)
-    for name, pat, form, kernel, plain in (
-            ("flat_vals_fused", big, "vals", pv3.flat_vals_fused,
-             pv3.flat_vals_fused_plain),
-            ("flat_vals", big, "vals_split", pv3.flat_vals,
-             pv3.flat_vals_plain),
-            ("flat_classic", deep, "classic", pv3.flat_classic,
-             pv3.flat_classic_plain)):
-        sel, lo, span = slabs[pat]
-        fused = form != "vals_split"
-        sts = _stage(sel, lo, span, dev, fused)
-        if any(st.form != form for st in sts):
-            raise RuntimeError(f"{name}: the slab staged as "
-                               f"{[st.form for st in sts]}, not {form!r}")
-        err = _kernel_vs_twin(name, kernel, plain, sts, span)
-        ms = _time_ms(lambda: [kernel(st, span) for st in sts], 20)
-        plain_ms = _time_ms(lambda: [plain(st, span) for st in sts], 5)
-        rows = sum(st.rows.shape[0] for st in sts)
-        geo = ", ".join(f"rc={st.rc} tile={st.tile} g_max={st.g_max} "
-                        f"chunks={st.meta.shape[0]}" for st in sts)
-        holed_frags, n_out = _holed(sel, lo, span)
-        holed = _stage(holed_frags, lo, span, dev, fused)
-        empty = int((sum(st.c1 - st.c0 for st in holed) == 0).sum())
-        if not empty:
-            raise RuntimeError(f"{name}: the holed slab has no empty tile")
-        err = max(err, _kernel_vs_twin(name, kernel, plain, holed, span))
-        log(f"phase 3: {name}: kernel == twin (max_abs_err {err}) on the "
-            f"first slab of {op.basename(pat)}: {sel.nr_frags:,} frags over "
-            f"{span:,} sites, {rows:,} staged rows [{geo}], and on it with "
-            f"{n_out:,} frags taken out ({empty} empty tiles); "
-            f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms per slab "
-            f"({len(sts)} launch(es))")
-        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "slab_frags": sel.nr_frags, "slab_sites": span}
-        kept[form] = (sts[0], holed[0])
+    for name, (names, path, form) in PHASE3.items():
+        kernel = _wrapper(name)
+        plain = getattr(importlib.import_module(kernel.__module__),
+                        name + "_plain")
+        res = out[name] = {"max_abs_err": 0}
+        for pat in names:
+            sel, lo, span = slabs[pat]
+            sts = _stage(sel, lo, span, dev, path)
+            if form and any(st.form != form for st in sts):
+                raise RuntimeError(f"{name}: the slab staged as "
+                                   f"{[st.form for st in sts]}, not "
+                                   f"{form!r}")
+            err, _ = _kernel_vs_twin(name, kernel, plain, sts, span)
+            ms = _time_ms(lambda: [kernel(st, span) for st in sts], 20)
+            plain_ms = _time_ms(lambda: [plain(st, span) for st in sts], 5)
+            holed_frags, n_out = _holed(sel, lo, span)
+            holed = _stage(holed_frags, lo, span, dev, path)
+            herr, hout = _kernel_vs_twin(name, kernel, plain, holed, span)
+            empty = _zero_tiles(hout, sts[0].tile)
+            if not empty:
+                raise RuntimeError(f"{name}: the holed slab of {pat} has no "
+                                   "empty tile")
+            err = max(err, herr)
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            log(f"phase 3: {name}: kernel == twin (max_abs_err {err}) on "
+                f"the first slab of {pat}.pat.gz: {sel.nr_frags:,} frags "
+                f"over {span:,} sites, {sum(st.meta.shape[0] for st in sts):,}"
+                f" chunks [{'; '.join(map(_geometry, sts))}], and on it with "
+                f"{n_out:,} frags taken out ({empty} tiles of zeros); "
+                f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms per slab "
+                f"({len(sts)} launch(es))")
+            key = "" if pat == names[0] else pat + "_"
+            res.update({key + "ms": ms, key + "plain_ms": plain_ms,
+                        key + "slab_frags": sel.nr_frags,
+                        key + "slab_sites": span})
+            if name == "tiled_classic":
+                # the JAX package's grid A/B: the flat kernel on the same
+                # batches, in the same process
+                res[key + "flat_ms"] = _time_ms(
+                    lambda: [pv3.flat_classic(st, span) for st in sts], 20)
+                log(f"phase 3: tiled_classic vs flat_classic on the same "
+                    f"batches of {pat}: {ms:.4f} against "
+                    f"{res[key + 'flat_ms']:.4f} ms")
+            if form in ("vals", "vals_split"):
+                kept[form] = (sts[0], holed[0])
 
     # flat_vals_add in both plane forms, from a seeded nonzero total
-    sel, lo, span = slabs[big]
+    sel, lo, span = slabs["big"]
     total0 = torch.from_numpy(np.random.default_rng(3).integers(
         -(1 << 20), 1 << 20, size=(span, 2), dtype=np.int32)).to(dev)
     res = {}
@@ -447,7 +519,7 @@ def phase_kernels(big, deep):
         "split_ms": res["vals_split"]["ms"],
         "split_plain_ms": res["vals_split"]["plain_ms"],
         "slab_frags": sel.nr_frags, "slab_sites": span}
-    return out, slabs[big]
+    return out, slabs["big"]
 
 
 def _same(a, b):
@@ -642,6 +714,51 @@ def phase_procs(work, big, n_frags):
 
 
 
+PHASE7 = (("vals=False", dict(vals=False), "flat_lc"),
+          ('grid="tiled"', dict(grid="tiled"), "tiled_classic"),
+          ('backend="cuda_v2"', dict(backend="cuda_v2"), "tiles_v2"),
+          ('backend="cuda_v1"', dict(backend="cuda_v1"), "tiles_v1"))
+
+
+def phase_forms(work, big, deep, n_frags):
+    """pat2beta on one device through the four other pileup forms against
+    phase 4's oracle files, with the counters set to 0 just before each
+    form and read just after. Returns ({kernel: (path, launches)}, summary
+    line)."""
+    from wgbs_tools_tpu_torch.pipeline.pat2beta import pat2beta
+
+    out = op.join(work, "forms")
+    os.makedirs(out)
+    launches, walls = {}, []
+    for label, forms, kernel in PHASE7:
+        _zero_launches()
+        wall, timings = {}, {}
+        for pat, lbeta in ((big, False), (deep, False), (deep, True)):
+            suff = ".lbeta" if lbeta else ".beta"
+            name = op.basename(pat)[: -len(".pat.gz")]
+            t0 = time.perf_counter()
+            # stage seconds of the big pat's run (a few synchronizes more)
+            got = _launch_checked(pat2beta, pat, lbeta=lbeta, device="cuda",
+                                  out_path=op.join(out, name + suff),
+                                  timings=timings if pat == big else None,
+                                  **forms)
+            wall[name + suff] = time.perf_counter() - t0
+            if not _same(got, op.join(work, name + ".oracle" + suff)):
+                raise RuntimeError(f"pat2beta {label}: {name}{suff} differs "
+                                   "from the host oracle")
+        counts = _read_launches()
+        _require_launches(f"phase 7 {label}", counts, (kernel,))
+        launches[kernel] = (f"phase 7 pat2beta {label}", counts)
+        line = (f"pat2beta {label}: big.beta {wall['big.beta']:.3f} s "
+                f"({n_frags / wall['big.beta'] / 1e6:.3f} M frags/s; "
+                + ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
+                + f"), deep.beta {wall['deep.beta']:.3f} s, deep.lbeta "
+                f"{wall['deep.lbeta']:.3f} s")
+        walls.append(line)
+        log(f"phase 7: {line}; all == host oracle; kernel launches {counts}")
+    return launches, "; ".join(walls)
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--frags", type=int, default=20_000_000,
@@ -662,27 +779,30 @@ def main():
                                                     args.frags, slab)
         del slab
         workers, e2e_procs = phase_procs(work, big, args.frags)
+        forms, e2e_forms = phase_forms(work, big, deep, args.frags)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if torch.cuda.current_device() != 0:
         raise RuntimeError("the current CUDA device moved off cuda:0")
-    # each kernel's launches on its main path: the single-device CLI
-    # (phase 4), the sharded pat2beta (phase 5), the split-plane
-    # accumulator (phase 5)
+    # each kernel's launches on its path: the single-device CLI (phase 4),
+    # the sharded pat2beta (phase 5), the split-plane accumulator (phase
+    # 5), pat2beta through the other forms (phase 7)
     launches = {"flat_vals_fused": ("phase 4 CLI", single),
                 "flat_classic": ("phase 4 CLI", single),
                 "flat_vals_add": ("phase 5 sharded pat2beta", sharded),
-                "flat_vals": ("phase 5 split-plane slab", split)}
+                "flat_vals": ("phase 5 split-plane slab", split), **forms}
     # a summary at the end, which a log that keeps only its tail still shows
     print(smi, flush=True)
     log("end to end: " + e2e)
     log("end to end: " + e2e_sharded)
     log("end to end: " + e2e_procs)
+    log("end to end: " + e2e_forms)
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[name], "launches": launches[name][1][name],
+        {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "launches": launches[name][1][name],
          "path": launches[name][0], **kernels[name], "build_s": build_s,
-         "registers": regs.get(name)} for name in REPLACES]}), flush=True)
+         "registers": regs.get(name)}
+        for name, (_, source, replaces) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -43,10 +43,12 @@ def test_port_imports_without_jax():
     assert r.returncode == 0, r.stderr
     # every module of the port was imported, not an empty walk
     names = set(r.stdout.split())
-    assert len(names) >= 14
+    assert len(names) >= 16
     assert {"wgbs_tools_tpu_torch.parallel.mesh",
             "wgbs_tools_tpu_torch.parallel.sharded",
-            "wgbs_tools_tpu_torch.parallel.multihost"} <= names
+            "wgbs_tools_tpu_torch.parallel.multihost",
+            "wgbs_tools_tpu_torch.ops.pileup_v1",
+            "wgbs_tools_tpu_torch.ops.pileup_v2"} <= names
 
 
 def test_kernel_wrappers_refuse_other_devices():
@@ -80,6 +82,32 @@ def test_kernel_wrappers_refuse_other_devices():
             flat_vals_add(total, st, 200)
     assert flat_vals_fused.launches == 0 and flat_classic.launches == 0
     assert flat_vals.launches == 0 and flat_vals_add.launches == 0
+
+
+def test_new_kernel_wrappers_refuse_other_devices():
+    """The same for flat_lc, tiled_classic, tiles_v2 and tiles_v1."""
+    from wgbs_tools_tpu_torch.ops.pileup_v1 import StagedV1, tiles_v1
+    from wgbs_tools_tpu_torch.ops.pileup_v2 import StagedV2, tiles_v2
+    from wgbs_tools_tpu_torch.ops.pileup_v3 import (Staged, flat_lc,
+                                                    tiled_classic)
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device="meta")
+
+    lane = Staged("lane", z(2), z(2), z(16, 2, 8), z(128, 8), 128, 8, 1,
+                  cnts=z(128, 32), max_chunks=1)
+    classic = Staged("classic", z(2), z(2), z(16, 2, 8), z(128, 8), 128, 8,
+                     1, max_chunks=1)
+    for call in (lambda: flat_lc(lane, 200),
+                 lambda: tiled_classic(classic, 200),
+                 lambda: tiles_v2(StagedV2(z(1), z(1), z(16, 3, 256),
+                                           z(16 * 256, 2)), 200),
+                 lambda: tiles_v1(StagedV1(z(1), z(1), z(1, 4, 256),
+                                           z(256, 8)), 200)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert flat_lc.launches == tiled_classic.launches == 0
+    assert tiles_v2.launches == tiles_v1.launches == 0
 
 
 def test_resolve_device_raises_without_cuda(monkeypatch):

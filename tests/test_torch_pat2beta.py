@@ -71,6 +71,39 @@ def test_pat2beta_counts_equal_jax(pats):
     assert got.dtype == np.int64 and np.array_equal(got, want)
 
 
+# the port's keywords for the JAX package's WGBS_TPU_V3_VALS=0,
+# WGBS_TPU_PILEUP_V3_GRID=tiled and backends "pallas2" and "pallas"
+CONFIGS = {"vals_false": dict(vals=False), "grid_tiled": dict(grid="tiled"),
+           "cuda_v2": dict(backend="cuda_v2"),
+           "cuda_v1": dict(backend="cuda_v1")}
+
+
+@pytest.mark.parametrize("pat", ["plain", "deep"])
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_pat2beta_configs_bytes_equal_jax(tmp_path, pats, pat, config):
+    """pat2beta through each of the four configurations (small slabs, so
+    several batches fold into the total) writes the JAX package's bytes."""
+    want = jax_pat2beta(pats[pat], genome=_Genome(), sharded=False,
+                        out_path=str(tmp_path / "j"))
+    got = pat2beta(pats[pat], genome=_Genome(), chunk_bytes=40_000,
+                   out_path=str(tmp_path / "t"), device="cpu",
+                   **CONFIGS[config])
+    assert open(got, "rb").read() == open(want, "rb").read()
+
+
+def test_pat2beta_sharded_takes_no_forms(tmp_path, pats):
+    from wgbs_tools_tpu_torch.parallel.mesh import shard_devices
+
+    with pytest.raises(ValueError, match="form keywords"):
+        pat2beta(pats["plain"], genome=_Genome(), vals=False,
+                 out_path=str(tmp_path / "x"),
+                 devices=shard_devices("cpu", n_shards=2))
+    with pytest.raises(ValueError, match="backend"):
+        pat2beta(pats["plain"], genome=_Genome(), backend="cuda_v2",
+                 out_path=str(tmp_path / "x"),
+                 devices=shard_devices("cpu", n_shards=2))
+
+
 def test_pat2beta_timings(tmp_path, pats):
     timings = {}
     pat2beta(pats["plain"], genome=_Genome(), chunk_bytes=50_000,

@@ -1,5 +1,6 @@
-"""The port's scatter pileup, accumulator and device saturation against the
-JAX package (pileup_xla, PileupAccumulator, trim_to_uint), exactly."""
+"""The port's scatter pileup, accumulator (every backend and v3 form),
+pileup_frags and device saturation against the JAX package (pileup_xla,
+PileupAccumulator, pileup_frags, trim_to_uint), exactly."""
 
 import numpy as np
 import pytest
@@ -26,15 +27,23 @@ def test_pileup_torch_equals_pileup_xla(ws, wl, batch):
     assert np.array_equal(got.numpy(), want)
 
 
+FORMS = {"cuda_split": dict(fused=False), "cuda_lane": dict(vals=False),
+         "cuda_tiled": dict(grid="tiled")}
+
+
 @pytest.mark.parametrize("backend", ["torch", "cuda", "cuda_split",
-                                     "native"])
+                                     "native", "cuda_lane", "cuda_tiled",
+                                     "cuda_v2", "cuda_v1"])
 def test_accumulator_equals_jax(backend):
     """Streaming batches (one of them unsorted) into the port's accumulator
-    on the CPU == the JAX accumulator on the xla backend; the "cuda"
-    backend runs the v3 staging and the kernels' twins here ("cuda_split":
-    with split value planes, fused=False)."""
-    fused = backend != "cuda_split"
-    backend = backend.replace("_split", "")
+    on the CPU == the JAX accumulator on the xla backend; the kernel
+    backends run their staging and the kernels' twins here: "cuda" (v3;
+    "cuda_split" with split value planes, fused=False; "cuda_lane" the
+    lane-count form, vals=False; "cuda_tiled" the tiled grid), "cuda_v2"
+    and "cuda_v1"."""
+    forms = FORMS.get(backend, {})
+    if backend in FORMS:
+        backend = "cuda"
     if backend == "native" and get_lib() is None:
         pytest.skip("native library unavailable")
     rng = np.random.default_rng(17)
@@ -42,7 +51,7 @@ def test_accumulator_equals_jax(backend):
     win = (1, 40_017)
     ref = jax_pileup.PileupAccumulator(win, backend="xla",
                                        device_total=False)
-    acc = pileup.PileupAccumulator(win, "cpu", backend=backend, fused=fused)
+    acc = pileup.PileupAccumulator(win, "cpu", backend=backend, **forms)
     batches = [f.take(slice(lo, lo + 2_500))
                for lo in range(0, f.nr_frags, 2_500)]
     batches.append(f.take(rng.permutation(f.nr_frags)[:1_000]))
@@ -67,6 +76,40 @@ def test_accumulator_timings_and_backends():
     for backend in ("torch", "native"):
         with pytest.raises(ValueError, match="host only"):
             pileup.PileupAccumulator((1, 10), "cuda", backend=backend)
+    # the v3 form keywords belong to the "cuda" backend
+    for backend in ("cuda_v2", "cuda_v1", "torch"):
+        with pytest.raises(ValueError, match="form keywords"):
+            pileup.PileupAccumulator((1, 10), "cpu", backend=backend,
+                                     vals=False)
+    with pytest.raises(ValueError, match="grid"):
+        pileup.PileupAccumulator((1, 10), "cpu", grid="diagonal")
+
+
+@pytest.mark.parametrize("backend,jax_backend,forms", [
+    ("cuda", "pallas3", {}),
+    ("cuda", "pallas3", dict(vals=False)),
+    ("cuda", "pallas3", dict(grid="tiled")),
+    ("cuda_v2", "pallas2", {}),
+    ("cuda_v1", "pallas", {}),
+    ("torch", "xla", {})])
+def test_pileup_frags_equals_jax(monkeypatch, backend, jax_backend, forms):
+    """The port's pileup_frags == the JAX package's, backend for backend,
+    on a batch with fragments on both sides of the window; the JAX v3
+    forms are picked with its switches, the port's with keywords."""
+    if backend.startswith("cuda") and get_lib() is None:
+        pytest.skip("native library unavailable")
+    if forms.get("vals") is False:
+        monkeypatch.setenv("WGBS_TPU_V3_VALS", "0")
+    if forms.get("grid") == "tiled":
+        monkeypatch.setenv("WGBS_TPU_PILEUP_V3_GRID", "tiled")
+    f = random_frags(np.random.default_rng(23), 2500, 6000, max_len=18,
+                     h_rate=0.05)
+    kw = {} if jax_backend == "xla" else dict(interpret=True)
+    want = jax_pileup.pileup_frags(f, (1500, 4500), backend=jax_backend,
+                                   **kw)
+    got = pileup.pileup_frags(f, (1500, 4500), backend=backend,
+                              device="cpu", **forms)
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
 
 
 def _counts(rng):

@@ -1,7 +1,8 @@
 """The v3 kernels' plain twins equal the JAX package's Pallas kernels
-(interpret mode) on identical staged inputs, with tolerance 0; the CUDA
-kernels equal their twins on the card, and leave the caller's current
-device as it was."""
+(interpret mode) on identical staged inputs, with tolerance 0, in every
+staged form (value planes, lane counts, classic) and on both grids (flat,
+tiled); the CUDA kernels equal their twins on the card, and leave the
+caller's current device as it was."""
 
 import numpy as np
 import pytest
@@ -36,7 +37,22 @@ CASES = {
     "classic_empty_tiles_left_edge": (dict(nr_frags=60, nr_sites=20000,
                                            max_len=150, max_count=3000),
                                       700, 15000, SMALL, "classic"),
+    # the lane-count form (TPU kernel 5): stage_v3(vals=False)
+    "lane_dense": (dict(nr_frags=2500, nr_sites=5000, max_len=18,
+                        dot_rate=0.05, h_rate=0.05, max_count=120), 1, 5000,
+                   dict(SMALL, vals=False), "lane"),
+    "lane_empty_tiles": (dict(nr_frags=40, nr_sites=30000, max_len=10),
+                         1, 30000, dict(SMALL, vals=False), "lane"),
+    "lane_left_edge": (dict(nr_frags=2000, nr_sites=6000, max_len=16),
+                       2500, 2048, dict(SMALL, vals=False), "lane"),
+    "lane_long_frags": (dict(nr_frags=300, nr_sites=9000, max_len=400),
+                        1, 9000, dict(SMALL, vals=False), "lane"),
 }
+
+KERNELS = {"vals": (pileup_v3.flat_vals_fused,
+                    pileup_v3.flat_vals_fused_plain),
+           "lane": (pileup_v3.flat_lc, pileup_v3.flat_lc_plain),
+           "classic": (pileup_v3.flat_classic, pileup_v3.flat_classic_plain)}
 
 
 def _case(name):
@@ -45,11 +61,11 @@ def _case(name):
     return random_frags(rng, **kw), ws, wl, geo, form
 
 
-def _jax_pileup(staged, wl):
+def _jax_pileup(staged, wl, grid="flat"):
     """JAX call_staged (Pallas, interpret mode) summed over rc classes."""
     out = np.zeros((wl, 2), np.int64)
     for st in staged if isinstance(staged, list) else [staged]:
-        m, c = jax_v3.call_staged(st, wl, interpret=True)
+        m, c = jax_v3.call_staged(st, wl, interpret=True, grid=grid)
         out += np.stack([np.asarray(m), np.asarray(c)], axis=1)
     return out
 
@@ -86,8 +102,10 @@ def test_pileup_v3_equals_jax_default_geometry():
 
 
 def test_staged_from_numpy_rejects_unported_forms():
-    """Split value planes are a ported form now; the lane-count form
-    (TPU kernel 5) is not, and bad chunk ranges never reach a kernel."""
+    """Every form the JAX package stages is ported now: split value planes
+    and the lane-count form (9 fields, TPU kernel 5) are accepted. Only
+    malformed tuples are rejected: a wrong field count, a bad tag, chunk
+    ranges out of bounds, a max_chunks below a tile's chunks."""
     f = random_frags(np.random.default_rng(8), 200, 3000)
     split = jax_v3.stage_v3(f.start, f.length, f.count, f.codes, 1, 3000,
                             fused=False, **SMALL)
@@ -96,13 +114,95 @@ def test_staged_from_numpy_rejects_unported_forms():
     assert tuple(st.rows.shape) == tuple(st.cv.shape) == split[3].shape
     lane = jax_v3.stage_v3(f.start, f.length, f.count, f.codes, 1, 3000,
                            vals=False, **SMALL)
-    with pytest.raises(ValueError, match="lane-count.*_kernel_flat_lc"):
-        pileup_v3.staged_from_numpy(lane, "cpu")
-    good = list(jax_v3.stage_v3(f.start, f.length, f.count, f.codes, 1, 3000,
-                                **SMALL))
-    good[1] = good[1] + 10**6  # c1 past the chunk count
+    for one, st in zip(lane, pileup_v3.staged_from_numpy(lane, "cpu")):
+        assert len(one) == 9 and st.form == "lane" and st.cv is None
+        assert np.array_equal(st.cnts.numpy(), one[4])
+        assert st.max_chunks == one[5]
+    good = jax_v3.stage_v3(f.start, f.length, f.count, f.codes, 1, 3000,
+                           **SMALL)
+    for bad, match in ((lane[0][:7], "7 fields"), (good + (0,), "11 fields"),
+                       (good[:9] + ("planes",), "tagged 'planes'")):
+        with pytest.raises(ValueError, match=match):
+            pileup_v3.staged_from_numpy(bad, "cpu")
+    # lane-count words of the wrong width never reach the kernel
+    bad = list(lane[0])
+    bad[4] = bad[4][:, :16]
+    with pytest.raises(ValueError, match="staged cnts"):
+        pileup_v3.call_staged(pileup_v3.staged_from_numpy(tuple(bad), "cpu"),
+                              3000)
+    bad = list(good)
+    bad[1] = bad[1] + 10**6  # c1 past the chunk count
     with pytest.raises(ValueError, match="out of bounds"):
-        pileup_v3.staged_from_numpy(tuple(good), "cpu")
+        pileup_v3.staged_from_numpy(tuple(bad), "cpu")
+    bad = list(lane[0])
+    bad[5] = 0
+    with pytest.raises(ValueError, match="max_chunks"):
+        pileup_v3.staged_from_numpy(tuple(bad), "cpu")
+
+
+TILED_CASES = sorted(n for n in CASES if CASES[n][4] != "lane")
+
+
+def _tiled_case(name):
+    """A case staged as the tiled grid stages it (lane_counts=False, so the
+    classic form at every count); "sparse" is test_pileup_tpu3.py's
+    mostly-empty window at the default geometry in one rc class, "empty"
+    the batch with no fragment."""
+    if name == "sparse":
+        f = random_frags(np.random.default_rng(12), 60, 50000, max_len=10)
+        ws, wl, geo = 1, int(f.start.max()) + 64, dict(classes=None)
+    elif name == "empty":
+        f = random_frags(np.random.default_rng(13), 1, 100).take(
+            np.zeros(0, np.int64))
+        ws, wl, geo = 1, 1500, {}
+    else:
+        f, ws, wl, geo, _ = _case(name)
+    return f, ws, wl, dict(geo, lane_counts=False)
+
+
+@pytest.mark.parametrize("name", TILED_CASES + ["sparse", "empty"])
+def test_tiled_twin_equals_jax_kernel(name):
+    """tiled_classic_plain == the tiled-grid _call (TPU kernel 6),
+    interpret mode, tolerance 0, on the classic form (counts < 256 and up
+    to 3000; windows with empty tiles, which the kernel writes as zeros);
+    call_staged(grid="tiled") routes to it."""
+    f, ws, wl, geo = _tiled_case(name)
+    staged = jax_v3.stage_v3(f.start, f.length, f.count, f.codes, ws, wl,
+                             **geo)
+    want = _jax_pileup(staged, wl, grid="tiled")
+    port = pileup_v3.staged_from_numpy(staged, "cpu")
+    sts = port if isinstance(port, list) else [port]
+    assert all(st.form == "classic" for st in sts)
+    got = sum(pileup_v3.tiled_classic_plain(st, wl) for st in sts)
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    assert torch.equal(pileup_v3.call_staged(port, wl, grid="tiled"), got)
+    assert np.array_equal(want, pileup_xla(f.start, f.length, f.count,
+                                           f.codes, ws, wl))
+    if name in ("sparse", "vals_empty_tiles", "empty"):
+        assert ((sts[0].c1 - sts[0].c0) == 0).any()
+
+
+def test_tiled_grid_takes_the_classic_form_only():
+    """As in the JAX package, only the classic form has a tiled-grid
+    kernel; pileup_v3(grid="tiled") stages it (lane_counts=False), as
+    pileup_pallas_v3 does."""
+    f = random_frags(np.random.default_rng(9), 300, 3000)
+    for kw, match in ((dict(), "value-plane"), (dict(vals=False),
+                                                "lane-count")):
+        staged = jax_v3.stage_v3(f.start, f.length, f.count, f.codes, 1, 3000,
+                                 **kw, **SMALL)
+        with pytest.raises(ValueError, match=match):
+            _jax_pileup(staged, 3000, grid="tiled")
+        with pytest.raises(ValueError, match=match):
+            pileup_v3.call_staged(pileup_v3.staged_from_numpy(staged, "cpu"),
+                                  3000, grid="tiled")
+    with pytest.raises(ValueError, match="grid"):
+        pileup_v3.call_staged(pileup_v3.staged_from_numpy(staged, "cpu"),
+                              3000, grid="diagonal")
+    got = pileup_v3.pileup_v3(f.start, f.length, f.count, f.codes, 1, 3000,
+                              "cpu", grid="tiled", **SMALL)
+    assert np.array_equal(got.numpy(), pileup_xla(f.start, f.length, f.count,
+                                                  f.codes, 1, 3000))
 
 
 VALS_CASES = sorted(n for n in CASES if CASES[n][4] == "vals")
@@ -203,17 +303,33 @@ def test_cuda_kernel_equals_twin(cuda_device, name):
     staged = pileup_v3.stage_v3(f.start, f.length, f.count, f.codes, ws, wl,
                                 **geo)
     port = pileup_v3.staged_from_numpy(staged, cuda_device)
-    if form == "vals":
-        kernel, plain = (pileup_v3.flat_vals_fused,
-                         pileup_v3.flat_vals_fused_plain)
-    else:
-        kernel, plain = pileup_v3.flat_classic, pileup_v3.flat_classic_plain
+    kernel, plain = KERNELS[form]
     before = kernel.launches
     got = pileup_v3.call_staged(port, wl)
     torch.cuda.synchronize()
     assert kernel.launches > before
     want = sum(plain(st, wl) for st in (port if isinstance(port, list)
                                         else [port]))
+    assert torch.equal(got, want)
+    assert np.array_equal(got.cpu().numpy(), pileup_xla(
+        f.start, f.length, f.count, f.codes, ws, wl))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", TILED_CASES + ["sparse", "empty"])
+def test_cuda_tiled_kernel_equals_twin(cuda_device, name):
+    """tiled_classic on the card == its twin, empty tiles written as
+    zeros (the output starts from garbage: the launch zeroes it)."""
+    f, ws, wl, geo = _tiled_case(name)
+    port = pileup_v3.staged_from_numpy(pileup_v3.stage_v3(
+        f.start, f.length, f.count, f.codes, ws, wl, **geo), cuda_device)
+    torch.full((wl, 2), 7, dtype=torch.int32, device=cuda_device)  # dirty
+    before = pileup_v3.tiled_classic.launches
+    got = pileup_v3.call_staged(port, wl, grid="tiled")
+    torch.cuda.synchronize()
+    assert pileup_v3.tiled_classic.launches > before
+    want = sum(pileup_v3.tiled_classic_plain(st, wl)
+               for st in (port if isinstance(port, list) else [port]))
     assert torch.equal(got, want)
     assert np.array_equal(got.cpu().numpy(), pileup_xla(
         f.start, f.length, f.count, f.codes, ws, wl))
@@ -257,15 +373,18 @@ def test_cuda_launch_keeps_current_device():
     torch.cuda.set_device(0)
     for name in ("vals_dense", "classic_counts_3000"):
         f, ws, wl, geo, _ = _case(name)
-        for fused in (True, False):
+        for kw in (dict(fused=True), dict(fused=False), dict(vals=False)):
             port = pileup_v3.staged_from_numpy(pileup_v3.stage_v3(
-                f.start, f.length, f.count, f.codes, ws, wl, fused=fused,
-                **geo), dev)
+                f.start, f.length, f.count, f.codes, ws, wl, **kw, **geo),
+                dev)
             sts = port if isinstance(port, list) else [port]
             for st in sts:
                 out = pileup_v3.call_staged(st, wl)
                 assert torch.cuda.current_device() == 0
                 assert out.device == dev
+                if st.form == "classic":
+                    pileup_v3.call_staged(st, wl, grid="tiled")
+                    assert torch.cuda.current_device() == 0
                 if st.form != "classic":
                     total = torch.zeros((wl, 2), dtype=torch.int32,
                                         device=dev)

@@ -1,6 +1,7 @@
 """The port's v3 host staging equals the JAX package's stage_v3, array for
-array (tolerance 0), for the value-plane form (fused and split planes) and
-the classic form, and raises where the JAX package would fall back."""
+array (tolerance 0), for the value-plane form (fused and split planes),
+the lane-count form and the classic form (with the JAX package's gates
+between them), and raises where the JAX package would fall back."""
 
 import numpy as np
 import pytest
@@ -49,7 +50,36 @@ CASES = {
     "classic_fused_false": (dict(nr_frags=500, nr_sites=4000, max_len=10,
                                  max_count=3000), 1, 4000,
                             dict(SMALL, fused=False)),
+    # the lane-count form: the JAX package's WGBS_TPU_V3_VALS=0 (9 fields)
+    "lane": (dict(nr_frags=2000, nr_sites=5000, max_len=16, h_rate=0.05),
+             1, 5000, dict(SMALL, vals=False)),
+    "lane_one_class": (dict(nr_frags=1500, nr_sites=5000, max_len=20),
+                       1, 5000, dict(SMALL, vals=False, classes=None)),
+    "lane_left_edge_long": (dict(nr_frags=300, nr_sites=6000, max_len=300,
+                                 max_count=120), 2500, 2048,
+                            dict(SMALL, vals=False)),
+    "lane_default_geometry": (dict(nr_frags=3000, nr_sites=30000,
+                                   max_len=24), 1, 30000, dict(vals=False)),
+    # lane_counts=False with every count < 256: the classic form (the
+    # tiled grid's staging, WGBS_TPU_V3_LANE_COUNTS=0)
+    "classic_lane_counts_off": (dict(nr_frags=2000, nr_sites=5000,
+                                     max_len=16), 1, 5000,
+                                dict(SMALL, lane_counts=False)),
+    "classic_lane_counts_off_default": (dict(nr_frags=3000, nr_sites=30000,
+                                             max_len=24), 1, 30000,
+                                        dict(lane_counts=False)),
+    # the gates: vals needs lane_counts, and a count >= 256 leaves the
+    # lane-count form for the classic one
+    "classic_vals_without_lane_counts": (dict(nr_frags=500, nr_sites=4000,
+                                              max_len=10), 1, 4000,
+                                         dict(SMALL, lane_counts=False,
+                                              vals=True)),
+    "classic_lane_counts_3000": (dict(nr_frags=500, nr_sites=4000,
+                                      max_len=10, max_count=3000), 1, 4000,
+                                 dict(SMALL, vals=False)),
 }
+
+WIDTH = {"vals": 10, "lane": 9, "classic": 8}
 
 
 def assert_same_staged(a, b):
@@ -76,13 +106,17 @@ def test_stage_v3_equals_jax(case):
     got = pileup_v3.stage_v3(f.start, f.length, f.count, f.codes, ws, wl,
                              **geo)
     assert_same_staged(want, got)
-    form = "classic" if case.startswith("classic") else "vals"
-    assert isinstance(got, list) == (form == "classic" and
+    form = next((f for f in ("classic", "lane") if case.startswith(f)),
+                "vals")
+    assert isinstance(got, list) == (form != "vals" and
                                      geo.get("classes", "auto") is not None)
     one = got[0] if isinstance(got, list) else got
-    assert (len(one) == 10) == (form == "vals")
+    assert len(one) == WIDTH[form]
     if form == "vals":  # cv is None exactly for the fused plane
         assert (one[4] is None) == geo.get("fused", True)
+    if form == "lane":  # (n_chunks * rc, 32) count words, counts < 256
+        assert one[4].dtype == np.int32 and one[4].shape == (
+            one[3].shape[0], 32)
 
 
 def test_stage_v3_empty_batch_equals_jax():
@@ -106,6 +140,21 @@ def test_staging_raises_without_native(monkeypatch, fn, counts):
     monkeypatch.setattr(nat, fn, lambda *a, **k: None)
     with pytest.raises(RuntimeError, match="no fallback"):
         pileup_v3.stage_v3(f.start, f.length, f.count, f.codes, 1, 2000)
+
+
+def test_lane_staging_raises_without_place_counts(monkeypatch):
+    """The JAX package's stage_v3 returns None when place_counts fails
+    (and pileup_pallas_v3 drops to v2); the port raises."""
+    import wgbs_tools_tpu.native as nat
+
+    f = random_frags(np.random.default_rng(5), 200, 2000)
+    monkeypatch.setattr(nat, "place_counts_native", lambda *a, **k: None)
+    with pytest.raises(RuntimeError, match="no fallback"):
+        pileup_v3.stage_v3(f.start, f.length, f.count, f.codes, 1, 2000,
+                           vals=False)
+    # the other forms do not place count words
+    assert len(pileup_v3.stage_v3(f.start, f.length, f.count, f.codes, 1,
+                                  2000)) == 10
 
 
 def test_staging_raises_without_native_lib(monkeypatch):

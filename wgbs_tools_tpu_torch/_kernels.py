@@ -2,14 +2,16 @@
 
 nvcc compiles every source into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), loaded with
-ctypes. The build runs at the first CUDA use, never at import, into
-`build/` beside this file, and runs again when a source is newer than the
-library. A failed build raises with nvcc's output: there is no fallback.
+ctypes. The sources compile in parallel, one nvcc each, and one more nvcc
+links them. The build runs at the first CUDA use, never at import, into
+`build/` beside this file, and runs again when a source or header is newer
+than the library. A failed build raises with nvcc's output: there is no
+fallback.
 
 Every C entry point returns a cudaError_t (0 = success) from
 cudaGetLastError() right after its launch; `check` turns a nonzero code
 into a RuntimeError naming the call. No entry point sets the CUDA device:
-the caller makes the tensors' device current around the call.
+`launch` makes the tensors' device current around the call.
 """
 
 import ctypes
@@ -20,14 +22,18 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
 
 _PKG_DIR = op.dirname(op.abspath(__file__))
 _CSRC = op.join(_PKG_DIR, "csrc")
 BUILD_DIR = op.join(_PKG_DIR, "build")
 _SO = op.join(BUILD_DIR, "libwgbs_kernels.so")
 BUILD_LOG = op.join(BUILD_DIR, "nvcc.log")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = _ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                      "-Xptxas", "-v"]
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -50,42 +56,69 @@ def _nvcc():
     return found
 
 
+def _run(cmd):
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    return cmd, proc.returncode, proc.stdout + proc.stderr
+
+
 def build(force=False):
     """Compile csrc/*.cu into the shared library if it is missing or older
-    than a source. Returns the library path."""
+    than a source or header. Returns the library path."""
     srcs = sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {_CSRC}")
-    newest = max(op.getmtime(s) for s in srcs)
+    newest = max(op.getmtime(s) for s in srcs +
+                 glob.glob(op.join(_CSRC, "*.cuh")))
     if not force and op.isfile(_SO) and op.getmtime(_SO) >= newest:
         return _SO
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # build to a private name, then rename: a concurrent loader never sees
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + srcs
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    with open(BUILD_LOG, "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, _SO)
+    nvcc = _nvcc()
+    # objects and the library go to private names, then the library is
+    # renamed: a concurrent loader never sees a half-written library
+    tmpdir = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        objs = [op.join(tmpdir, op.basename(s)[: -len(".cu")] + ".o")
+                for s in srcs]
+        with ThreadPoolExecutor(len(srcs)) as ex:
+            runs = list(ex.map(_run, ([nvcc] + NVCC_FLAGS + ["-c", "-o", o, s]
+                                      for s, o in zip(srcs, objs))))
+        tmp_so = op.join(tmpdir, "lib.so")
+        if all(rc == 0 for _, rc, _ in runs):
+            runs.append(_run([nvcc] + _ARCH + ["-shared", "-o", tmp_so]
+                             + objs))
+        with open(BUILD_LOG, "w") as f:
+            for cmd, _, out in runs:
+                f.write(" ".join(cmd) + "\n" + out)
+        for cmd, rc, out in runs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed (exit {rc}):\n"
+                                   f"{' '.join(cmd)}\n{out}")
+        os.replace(tmp_so, _SO)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
     return _SO
 
 
 def _bind(lib):
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    # (c0, c1, meta, <planes>, out, num_tiles, window_len, tile_sb, rc,
-    #  g_max, stream): one plane pointer (rows), or two (mv, cv)
-    for name, n_planes in (("pileup_flat_vals_fused", 1),
-                           ("pileup_flat_classic", 1),
-                           ("pileup_flat_vals", 2),
-                           ("pileup_flat_vals_add", 2)):
+    # (<n_ptr device pointers>, <n_int int64 scalars>, stream)
+    for name, n_ptr, n_int in (
+            # v3: (c0, c1, meta, <planes>, out), (num_tiles, window_len,
+            # tile_sb, rc, g_max[, max_chunks])
+            ("pileup_flat_vals_fused", 5, 5),
+            ("pileup_flat_classic", 5, 5),
+            ("pileup_flat_vals", 6, 5),
+            ("pileup_flat_vals_add", 6, 5),
+            ("pileup_flat_lc", 6, 5),
+            ("pileup_tiled_classic", 5, 6),
+            # v2: (c0, c1, meta, words, out), (num_tiles, window_len, tile,
+            # fc, g_max, w_cols)
+            ("pileup_tiles_v2", 5, 6),
+            # v1: (lo, hi, meta, words, out), (num_tiles, window_len, tile,
+            # fc, w16)
+            ("pileup_tiles_v1", 5, 5)):
         fn = getattr(lib, name)
-        fn.argtypes = [vp] * (4 + n_planes) + [i64] * 5 + [vp]
+        fn.argtypes = [vp] * n_ptr + [i64] * n_int + [vp]
         fn.restype = i32
     lib.wgbs_cuda_error_string.argtypes = [i32]
     lib.wgbs_cuda_error_string.restype = ctypes.c_char_p
@@ -107,3 +140,20 @@ def check(err, what):
     if err != 0:
         msg = load().wgbs_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def launch(name, device, *args):
+    """Call the C entry point `name` with `args` (data pointers, then int
+    scalars) and the current stream of `device`, with `device` made current
+    for the call only, by PyTorch's own guard: the C side never sets a
+    device, so the caller's current device is what it was, and a per-device
+    shared-memory attribute is set on the right device. Raises on a device
+    other than CUDA and on a CUDA error."""
+    if device.type != "cuda":
+        raise ValueError(f"{name}: tensors on {device}; the kernel takes CUDA "
+                         "tensors and its plain twin CPU tensors")
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, name)(*args, stream)
+    check(err, name)

@@ -6,15 +6,33 @@ streams pat text through a C++ accumulator one line at a time
 {C,T,H}, meth[site] += count for {C,H}. Counts are int32 on the device and
 int64 on the host; nothing passes through a floating-point type.
 
-Backends of PileupAccumulator:
+Backends of PileupAccumulator and pileup_frags:
 - "cuda": v3 staging + the hand-written kernels (ops/pileup_v3.py). The
   main path; on a CUDA device it launches the kernels, on the CPU their
   plain twins run.
+- "cuda_v2": v2 staging + its kernel (ops/pileup_v2.py), the same way.
+- "cuda_v1": v1 host prep + its kernel (ops/pileup_v1.py), the same way.
 - "torch": `pileup_torch`, an index_add_ scatter; CPU only, so that no
   plain path runs on the card in place of the kernels.
 - "native": the host C++ kernel (wgbs_tools_tpu.native.pileup_native)
-  into an int64 host total; CPU only. With `finalize` it is the host
-  oracle: pileup_native followed by trim_to_uint.
+  into an int64 host total; CPU only (the accumulator's alone). With
+  `finalize` it is the host oracle: pileup_native followed by
+  trim_to_uint.
+
+The JAX package picks its pileup with environment switches; the port
+takes keywords, one for each (the v3 form keywords apply to the "cuda"
+backend only):
+
+| JAX switch                       | port keyword                        |
+|----------------------------------|-------------------------------------|
+| WGBS_TPU_V3_VALS=0               | vals=False                          |
+| WGBS_TPU_V3_LANE_COUNTS=0        | lane_counts=False                   |
+| WGBS_TPU_V3_FUSED_PLANE=0        | fused=False                         |
+| WGBS_TPU_PILEUP_V3_GRID=tiled    | grid="tiled" (implies               |
+|                                  | lane_counts=False, as               |
+|                                  | pileup_tpu3.py:1095 does)           |
+| backend "pallas2"                | backend="cuda_v2"                   |
+| backend "pallas"                 | backend="cuda_v1"                   |
 """
 
 import os
@@ -27,10 +45,54 @@ from wgbs_tools_tpu.formats.pat import CODE_C, CODE_DOT, CODE_H, PatFrags
 from wgbs_tools_tpu.native import pileup_native
 
 from ..device import resolve_device, timed
-from .pileup_v3 import call_staged, stage_v3, staged_from_numpy
+from .pileup_v1 import stage_v1, staged_v1_from_numpy, tiles_v1
+from .pileup_v2 import stage_v2, staged_v2_from_numpy, tiles_v2
+from .pileup_v3 import GRIDS, call_staged, stage_v3, staged_from_numpy
 
 DEFAULT_BATCH = 1 << 20
-BACKENDS = ("cuda", "torch", "native")
+KERNEL_BACKENDS = ("cuda", "cuda_v2", "cuda_v1")
+BACKENDS = KERNEL_BACKENDS + ("torch", "native")
+
+
+def _check_backend(backend, device, forms, backends=BACKENDS):
+    """Raise on an unknown backend, a host backend on a CUDA device, or v3
+    form keywords (`forms`: fused, vals, lane_counts, grid) away from their
+    defaults with a backend other than "cuda"."""
+    if backend not in backends:
+        raise ValueError(f"backend {backend!r}: one of {backends}")
+    if backend not in KERNEL_BACKENDS and torch.device(device).type != "cpu":
+        raise ValueError(f"the {backend!r} backend runs on the host only: "
+                         "use device='cpu' (on the card the 'cuda' "
+                         "backend's kernels run)")
+    fused, vals, lane_counts, grid = forms
+    if grid not in GRIDS:
+        raise ValueError(f"grid {grid!r}: one of {GRIDS}")
+    if backend != "cuda" and not (fused and vals and lane_counts
+                                  and grid == "flat"):
+        raise ValueError("the v3 form keywords (fused, vals, lane_counts, "
+                         f"grid) apply to the 'cuda' backend, not "
+                         f"{backend!r}")
+
+
+def _stagers(backend, fused=True, vals=True, lane_counts=True, grid="flat"):
+    """(stage, upload, kernel) of a kernel backend: stage(start, length,
+    count, codes, window_start, window_len) -> numpy staged batch,
+    upload(staged, device) -> tensors, kernel(tensors, window_len) ->
+    int32 (window_len, 2) on the device."""
+    if backend == "cuda_v2":
+        return stage_v2, staged_v2_from_numpy, tiles_v2
+    if backend == "cuda_v1":
+        return stage_v1, staged_v1_from_numpy, tiles_v1
+    lane_counts = lane_counts and grid == "flat"
+
+    def stage(*frags):
+        return stage_v3(*frags, fused=fused, vals=vals,
+                        lane_counts=lane_counts)
+
+    def kernel(staged, window_len):
+        return call_staged(staged, window_len, grid)
+
+    return stage, staged_from_numpy, kernel
 
 
 def pileup_torch(start, length, count, codes, window_start, window_len,
@@ -85,24 +147,22 @@ class PileupAccumulator:
     span of the site axis; it piles up over that span only and is added
     in place into the device-resident int32 total. With `timings` (a dict)
     each stage's seconds accumulate there, the device synchronized after
-    each (see device.timed). fused=False stages value-plane batches as two
-    split planes (the flat_vals kernel) instead of the fused plane
-    (flat_vals_fused); the counts are the same."""
+    each (see device.timed). The v3 form keywords of the "cuda" backend
+    (see the module's table) pick the staged form and kernel grid: fused,
+    vals, lane_counts (stage_v3's) and grid ("flat" or "tiled"); every
+    choice gives the same counts."""
 
     def __init__(self, window, device, backend="cuda", timings=None,
-                 fused=True):
-        if backend not in BACKENDS:
-            raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
-        if backend != "cuda" and torch.device(device).type != "cpu":
-            raise ValueError(f"the {backend!r} backend runs on the host only: "
-                             "use device='cpu' (on the card the 'cuda' "
-                             "backend's kernels run)")
+                 fused=True, vals=True, lane_counts=True, grid="flat"):
+        _check_backend(backend, device, (fused, vals, lane_counts, grid))
         self.window = window
         self.n = window[1] - window[0]
         self.device = resolve_device(device)
         self.backend = backend
         self.timings = timings
-        self.fused = fused
+        if backend in KERNEL_BACKENDS:
+            self._stage, self._upload, self._kernel = _stagers(
+                backend, fused, vals, lane_counts, grid)
         if backend == "native":
             self.total = np.zeros((self.n, 2), dtype=np.int64)
         else:
@@ -135,12 +195,12 @@ class PileupAccumulator:
                                    sel.codes, lo, span, self.device)
         else:
             with self._timed("stage"):
-                staged = stage_v3(sel.start, sel.length, sel.count, sel.codes,
-                                  lo, span, fused=self.fused)
+                staged = self._stage(sel.start, sel.length, sel.count,
+                                     sel.codes, lo, span)
             with self._timed("h2d"):
-                staged = staged_from_numpy(staged, self.device)
+                staged = self._upload(staged, self.device)
             with self._timed("kernel"):
-                res = call_staged(staged, span)
+                res = self._kernel(staged, span)
         with self._timed("kernel"):
             # in place, where the JAX package donates the total to _fold_at
             self.total[lo - s : lo - s + span].add_(res)
@@ -197,6 +257,31 @@ def saturate_device_counts(total, lbeta=False, cap=1 << 20,
         rows = triples.cpu().numpy()
         beta[rows[:, 0]] = trim_to_uint(rows[:, 1:3].astype(np.int64), lbeta)
     return beta
+
+
+def pileup_frags(frags: PatFrags, window, backend="cuda", device="cuda",
+                 batch=DEFAULT_BATCH, fused=True, vals=True, lane_counts=True,
+                 grid="flat"):
+    """Pileup of a PatFrags batch over the 1-based site window [s, e) ->
+    int32 (e - s, 2) [meth, cov] on `device`.
+
+    Port of wgbs_tools_tpu/ops/pileup.py::pileup_frags, dispatching the
+    same way: the fragments overlapping the window, then the backend's
+    staging and kernel ("cuda" = v3, "cuda_v2", "cuda_v1"; the v3 form
+    keywords as in the module's table), or "torch", the scatter twin, on
+    the CPU only, with `batch` fragments per scatter."""
+    _check_backend(backend, device, (fused, vals, lane_counts, grid),
+                   backends=KERNEL_BACKENDS + ("torch",))
+    dev = resolve_device(device)
+    s, e = window
+    n = e - s
+    sel = frags.slice_sites(s, e, min_overlap=1) if frags.nr_frags else frags
+    if backend == "torch":
+        return pileup_torch(sel.start, sel.length, sel.count, sel.codes, s,
+                            n, dev, batch=batch)
+    stage, upload, kernel = _stagers(backend, fused, vals, lane_counts, grid)
+    return kernel(upload(stage(sel.start, sel.length, sel.count, sel.codes,
+                               s, n), dev), n)
 
 
 def fetch_chunked(x, max_bytes=8 << 20):

@@ -6,19 +6,25 @@ Port of wgbs_tools_tpu/ops/pileup_tpu3.py (with pileup_tpu2.py's
 the staged arrays are identical and the tests compare them one to one:
 fragments are split at 128-site sub-blocks, the pieces are packed into
 rows by the native first-fit packer, and the rows are chunked (at most
-rc - 1 rows, g_max sub-blocks and one output tile per chunk). Three staged
-forms reach a kernel:
+rc - 1 rows, g_max sub-blocks and one output tile per chunk). Four staged
+forms reach a kernel; while every count is < 256 the first applicable of
+them is taken (the JAX package's gates, pileup_tpu3.py:834-843):
 
-- "vals" (every count < 256; `stage_v3(fused=True)`, the default): one
-  uint8 (rows, 256) plane, lanes 0-127 = the count where the code is a
-  methylation call, 128-255 = the count where the site is observed.
-  Kernel: `flat_vals_fused`.
-- "vals_split" (every count < 256, `stage_v3(fused=False)`): the same
-  values in two uint8 (rows, 128) planes, mv and cv. Kernel: `flat_vals`.
-- "classic" (any count >= 256, or no fragments): 2-bit planar code words
-  (rows, 8) plus one int32 count per row, split into rc classes (16, 128)
-  by default. Kernel: `flat_classic`, one launch per class; the classes'
-  outputs sum.
+- "vals" (`stage_v3()`, the default): one uint8 (rows, 256) plane, lanes
+  0-127 = the count where the code is a methylation call, 128-255 = the
+  count where the site is observed. Kernel: `flat_vals_fused`.
+- "vals_split" (`stage_v3(fused=False)`): the same values in two uint8
+  (rows, 128) planes, mv and cv. Kernel: `flat_vals`.
+- "lane" (`stage_v3(vals=False)`): rows packed with no regard to count,
+  2-bit planar code words (rows, 8) plus (rows, 32) int32 words of
+  per-lane 8-bit counts, split into rc classes (16, 128). Kernel:
+  `flat_lc`, one launch per class.
+- "classic" (any count >= 256, no fragments, or
+  `stage_v3(lane_counts=False)`): rows packed per count, code words
+  (rows, 8) plus one int32 count per row, in rc classes (16, 128).
+  Kernels: `flat_classic` on the flat grid (one CTA per tile), or
+  `tiled_classic` on the tiled grid (`call_staged(grid="tiled")`, one CTA
+  per chunk of a tile). The classes' outputs sum.
 
 `flat_vals_add` piles up a batch of either value-plane form and adds it
 in place into a given int32 total, in one launch (the sharded path's
@@ -139,19 +145,27 @@ def _prep_window(start, length, count, codes, window_start, window_len):
 
 
 def stage_v3(start, length, count, codes, window_start, window_len,
-             tile=None, rc=None, g_max=None, classes="auto", fused=True):
+             tile=None, rc=None, g_max=None, classes="auto",
+             lane_counts=True, vals=True, fused=True):
     """Host staging of one fragment batch over the 1-based window
     [window_start, window_start + window_len).
 
-    Returns the JAX package's staged tuple (numpy), byte for byte:
-    (c0, c1, meta, plane, None, max_chunks, tile, rc, g_max, "vals") when
-    every count is < 256, or with fused=False the split planes
-    (c0, c1, meta, mv, cv, max_chunks, tile, rc, g_max, "vals") (the JAX
-    package's WGBS_TPU_V3_FUSED_PLANE=0); else a list with one classic
-    tuple (c0, c1, meta, words, max_chunks, tile, rc, g_max) per rc class.
-    Geometry left as None takes the form's default (VALS_GEOMETRY or
-    CLASSIC_GEOMETRY); explicit `classes` set rc to the largest class.
-    Raises when the native packer is unavailable."""
+    Returns the JAX package's staged tuple (numpy), byte for byte, for the
+    same keywords (each the negation of one of its switches:
+    lane_counts=False is WGBS_TPU_V3_LANE_COUNTS=0, vals=False
+    WGBS_TPU_V3_VALS=0, fused=False WGBS_TPU_V3_FUSED_PLANE=0). While every
+    count is < 256: with lane_counts and vals, (c0, c1, meta, plane, None,
+    max_chunks, tile, rc, g_max, "vals"), or with fused=False the split
+    planes (c0, c1, meta, mv, cv, ..., "vals"); with lane_counts alone a
+    list with one lane-count tuple (c0, c1, meta, words, cnts, max_chunks,
+    tile, rc, g_max) per rc class. Otherwise (a count >= 256, no fragments,
+    or lane_counts=False) a list with one classic tuple (c0, c1, meta,
+    words, max_chunks, tile, rc, g_max) per rc class. vals needs
+    lane_counts and fused needs vals, as in JAX. Geometry left as None
+    takes the form's default (VALS_GEOMETRY, or CLASSIC_GEOMETRY for both
+    code-word forms); explicit `classes` set rc to the largest class.
+    Raises when a native call fails or is unavailable, where the JAX package
+    falls back to another form or to v2."""
     require_native()
     rel, length, count, codes = _prep_window(
         start, length, count, codes, window_start, window_len)
@@ -178,9 +192,12 @@ def stage_v3(start, length, count, codes, window_start, window_len,
                                p_cnt[order])
     p_src, p_off = p_src[order], p_off[order]
 
-    # value planes hold one count per byte: any count >= 256 (and the
-    # empty batch, as in JAX) takes the classic per-count-row form
-    vals = bool(F and int(p_cnt.max(initial=0)) < 256)
+    # value planes and count words hold one count per byte: any count >=
+    # 256 (and the empty batch, as in JAX) takes the classic per-count-row
+    # form
+    lane_counts = bool(lane_counts and F and int(p_cnt.max(initial=0)) < 256)
+    vals = bool(vals and lane_counts)
+    fused = bool(fused and vals)
     geom = VALS_GEOMETRY if vals else CLASSIC_GEOMETRY
     if classes == "auto":
         classes = geom["classes"]
@@ -198,8 +215,9 @@ def stage_v3(start, length, count, codes, window_start, window_len,
     tile_sb = tile // SB
 
     if F:
-        # value-plane rows are count-agnostic: pieces of any count share
-        pk_cnt = np.ones_like(p_cnt) if vals else p_cnt
+        # value-plane and lane-count rows are count-agnostic: pieces of any
+        # count share
+        pk_cnt = np.ones_like(p_cnt) if lane_counts else p_cnt
         packed = _native_ok(native.pack_rows_native(p_g, pk_cnt, p_rr, p_len),
                             "pack_rows128")
     else:
@@ -219,6 +237,11 @@ def stage_v3(start, length, count, codes, window_start, window_len,
             _native_ok(native.place_pack_native(codes, p_src, p_off, p_rr,
                                                 p_len, piece_row, all_words),
                        "place_pack_rows")
+    all_cnts = None
+    if lane_counts and not vals:
+        all_cnts = np.zeros((R, SB // 4), dtype=np.int32)  # R >= 1: F > 0
+        _native_ok(native.place_counts_native(p_cnt, p_rr, p_len, piece_row,
+                                              all_cnts), "place_counts_rows")
 
     # chunking over rows: bounded rows, sub-block span, single tile
     row_tile = row_g // tile_sb
@@ -244,7 +267,8 @@ def stage_v3(start, length, count, codes, window_start, window_len,
     num_tiles = (window_len + tile - 1) // tile
     if classes is None:
         return _assemble_class(row_g, row_tile, row_count, rows, bstarts,
-                               bends, rc, g_max, tile, num_tiles, R, fused)
+                               bends, rc, g_max, tile, num_tiles, R, fused,
+                               all_cnts)
     out = []
     lens_c = bends - bstarts
     lo = 0
@@ -255,18 +279,19 @@ def stage_v3(start, length, count, codes, window_start, window_len,
             else (lens_c > lo)
         out.append(_assemble_class(
             row_g, row_tile, row_count, rows, bstarts[sel], bends[sel],
-            rc_c, g_max, tile, num_tiles, R, fused))
+            rc_c, g_max, tile, num_tiles, R, fused, all_cnts))
         lo = rc_c - 1
     return out
 
 
 def _assemble_class(row_g, row_tile, row_count, rows, bstarts, bends, rc,
-                    g_max, tile, num_tiles, R, fused):
+                    g_max, tile, num_tiles, R, fused, all_cnts=None):
     """One staged tuple from a (sorted, disjoint) subset of chunk row
     ranges. `rows` is (mv, cv) for the value-plane form, which becomes one
     fused (n_chunks*rc, 256) plane, or with fused=False two (n_chunks*rc,
-    128) planes; or the (R, 8) code words of the classic form. Padding rows
-    are zero values / all-'.' words."""
+    128) planes; or the (R, 8) code words of the code-word forms, with
+    all_cnts the lane-count form's (R, 32) count words (the tuple's 5th
+    field). Padding rows are zero values / all-'.' words / zero counts."""
     vals = isinstance(rows, tuple)
     n_real = max(bstarts.shape[0], 1)
     gran = 1 << max(4, n_real.bit_length() - 3)
@@ -283,6 +308,8 @@ def _assemble_class(row_g, row_tile, row_count, rows, bstarts, bends, rc,
     else:
         plane = np.full((n_chunks * rc, SB // 16), -1,
                         dtype=np.int32)  # all '.'
+    cnts = (None if all_cnts is None else
+            np.zeros((n_chunks * rc, SB // 4), dtype=np.int32))
     if R and bstarts.shape[0]:
         lens_c = bends - bstarts
         ci_arr = np.repeat(np.arange(bstarts.shape[0]), lens_c)
@@ -306,6 +333,8 @@ def _assemble_class(row_g, row_tile, row_count, rows, bstarts, bends, rc,
                 cvp[dst] = rows[1][src]
         else:
             plane[dst] = rows[src]
+            if cnts is not None:
+                cnts[dst] = all_cnts[src]
         chunk_tile = row_tile[bstarts]
         c0 = np.searchsorted(chunk_tile, np.arange(num_tiles), side="left")
         c1 = np.searchsorted(chunk_tile, np.arange(num_tiles), side="right")
@@ -319,6 +348,8 @@ def _assemble_class(row_g, row_tile, row_count, rows, bstarts, bends, rc,
     if vals:
         return (c0, c1, meta, plane, cvp, max_chunks, tile, rc, g_max,
                 "vals")
+    if cnts is not None:
+        return (c0, c1, meta, plane, cnts, max_chunks, tile, rc, g_max)
     return (c0, c1, meta, plane, max_chunks, tile, rc, g_max)
 
 
@@ -335,9 +366,12 @@ class Staged:
     plane. form "vals_split": rows = the uint8 (n_chunks*rc, 128) meth
     plane mv, and cv the cov plane of the same shape. form "classic": rows
     = int32 (n_chunks*rc, 8), planar 2-bit code words, with each row's
-    repeat count in meta[:, 0]. c0/c1 = int32 (num_tiles,) chunk range of
-    each output tile; meta = int32 (n_chunks, 2, rc). cv is None except in
-    the "vals_split" form."""
+    repeat count in meta[:, 0]. form "lane": the same code words, and cnts
+    = int32 (n_chunks*rc, 32) per-lane 8-bit counts. c0/c1 = int32
+    (num_tiles,) chunk range of each output tile; meta = int32 (n_chunks,
+    2, rc). cv is None except in the "vals_split" form, cnts except in the
+    "lane" form. max_chunks (the tiled grid's chunk steps, >= the most
+    chunks of any tile) is None when not given."""
 
     form: str
     c0: torch.Tensor
@@ -348,6 +382,8 @@ class Staged:
     rc: int
     g_max: int
     cv: torch.Tensor = None
+    cnts: torch.Tensor = None
+    max_chunks: int = None
 
     @property
     def tile_sb(self):
@@ -362,41 +398,50 @@ def staged_from_numpy(staged, device):
     """A numpy staged tuple (from this module's or the JAX package's
     stage_v3), or a list of them, -> Staged tensors on `device`.
 
-    Only the forms with a port kernel are accepted: the value planes, fused
-    or split, and the classic words. The chunk ranges are checked here, on
-    the host, because the kernels index chunks with them."""
+    Every form the JAX package stages is accepted: the value planes, fused
+    or split (10 fields, tagged "vals"), the lane-count form (9 fields) and
+    the classic form (8 fields); any other tuple raises. The chunk ranges
+    and max_chunks are checked here, on the host, because the kernels index
+    chunks with them and the tiled grid launches max_chunks steps."""
     if isinstance(staged, list):
         return [staged_from_numpy(st, device) for st in staged]
-    cvp = None
+    cvp = cnts = None
     if len(staged) == 10:
-        c0, c1, meta, rows, cvp, _max_chunks, tile, rc, g_max, tag = staged
+        c0, c1, meta, rows, cvp, max_chunks, tile, rc, g_max, tag = staged
         if tag != "vals":
             raise ValueError(f"a 10-field staged tuple tagged {tag!r}: only "
                              "the value-plane form ('vals') exists")
         form = "vals" if cvp is None else "vals_split"
+    elif len(staged) == 9:
+        c0, c1, meta, rows, cnts, max_chunks, tile, rc, g_max = staged
+        form = "lane"
     elif len(staged) == 8:
-        c0, c1, meta, rows, _max_chunks, tile, rc, g_max = staged
+        c0, c1, meta, rows, max_chunks, tile, rc, g_max = staged
         form = "classic"
     else:
-        raise ValueError(f"a staged tuple of {len(staged)} fields (the "
-                         "lane-count form, TPU kernel _kernel_flat_lc) has "
-                         "no kernel in the port")
+        raise ValueError(f"a staged tuple of {len(staged)} fields: a v3 "
+                         "staged form has 8 (classic), 9 (lane-count) or 10 "
+                         "(value-plane)")
     c0, c1 = np.asarray(c0), np.asarray(c1)
     n_chunks = np.asarray(meta).shape[0]
     if ((c0 < 0) | (c0 > c1) | (c1 > n_chunks)).any():
         raise ValueError("staged chunk ranges c0/c1 out of bounds")
+    if int(max_chunks) < max(int((c1 - c0).max(initial=0)), 1):
+        raise ValueError(f"max_chunks={max_chunks} is below the chunks of a "
+                         "tile")
     dev = torch.device(device)
 
     def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return None if a is None else torch.from_numpy(
+            np.ascontiguousarray(a)).to(dev)
 
     return Staged(form, put(c0), put(c1), put(meta), put(rows), int(tile),
-                  int(rc), int(g_max), None if cvp is None else put(cvp))
+                  int(rc), int(g_max), put(cvp), put(cnts), int(max_chunks))
 
 
 # (width, dtype) of the rows (and of cv, for "vals_split") by form
 _ROWS = {"vals": (2 * SB, torch.uint8), "vals_split": (SB, torch.uint8),
-         "classic": (SB // 16, torch.int32)}
+         "classic": (SB // 16, torch.int32), "lane": (SB // 16, torch.int32)}
 
 
 def _check(st, forms, window_len):
@@ -427,6 +472,10 @@ def _check(st, forms, window_len):
         want["cv"] = want["rows"]
     elif st.cv is not None:
         raise ValueError(f"staged form {st.form!r} carries no cv plane")
+    if st.form == "lane":
+        want["cnts"] = ((n_chunks * st.rc, SB // 4), torch.int32)
+    elif st.cnts is not None:
+        raise ValueError(f"staged form {st.form!r} carries no count words")
     for name, (shape, dt) in want.items():
         x = getattr(st, name)
         if (tuple(x.shape) != shape or x.dtype != dt
@@ -438,27 +487,14 @@ def _check(st, forms, window_len):
     return num_tiles
 
 
-def _launch(name, st, window_len, num_tiles, planes, out):
+def _launch(name, st, window_len, num_tiles, planes, out, *extra):
     """Launch the kernel `name` of csrc/pileup_v3.cu on the staged device's
-    current stream, writing or adding into `out`; returns `out`.
-
-    The staged device is made current for the call only, with PyTorch's
-    own guard: the C side never sets a device, so the caller's current
-    device is what it was, and the per-device shared-memory attribute is
-    set on the right device. `planes` are the data pointers of the rows
-    (None for an absent cv)."""
-    dev = st.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: tensors on {dev}; the kernel takes CUDA "
-                         "tensors and its plain twin CPU tensors")
-    lib = _kernels.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, name)(
-            st.c0.data_ptr(), st.c1.data_ptr(), st.meta.data_ptr(), *planes,
-            out.data_ptr(), num_tiles, window_len, st.tile_sb, st.rc,
-            st.g_max, stream)
-    _kernels.check(err, name)
+    current stream (see _kernels.launch), writing or adding into `out`;
+    returns `out`. `planes` are the data pointers of the rows (None for an
+    absent cv), `extra` int arguments after g_max."""
+    _kernels.launch(name, st.device, st.c0.data_ptr(), st.c1.data_ptr(),
+                    st.meta.data_ptr(), *planes, out.data_ptr(), num_tiles,
+                    window_len, st.tile_sb, st.rc, st.g_max, *extra)
     return out
 
 
@@ -551,9 +587,67 @@ def flat_classic(st, window_len):
 flat_classic.launches = 0
 
 
+def flat_lc(st, window_len):
+    """Pileup of a "lane" staged batch -> int32 (window_len, 2).
+
+    Replaces pileup_tpu3.py::_kernel_flat_lc. CUDA tensors launch the
+    kernel; CPU tensors take flat_lc_plain."""
+    num_tiles = _check(st, ("lane",), window_len)
+    if st.device.type == "cpu":
+        return flat_lc_plain(st, window_len)
+    out = _launch("pileup_flat_lc", st, window_len, num_tiles,
+                  (st.rows.data_ptr(), st.cnts.data_ptr()),
+                  _new_out(st, window_len))
+    flat_lc.launches += 1
+    return out
+
+
+flat_lc.launches = 0
+
+
+def tiled_classic(st, window_len):
+    """Pileup of a "classic" staged batch on the tiled grid -> int32
+    (window_len, 2): one CTA per (tile, chunk step), max_chunks steps per
+    tile, each adding its chunk into the zeroed output with atomics.
+
+    Replaces pileup_tpu3.py::_kernel (the JAX package's
+    WGBS_TPU_PILEUP_V3_GRID=tiled). CUDA tensors launch the kernel; CPU
+    tensors take tiled_classic_plain."""
+    num_tiles = _check(st, ("classic",), window_len)
+    if st.max_chunks is None or st.max_chunks < 1:
+        raise ValueError(f"max_chunks={st.max_chunks}: the tiled grid needs "
+                         "the staged max_chunks (>= 1)")
+    if st.device.type == "cpu":
+        return tiled_classic_plain(st, window_len)
+    out = _launch("pileup_tiled_classic", st, window_len, num_tiles,
+                  (st.rows.data_ptr(),), _new_out(st, window_len),
+                  st.max_chunks)
+    tiled_classic.launches += 1
+    return out
+
+
+tiled_classic.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch twins (the CPU path, and the kernels' oracle on the card)
 # ---------------------------------------------------------------------------
+
+
+def chunk_tiles(c0, c1, n_chunks):
+    """int64 (n_chunks,) output tile of each chunk, from the per-tile chunk
+    ranges [c0[t], c1[t]), or -1 for a chunk in no tile's range."""
+    dev = c0.device
+    lens = (c1 - c0).to(torch.int64)
+    n_in = int(lens.sum())
+    tiles = torch.repeat_interleave(
+        torch.arange(c0.shape[0], dtype=torch.int64, device=dev), lens)
+    firsts = torch.repeat_interleave(c0.to(torch.int64), lens)
+    offs = (torch.arange(n_in, dtype=torch.int64, device=dev)
+            - torch.repeat_interleave(torch.cumsum(lens, 0) - lens, lens))
+    chunk_tile = torch.full((n_chunks,), -1, dtype=torch.int64, device=dev)
+    chunk_tile[firsts + offs] = tiles
+    return chunk_tile
 
 
 def _row_targets(st, num_tiles):
@@ -561,18 +655,7 @@ def _row_targets(st, num_tiles):
     row num_tiles * tile_sb where a kernel skips the row: padding rows
     (dg outside [0, g_max)), chunks in no tile's range, and sub-blocks
     outside their chunk's tile."""
-    dev = st.device
-    n_chunks = st.meta.shape[0]
-    lens = (st.c1 - st.c0).to(torch.int64)
-    n_in = int(lens.sum())
-    tiles = torch.repeat_interleave(
-        torch.arange(num_tiles, dtype=torch.int64, device=dev), lens)
-    firsts = torch.repeat_interleave(st.c0.to(torch.int64), lens)
-    offs = (torch.arange(n_in, dtype=torch.int64, device=dev)
-            - torch.repeat_interleave(torch.cumsum(lens, 0) - lens, lens))
-    chunk_tile = torch.full((n_chunks,), -1, dtype=torch.int64, device=dev)
-    chunk_tile[firsts + offs] = tiles
-    ct = chunk_tile[:, None]
+    ct = chunk_tiles(st.c0, st.c1, st.meta.shape[0])[:, None]
     dg = st.meta[:, 1, :].to(torch.int64)
     sb = dg[:, -1:] - st.g_max - ct * st.tile_sb + dg  # sub-block in tile
     ok = ((ct >= 0) & (dg >= 0) & (dg < st.g_max) & (sb >= 0)
@@ -611,15 +694,37 @@ def flat_vals_add_plain(total, st, window_len):
     return total.add_(plain(st, window_len))
 
 
-def flat_classic_plain(st, window_len):
-    """Twin of the flat_classic kernel in plain PyTorch: decode the planar
-    words (site l = field l // 8 of word l % 8), mask the row counts."""
+def _code_word_rows(st, cnt):
+    """int32 (rows, 256) meth|cov values of the code-word forms: decode the
+    planar words (site l = field l // 8 of word l % 8) and mask the counts
+    `cnt` (one per row, (rows, 1), or one per lane, (rows, 128))."""
     lane = torch.arange(SB, dtype=torch.int32, device=st.device)
     codes = (st.rows[:, (lane % 8).long()] >> (2 * (lane // 8))) & 3
-    cnt = st.meta[:, 0, :].reshape(-1, 1)
     meth = torch.where((codes == 1) | (codes == 2), cnt, 0)
     cov = torch.where(codes != CODE_DOT, cnt, 0)
-    return _scatter_rows(st, torch.cat([meth, cov], dim=1), window_len)
+    return torch.cat([meth, cov], dim=1)
+
+
+def flat_classic_plain(st, window_len):
+    """Twin of the flat_classic kernel in plain PyTorch: the row counts
+    masked by the decoded codes, scattered by sub-block."""
+    return _scatter_rows(st, _code_word_rows(st, st.meta[:, 0, :].reshape(
+        -1, 1)), window_len)
+
+
+def flat_lc_plain(st, window_len):
+    """Twin of the flat_lc kernel in plain PyTorch: the count of lane l is
+    the 8-bit field l // 32 of count word l % 32."""
+    lane = torch.arange(SB, dtype=torch.int32, device=st.device)
+    cnt = (st.cnts[:, (lane % 32).long()] >> (8 * (lane // 32))) & 255
+    return _scatter_rows(st, _code_word_rows(st, cnt), window_len)
+
+
+def tiled_classic_plain(st, window_len):
+    """Twin of the tiled_classic kernel in plain PyTorch. The tiled grid
+    piles up the same chunks (those of [c0[t], c1[t]) for tile t) as the
+    flat one, so the twin is flat_classic_plain."""
+    return flat_classic_plain(st, window_len)
 
 
 # ---------------------------------------------------------------------------
@@ -627,26 +732,49 @@ def flat_classic_plain(st, window_len):
 # ---------------------------------------------------------------------------
 
 
-def call_staged(staged, window_len):
-    """Run a Staged batch (or a list: the classic form's rc classes, whose
-    disjoint chunk sets sum exactly) through its kernel -> int32
-    (window_len, 2) [meth, cov] on the staged device."""
+GRIDS = ("flat", "tiled")
+
+
+def call_staged(staged, window_len, grid="flat"):
+    """Run a Staged batch (or a list: the code-word forms' rc classes,
+    whose disjoint chunk sets sum exactly) through its kernel -> int32
+    (window_len, 2) [meth, cov] on the staged device.
+
+    grid "flat" (one CTA per tile) serves every form; "tiled" (one CTA per
+    chunk step of a tile, the JAX package's WGBS_TPU_PILEUP_V3_GRID=tiled)
+    has a kernel for the classic form only, and raises for the others as
+    the JAX package does."""
+    if grid not in GRIDS:
+        raise ValueError(f"grid {grid!r}: one of {GRIDS}")
     if isinstance(staged, list):
         out = None
         for st in staged:
-            res = call_staged(st, window_len)
+            res = call_staged(st, window_len, grid)
             out = res if out is None else out.add_(res)
         return out
+    if grid == "tiled":
+        if staged.form in ("vals", "vals_split"):
+            raise ValueError("value-plane staging has no tiled-grid kernel; "
+                             "stage with lane_counts=False for the tiled "
+                             "grid")
+        if staged.form == "lane":
+            raise ValueError("lane-count staging has no tiled-grid kernel; "
+                             "stage with lane_counts=False for the tiled "
+                             "grid")
+        return tiled_classic(staged, window_len)
     kernel = {"vals": flat_vals_fused, "vals_split": flat_vals,
-              "classic": flat_classic}[staged.form]
+              "lane": flat_lc, "classic": flat_classic}[staged.form]
     return kernel(staged, window_len)
 
 
 def pileup_v3(start, length, count, codes, window_start, window_len, device,
-              **geometry):
+              grid="flat", **staging):
     """Pileup over the 1-based window [window_start, window_start +
-    window_len) -> int32 (window_len, 2) [meth, cov] on `device`: staging,
-    upload, kernel."""
+    window_len) -> int32 (window_len, 2) [meth, cov] on `device`: staging
+    (stage_v3's keywords), upload, kernel. grid="tiled" stages the classic
+    form (lane_counts=False), as the JAX package's pileup_pallas_v3 does."""
+    if grid == "tiled":
+        staging["lane_counts"] = False
     staged = stage_v3(start, length, count, codes, window_start, window_len,
-                      **geometry)
-    return call_staged(staged_from_numpy(staged, device), window_len)
+                      **staging)
+    return call_staged(staged_from_numpy(staged, device), window_len, grid)

@@ -32,23 +32,32 @@ from ..parallel.sharded import ShardedPileupV3
 DEF_CHUNK_BYTES = 32 << 20
 
 
-def _accumulator(window, device, backend, timings, sharded, devices):
+def _accumulator(window, device, backend, timings, sharded, devices,
+                 forms=None):
     """The single-device accumulator or the sharded one. sharded=None
     means sharded when `device` is CUDA and more than one card is visible
     (as the JAX package decides by its visible devices); an explicit
-    `devices` list forces the sharded path, one shard per list entry."""
+    `devices` list forces the sharded path, one shard per list entry.
+    `forms` are the v3 form keywords (ops/pileup.py's table) for the
+    single-device accumulator; the sharded path stages value planes only,
+    so it takes none of them."""
+    forms = forms or {}
     if devices is None:
         dev = resolve_device(device)
         if sharded is None:
             sharded = dev.type == "cuda" and torch.cuda.device_count() > 1
         if not sharded:
-            return PileupAccumulator(window, dev, backend, timings=timings)
+            return PileupAccumulator(window, dev, backend, timings=timings,
+                                     **forms)
         devices = shard_devices(dev)
     elif sharded is False:
         raise ValueError("sharded=False contradicts an explicit devices list")
     if backend != "cuda":
         raise ValueError(f"the sharded path runs the kernels (backend "
                          f"'cuda'), not {backend!r}")
+    if forms:
+        raise ValueError(f"the sharded path stages value planes only; it "
+                         f"takes no form keywords ({', '.join(forms)})")
     return ShardedPileupV3([resolve_device(d) for d in devices], window,
                            timings=timings)
 
@@ -75,11 +84,11 @@ def stream_into(acc, batches, timings=None):
 
 def _accumulate_pat(pat_path, nr_sites, device, backend="cuda",
                     chunk_bytes=DEF_CHUNK_BYTES, timings=None, sharded=None,
-                    devices=None):
+                    devices=None, **forms):
     """Stream a pat file into a pileup accumulator. Returns
     (accumulator, nr_frags)."""
     acc = _accumulator((1, nr_sites + 1), device, backend, timings, sharded,
-                       devices)
+                       devices, forms)
     nf = stream_into(acc, iter_pat(pat_path, chunk_bytes=chunk_bytes),
                      timings)
     return acc, nf
@@ -87,22 +96,26 @@ def _accumulate_pat(pat_path, nr_sites, device, backend="cuda",
 
 def pat2beta(pat_path, out_dir=".", genome=None, lbeta=False, backend="cuda",
              out_path=None, chunk_bytes=DEF_CHUNK_BYTES, device="cuda",
-             timings=None, sharded=None, devices=None):
+             timings=None, sharded=None, devices=None, **forms):
     """Convert a pat[.gz] file to a beta/lbeta file on `device` ('cuda'
     raises without CUDA; 'cpu' runs the kernels' plain twins). Returns the
     output path. With more than one visible card (sharded=None), with
     sharded=True, or with an explicit `devices` list (one site shard per
     entry, see parallel/mesh.py::shard_devices) the table is sharded over
-    the site axis. With `timings` (a dict), the seconds of each stage
-    (decode wait, stage, h2d, kernel, saturate_fetch, write) accumulate
-    there; the device is synchronized at the end of each device stage, and
-    the decode lookahead runs as it does untimed."""
+    the site axis. On one device, `backend` ("cuda", "cuda_v2", "cuda_v1",
+    or on the CPU "torch" or "native") and the v3 form keywords `forms`
+    (fused, vals, lane_counts, grid; ops/pileup.py's table maps them to
+    the JAX package's switches) pick the pileup; every choice writes the
+    same bytes. With `timings` (a dict), the seconds of each stage (decode
+    wait, stage, h2d, kernel, saturate_fetch, write) accumulate there; the
+    device is synchronized at the end of each device stage, and the decode
+    lookahead runs as it does untimed."""
     g = genome if genome is not None else Genome(None)
     nr_sites = g.get_nr_sites() if hasattr(g, "get_nr_sites") else g.nr_sites
 
     acc, nf = _accumulate_pat(pat_path, nr_sites, device, backend=backend,
                               chunk_bytes=chunk_bytes, timings=timings,
-                              sharded=sharded, devices=devices)
+                              sharded=sharded, devices=devices, **forms)
     beta = acc.finalize(lbeta)
     suff = ".lbeta" if lbeta else ".beta"
     if out_path is None:
@@ -116,8 +129,9 @@ def pat2beta(pat_path, out_dir=".", genome=None, lbeta=False, backend="cuda",
 
 
 def pat2beta_counts(pat_path, nr_sites, backend="cuda", device="cuda",
-                    sharded=None, devices=None):
-    """Raw (nr_sites, 2) int64 counts (before saturation) of a pat file."""
+                    sharded=None, devices=None, **forms):
+    """Raw (nr_sites, 2) int64 counts (before saturation) of a pat file;
+    `backend` and `forms` as in pat2beta."""
     acc, _ = _accumulate_pat(pat_path, nr_sites, device, backend=backend,
-                             sharded=sharded, devices=devices)
+                             sharded=sharded, devices=devices, **forms)
     return acc.result()
