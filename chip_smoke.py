@@ -7,8 +7,9 @@ Phases, each printed as it runs; any failure exits nonzero and prints no
 result line:
   1. the card: `nvidia-smi` name and power limit; fails without CUDA.
   2. build: nvcc compiles the three sources csrc/*.cu for sm_90a, in
-     parallel (seconds and ptxas register counts printed); the native host
-     library that the staging needs must load.
+     parallel (seconds and ptxas register counts printed), and g++ the
+     port's host library (host/wgbsio.cpp) that decoding, staging and the
+     oracle run; both must load.
   3. data, then kernels vs twins: a 20M-fragment pat.gz (<= 24 sites each)
      over hg19's 28,217,448 CpG sites and a small pat with counts up to
      3000 are written. Each of the 8 CUDA kernels is held against its plain
@@ -21,14 +22,21 @@ result line:
      then on each slab with the middle third of its span emptied, so the
      window has empty tiles, where zeros must come back. flat_vals_add, in
      both plane forms, starts from a seeded nonzero total, and the rows of
-     the empty tiles must come back unchanged. Exactly equal (tolerance 0,
-     the counts are integers); kernel and twin times (CUDA events) on the
-     unaltered slabs; no launch may change the current CUDA device.
+     the empty tiles must come back unchanged. Then the value-plane kernels
+     on hand-made edge cases (VALS_EDGE: shuffled rows, padding between
+     rows, a padding-only chunk, 5 chunks in a tile, every byte 255, a
+     ragged window, rows outside their tile; the add into a fresh and an
+     8-byte-aligned total). Exactly equal (tolerance 0, the counts are
+     integers); kernel and twin times (CUDA events) on the unaltered slabs,
+     beside each kernel's bound (the bytes it must move over 3.35 TB/s, or
+     its adds over 67 T/s, whichever is longer: _work) and, for the
+     value-plane kernels, the time of one index_add_ of the same rows
+     (library_ms); no launch may change the current CUDA device.
   4. pat2beta end to end: both pats go through the port's CLI on cuda,
      with the kernels' launch counters set to 0 just before and read just
      after; each .beta / .lbeta must equal the host oracle's bytes (the
-     port's "native" backend: wgbs_tools_tpu.native.pileup_native, then
-     trim_to_uint). A second, timed run prints seconds per stage.
+     port's "native" backend: its own native.pileup_native, then
+     formats.beta.trim_to_uint). A second, timed run prints seconds per stage.
   5. sharded: pat2beta over 4 site shards on the one card
      (devices=shard_devices("cuda", n_shards=4)) writes phase 4's oracle
      bytes for both pats (flat_vals_add and flat_classic must launch);
@@ -232,8 +240,7 @@ def _ptxas_registers(build_log):
 
 
 def phase_build():
-    from wgbs_tools_tpu_torch import _kernels
-    from wgbs_tools_tpu_torch.ops.pileup_v3 import require_native
+    from wgbs_tools_tpu_torch import _kernels, native
 
     t0 = time.perf_counter()
     _kernels.build(force=True)
@@ -242,8 +249,11 @@ def phase_build():
     regs = _ptxas_registers(_kernels.BUILD_LOG)
     log(f"phase 2: nvcc built {', '.join(map(op.basename, _kernels.sources()))}"
         f" for sm_90a in {build_s:.3f} s; ptxas registers {regs}")
-    require_native()
-    log("phase 2: native host library loaded")
+    t0 = time.perf_counter()
+    native.build(force=True)
+    native.get_lib()
+    log(f"phase 2: g++ built and loaded the host library in "
+        f"{time.perf_counter() - t0:.3f} s")
     return build_s, regs
 
 
@@ -307,9 +317,8 @@ def phase_data(work, n_frags):
 def _first_slab(pat):
     """The first streamed slab of a pat, as the main path reads it:
     (fragments overlapping the genome, lo, span)."""
-    from wgbs_tools_tpu.formats.pat import iter_pat
+    from wgbs_tools_tpu_torch.formats.pat import DEF_CHUNK_BYTES, iter_pat
     from wgbs_tools_tpu_torch.ops.pileup import overlap_span
-    from wgbs_tools_tpu_torch.pipeline.pat2beta import DEF_CHUNK_BYTES
 
     it = iter_pat(pat, chunk_bytes=DEF_CHUNK_BYTES)
     sel, lo, hi = overlap_span(next(it), (1, N_SITES + 1))
@@ -419,6 +428,199 @@ def _geometry(st):
     return f"tile={st.tile} fc={st.fc} chunks={st.meta.shape[0]}"
 
 
+# ---------------------------------------------------------------------------
+# edge cases of the value-plane body (csrc/pileup_v3.cu::pile_vals), as
+# hand-made staged batches at the default geometry; tests/test_torch_pileup_v3.py
+# holds the twins to numpy and, on the card, the kernels to the twins on them
+# ---------------------------------------------------------------------------
+
+VALS_EDGE = ("shuffled", "padding_between", "padding_chunk", "many_chunks",
+             "all_255", "ragged_window", "outside_tile")
+
+
+def vals_edge_batch(name, fused=True):
+    """(stage_v3's 10-field value-plane tuple, window_len) for one edge case
+    of the value-plane kernels: tile_sb 64, g_max 64, rc 1024 (4096 for
+    "all_255"), 3 tiles. A chunk is (base sub-block, dg of its rows); rows
+    past the given ones are padding (dg = g_max), and every padding row
+    carries nonzero bytes, which the kernels and twins must skip by dg.
+      shuffled         rows of each chunk out of sub-block order
+      padding_between  padding rows (dg = g_max and dg < 0) between real rows
+      padding_chunk    a chunk of padding rows only, inside a tile's range,
+                       and a tile whose only chunk is one
+      many_chunks      a tile with 5 chunks over overlapping sub-blocks
+      all_255          every byte 255, 4095 rows over 2 sub-blocks (runs of
+                       > 256 rows of one sub-block; several dg windows), and
+                       a tile with no chunk
+      ragged_window    window_len = 2 tiles + 4097 sites (odd, not a multiple
+                       of the tile), rows past the window's end
+      outside_tile     rows whose sub-block lies outside their chunk's tile
+    With fused=False the split planes (mv, cv) of the same bytes."""
+    import numpy as np
+
+    rng = np.random.default_rng(VALS_EDGE.index(name) + 7)
+    tile_sb = g_max = 64
+    tile = tile_sb * 128
+    rc = 4096 if name == "all_255" else 1024
+    window_len = 3 * tile
+
+    def rows(n, lo=0, hi=g_max):
+        return np.sort(rng.integers(lo, hi, size=n))
+
+    if name == "shuffled":
+        tiles = [[(64 * t, rng.permutation(rows(n)))]
+                 for t, n in enumerate((1000, 700, 1023))]
+    elif name == "padding_between":
+        tiles = []
+        for t in range(3):
+            d = rows(1023)
+            d[::3] = g_max
+            d[1::7] = -5
+            tiles.append([(64 * t, d)])
+    elif name == "padding_chunk":
+        tiles = [[(0, rows(800)), (0, np.full(1023, g_max)),
+                  (32, rows(500, 0, 32))],
+                 [(64, np.full(600, g_max))], [(128, rows(10))]]
+    elif name == "many_chunks":
+        tiles = [[(0, rows(900))],
+                 [(64 + 10 * k, rows(600, 0, 30)) for k in range(5)],
+                 [(128, rows(1023))]]
+    elif name == "all_255":
+        tiles = [[(0, rows(4095, 0, 2))], [(64, rows(4095))], []]
+    elif name == "ragged_window":
+        window_len = 2 * tile + 4097
+        tiles = [[(64 * t, rows(1023))] for t in range(3)]
+    elif name == "outside_tile":
+        tiles = [[(-10, rows(1000))], [(64 + 20, rows(1000))],
+                 [(128, rows(1000))]]
+    else:
+        raise ValueError(f"no value-plane edge case {name!r}")
+    chunks = [c for t in tiles for c in t]
+    n_chunks = len(chunks)
+    meta = np.zeros((n_chunks, 2, rc), np.int32)
+    meta[:, 1, :] = g_max
+    for c, (base, dg) in enumerate(chunks):
+        meta[c, 1, : dg.size] = dg
+        meta[c, 1, rc - 1] = base + g_max  # the base_g stash
+    counts = [len(t) for t in tiles]
+    c1 = np.cumsum(counts).astype(np.int32)
+    c0 = (c1 - counts).astype(np.int32)
+    if name == "all_255":
+        plane = np.full((n_chunks * rc, 256), 255, np.uint8)
+    else:
+        plane = rng.integers(1, 256, size=(n_chunks * rc, 256)).astype(
+            np.uint8)
+    max_chunks = 1 << (max(max(counts), 1) - 1).bit_length()
+    if fused:
+        return (c0, c1, meta, plane, None, max_chunks, tile, rc, g_max,
+                "vals"), window_len
+    return (c0, c1, meta, np.ascontiguousarray(plane[:, :128]),
+            np.ascontiguousarray(plane[:, 128:]), max_chunks, tile, rc, g_max,
+            "vals"), window_len
+
+
+def _vals_edge_cases(dev):
+    """Each edge case through flat_vals_fused, flat_vals and flat_vals_add
+    (both plane forms; a fresh total and an 8-byte-aligned row slice of a
+    larger table) against the twins, exactly. Returns {kernel: max abs
+    err}."""
+    import numpy as np
+    import torch
+
+    from wgbs_tools_tpu_torch.ops import pileup_v3 as pv3
+
+    errs = {"flat_vals_fused": 0, "flat_vals": 0, "flat_vals_add": 0}
+    for name in VALS_EDGE:
+        for fused in (True, False):
+            staged, wl = vals_edge_batch(name, fused)
+            st = pv3.staged_from_numpy(staged, dev)
+            kernel = pv3.flat_vals_fused if fused else pv3.flat_vals
+            plain = pv3.flat_vals_fused_plain if fused else pv3.flat_vals_plain
+            err, _ = _kernel_vs_twin(kernel.__name__, kernel, plain, [st], wl)
+            errs[kernel.__name__] = max(errs[kernel.__name__], err)
+            table = torch.from_numpy(np.random.default_rng(wl).integers(
+                -(1 << 30), 1 << 30, size=(wl + 2, 2), dtype=np.int32)).to(dev)
+            for total0 in (table[:wl], table[1 : wl + 1]):  # 16-, 8-aligned
+                err, _ = _add_vs_twin(st, wl, total0)
+                errs["flat_vals_add"] = max(errs["flat_vals_add"], err)
+    log(f"phase 3: value-plane edge cases {', '.join(VALS_EDGE)}: "
+        f"flat_vals_fused, flat_vals and flat_vals_add (both plane forms, "
+        f"16- and 8-byte-aligned totals) == twins, max_abs_err {errs}")
+    return errs
+
+
+# H100 SXM data-sheet peaks: device memory bytes/s, and the non-tensor
+# 32-bit rate, for the kernels' integer adds
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+
+
+def _work(sts, span):
+    """(bytes, ops) a pileup of these staged batches must move and do,
+    counted as a roofline bound counts them: each input read once (only
+    the rows that land in the window: real rows; the dg words of every
+    chunk a tile visits; the per-tile ranges), the (span, 2) int32
+    output written once; ops = one integer add per plane byte of a real row
+    (value planes), per lane of a real code-word row, or two per site of a
+    real fragment (v1, v2)."""
+    import torch
+
+    from wgbs_tools_tpu_torch.ops import pileup_v3 as pv3
+
+    n_bytes, ops = span * 8, 0
+    for st in sts:
+        meta = st.meta.to(torch.int64)
+        if hasattr(st, "rc"):  # v3 forms
+            num_tiles = -(-span // st.tile)
+            real = int((pv3._row_targets(st, num_tiles)
+                        < num_tiles * st.tile_sb).sum())
+            visited = int((pv3.chunk_tiles(st.c0, st.c1, meta.shape[0])
+                           >= 0).sum())
+            row_bytes = {"vals": 256, "vals_split": 256, "classic": 32 + 4,
+                         "lane": 32 + 128}[st.form]
+            n_bytes += real * row_bytes + visited * st.rc * 4 + num_tiles * 8
+            ops += real * 256
+            continue
+        if hasattr(st, "g_max"):  # v2: len | dg << 16, dg outside = padding
+            dg = meta[:, 1, :] >> 16
+            real = (dg >= 0) & (dg < st.g_max)
+            lens = meta[:, 1, :] & 0xFFFF
+            ranges = st.c0.numel() * 8
+        else:  # v1: start 2^30 on padding rows
+            real = meta[:, 0, :] != (1 << 30)
+            lens = meta[:, 1, :]
+            ranges = st.lo.numel() * 8
+        n_bytes += int(real.sum()) * (12 + 4 * st.words.shape[1]) + ranges
+        ops += 2 * int(lens[real].sum())
+    return n_bytes, ops
+
+
+def _bound(n_bytes, ops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    ops over the 32-bit rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _library_ms(st, span):
+    """The one PyTorch call that computes a value-plane pileup from the same
+    staged rows: index_add_ of the int32 rows into the (sub-block, 256)
+    accumulator, the cast and the row targets made outside the timed
+    window. Timed only; the port never calls it."""
+    import torch
+
+    from wgbs_tools_tpu_torch.ops import pileup_v3 as pv3
+
+    num_tiles = -(-span // st.tile)
+    planes = st.rows if st.cv is None else torch.cat([st.rows, st.cv], dim=1)
+    vals = planes.to(torch.int32)
+    targets = pv3._row_targets(st, num_tiles)
+    acc = torch.zeros((num_tiles * st.tile_sb + 1, 256), dtype=torch.int32,
+                      device=st.device)
+    return _time_ms(lambda: acc.index_add_(0, targets, vals), 20)
+
+
 # kernel -> (its pats, the path that stages its batches, the staged form
 # where stage_v3 stages them); the flat_vals_add kernel comes after these
 PHASE3 = {
@@ -469,6 +671,8 @@ def phase_kernels(big, deep):
                                    "empty tile")
             err = max(err, herr)
             res["max_abs_err"] = max(res["max_abs_err"], err)
+            n_bytes, ops = _work(sts, span)
+            bound_ms, bound_by = _bound(n_bytes, ops)
             log(f"phase 3: {name}: kernel == twin (max_abs_err {err}) on "
                 f"the first slab of {pat}.pat.gz: {sel.nr_frags:,} frags "
                 f"over {span:,} sites, {sum(st.meta.shape[0] for st in sts):,}"
@@ -478,8 +682,18 @@ def phase_kernels(big, deep):
                 f"({len(sts)} launch(es))")
             key = "" if pat == names[0] else pat + "_"
             res.update({key + "ms": ms, key + "plain_ms": plain_ms,
+                        key + "bytes": n_bytes, key + "ops": ops,
+                        key + "bound_ms": bound_ms, key + "bound_by": bound_by,
                         key + "slab_frags": sel.nr_frags,
                         key + "slab_sites": span})
+            if not key:
+                res["library_ms"] = (_library_ms(sts[0], span)
+                                     if form in ("vals", "vals_split")
+                                     else None)
+            log(f"phase 3: {name} on {pat}: {n_bytes:,} bytes, {ops:,} adds:"
+                f" bound {bound_ms:.4f} ms ({bound_by}), the kernel at "
+                f"{100 * bound_ms / ms:.1f} % of it; library call "
+                f"{res['library_ms'] if not key else None} ms")
             if name == "tiled_classic":
                 # the JAX package's grid A/B: the flat kernel on the same
                 # batches, in the same process
@@ -506,19 +720,36 @@ def phase_kernels(big, deep):
         ms = _time_ms(lambda: pv3.flat_vals_add(total, st, span), 20)
         plain_ms = _time_ms(lambda: pv3.flat_vals_add_plain(total, st, span),
                             5)
+        # the pileup's bytes, with the total read and written where a tile
+        # has chunks (the others' rows are left alone) in place of the output
+        covered = int((~_empty_rows(st, span)).sum())
+        n_bytes, ops = _work([st], span)
+        n_bytes += 16 * covered - 8 * span
+        bound_ms, bound_by = _bound(n_bytes, ops)
         res[st.form] = {"max_abs_err": max(err, herr), "ms": ms,
-                        "plain_ms": plain_ms, "empty_tiles": empty}
+                        "plain_ms": plain_ms, "empty_tiles": empty,
+                        "bytes": n_bytes, "ops": ops, "bound_ms": bound_ms,
+                        "bound_by": bound_by}
         log(f"phase 3: flat_vals_add ({st.form}): kernel == twin (max_abs_err "
             f"{max(err, herr)}) from a nonzero total on the big pat's first "
             f"slab and on it with a hole ({empty} empty tiles, their rows "
             f"unchanged); kernel {ms:.4f} ms, twin {plain_ms:.4f} ms per "
-            "slab")
+            f"slab; {n_bytes:,} bytes: bound {bound_ms:.4f} ms ({bound_by}), "
+            f"the kernel at {100 * bound_ms / ms:.1f} % of it")
+    fused, split = res["vals"], res["vals_split"]
     out["flat_vals_add"] = {
-        "max_abs_err": max(r["max_abs_err"] for r in res.values()),
-        "ms": res["vals"]["ms"], "plain_ms": res["vals"]["plain_ms"],
-        "split_ms": res["vals_split"]["ms"],
-        "split_plain_ms": res["vals_split"]["plain_ms"],
+        **fused, "max_abs_err": max(fused["max_abs_err"],
+                                    split["max_abs_err"]),
+        # the same index_add_ as the pileup's (the add is not in it)
+        "library_ms": out["flat_vals_fused"]["library_ms"],
+        "split_ms": split["ms"], "split_plain_ms": split["plain_ms"],
+        "split_bound_ms": split["bound_ms"],
+        "split_library_ms": out["flat_vals"]["library_ms"],
         "slab_frags": sel.nr_frags, "slab_sites": span}
+
+    for name, err in _vals_edge_cases(dev).items():
+        out[name]["edge_max_abs_err"] = err
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
     return out, slabs["big"]
 
 

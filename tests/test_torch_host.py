@@ -1,0 +1,304 @@
+"""The port's own host layer (utils, native, formats, genome) equals the
+JAX package's originals exactly, on seeded numpy inputs: the pat parser
+and streams, the BGZF reader and inflater, beta saturation, the host
+pileup (the device kernels' oracle), the v3 row packer and placers, and
+the genome's site count."""
+
+import gzip
+import os
+
+import numpy as np
+import pytest
+
+from synth import random_frags
+from wgbs_tools_tpu import native as jnat
+from wgbs_tools_tpu.formats import bgzf as jbgzf
+from wgbs_tools_tpu.formats import pat as jpat
+from wgbs_tools_tpu.formats.beta import trim_to_uint as jax_trim
+from wgbs_tools_tpu.genome.refdir import Genome as JaxGenome
+from wgbs_tools_tpu.utils import IllegalArgumentError as JaxIllegalArgument
+from wgbs_tools_tpu.utils import delete_or_skip as jax_delete_or_skip
+from wgbs_tools_tpu.utils import splitextgz as jax_splitextgz
+from wgbs_tools_tpu_torch import native as pnat
+from wgbs_tools_tpu_torch import utils as putils
+from wgbs_tools_tpu_torch.formats import bgzf as pbgzf
+from wgbs_tools_tpu_torch.formats import pat as ppat
+from wgbs_tools_tpu_torch.formats.beta import trim_to_uint
+from wgbs_tools_tpu_torch.genome.refdir import Genome
+
+pytestmark = pytest.mark.skipif(jnat.get_lib() is None,
+                                reason="the JAX package's native library "
+                                       "(the reference) is unavailable")
+
+
+def assert_same_frags(got, want):
+    for field in ("start", "length", "count", "codes", "chrom_id"):
+        a, b = getattr(got, field), getattr(want, field)
+        assert a.dtype == b.dtype and np.array_equal(a, b), field
+    assert got.chrom_names == want.chrom_names
+    if want.extras is None:
+        assert got.extras is None
+    else:
+        assert got.extras.tolist() == want.extras.tolist()
+
+
+def _frags(seed, n=3000, nr_sites=20000, chroms=1, **kw):
+    f = random_frags(np.random.default_rng(seed), n, nr_sites, **kw)
+    if chroms > 1:  # consecutive start ranges on consecutive chromosomes
+        f.chrom_id = (f.start.astype(np.int64) * chroms // (nr_sites + 1)) \
+            .astype(np.int16)
+        f.chrom_names = [f"chr{i + 1}" for i in range(chroms)]
+    return f
+
+
+def _text(case):
+    """pat text of a test case, written by the JAX package's serializer
+    (extras and interleaved chromosomes by hand)."""
+    if case == "plain":
+        return jpat.frags_to_bytes(_frags(1, h_rate=0.05))
+    if case == "chroms":
+        return jpat.frags_to_bytes(_frags(2, chroms=3))
+    if case == "big":  # > 4 MB: the parser's multithreaded path
+        return jpat.frags_to_bytes(_frags(3, n=200_000, nr_sites=2_000_000,
+                                          max_len=24))
+    rng = np.random.default_rng(4)
+    lines = []
+    for i in range(400):
+        chrom = ("chr2", "chr10", "chrX")[i % 7 % 3]  # a chromosome recurs
+        pat = "".join(rng.choice(list("CTH."), size=int(rng.integers(1, 20))))
+        line = f"{chrom}\t{100 + 3 * i}\t{pat}\t{int(rng.integers(1, 900))}"
+        if case == "extras" and i % 3:
+            line += f"\tXM:{i}\tqual{i % 5}"
+        lines.append(line + "\n")
+    return "".join(lines).encode()
+
+
+@pytest.mark.parametrize("keep_extras", [True, False])
+@pytest.mark.parametrize("case", ["plain", "chroms", "big", "extras",
+                                  "mixed_chroms"])
+def test_parse_pat_bytes_equals_jax(case, keep_extras):
+    data = _text(case)
+    want = jpat.parse_pat_bytes(data, keep_extras=keep_extras)
+    got = ppat.parse_pat_bytes(data, keep_extras=keep_extras)
+    assert want.nr_frags > 0 and got.nr_frags == want.nr_frags
+    if case == "extras" and keep_extras:
+        assert want.extras is not None
+    if case in ("chroms", "mixed_chroms", "extras"):
+        assert len(want.chrom_names) == 3
+    assert_same_frags(got, want)
+
+
+@pytest.mark.parametrize("line", [b"chr1\t5\tCTX\t1\n", b"chr1\t5\tCT\n",
+                                  b"chr1\tx5\tCT\t1\n"])
+def test_parse_pat_bytes_refuses_what_jax_refuses(line):
+    """A line that the JAX package's parsers refuse raises here too, with
+    the same error type (the port has no Python parser to fall back to)."""
+    data = b"chr1\t1\tCC\t2\n" + line
+    with pytest.raises(ValueError):
+        jpat.parse_pat_bytes(data)
+    with pytest.raises(putils.IllegalArgumentError):
+        ppat.parse_pat_bytes(data)
+    assert ppat.parse_pat_bytes(b"").nr_frags == 0
+
+
+@pytest.fixture(scope="module")
+def pat_files(tmp_path_factory):
+    """One pat in four encodings, each written by the JAX package or the
+    standard library: BGZF with a .cdx index, BGZF without it, plain gzip
+    (one member, not BGZF) and uncompressed text."""
+    d = tmp_path_factory.mktemp("host_pats")
+    f = _frags(11, n=20_000, nr_sites=60_000, max_len=30, chroms=2)
+    out = {"bgzf": str(d / "a.pat.gz"), "bgzf_noindex": str(d / "b.pat.gz"),
+           "gzip": str(d / "c.pat.gz"), "text": str(d / "d.pat")}
+    jpat.write_pat(f, out["bgzf"])
+    jpat.write_pat(f, out["bgzf_noindex"], index=False)
+    text = jpat.frags_to_bytes(f)
+    with gzip.open(out["gzip"], "wb") as g:
+        g.write(text)
+    with open(out["text"], "wb") as g:
+        g.write(text)
+    assert os.path.isfile(out["bgzf"] + ".cdx")
+    assert not os.path.isfile(out["bgzf_noindex"] + ".cdx")
+    return out
+
+
+@pytest.mark.parametrize("chunk_bytes", [30_000, 150_000, 32 << 20])
+@pytest.mark.parametrize("kind", ["bgzf", "gzip", "text"])
+def test_iter_pat_slabs_equal_jax(pat_files, kind, chunk_bytes):
+    want = list(jpat.iter_pat(pat_files[kind], chunk_bytes=chunk_bytes))
+    got = list(ppat.iter_pat(pat_files[kind], chunk_bytes=chunk_bytes))
+    assert len(got) == len(want) >= 1
+    if chunk_bytes == 30_000:
+        assert len(want) > 3
+    for g, w in zip(got, want):
+        assert_same_frags(g, w)
+
+
+@pytest.mark.parametrize("region", [(1, 60_001), (1, 500), (17_000, 17_031),
+                                    (29_990, 45_000), (59_000, 80_000)])
+@pytest.mark.parametrize("kind", ["bgzf", "bgzf_noindex"])
+def test_iter_pat_region_equals_jax(pat_files, kind, region):
+    """With the .cdx index (seek, then BgzfReader lines) and without it
+    (the whole stream, filtered per slab); slabs small enough that a
+    region spans several."""
+    want = list(jpat.iter_pat_region(pat_files[kind], region,
+                                     chunk_bytes=40_000))
+    got = list(ppat.iter_pat_region(pat_files[kind], region,
+                                    chunk_bytes=40_000))
+    assert len(got) == len(want) >= 1
+    for g, w in zip(got, want):
+        assert_same_frags(g, w)
+    ix = ppat.load_pat_index(pat_files[kind])
+    jix = jpat.load_pat_index(pat_files[kind])
+    if kind == "bgzf":
+        assert all(np.array_equal(a, b) for a, b in zip(ix, jix))
+    else:
+        assert ix is None and jix is None
+
+
+def test_bgzf_reader_and_inflater_equal_jax(pat_files):
+    path = pat_files["bgzf"]
+    assert pbgzf.is_gzip(path) and not pbgzf.is_gzip(pat_files["text"])
+    _, voffs, _ = jpat.load_pat_index(path)
+    for voff in voffs[::3].tolist() + [int(voffs[-1])]:
+        with pbgzf.BgzfReader(path) as r, jbgzf.BgzfReader(path) as j:
+            r.seek_virtual(voff)
+            j.seek_virtual(voff)
+            for _ in range(50):
+                line = r.readline()
+                assert line == j.readline()
+    raw = open(path, "rb").read()
+    assert pnat.bgzf_decompress_native(raw, n_threads=3) == \
+        jnat.bgzf_decompress_native(raw, n_threads=3)
+    gz = open(pat_files["gzip"], "rb").read()
+    assert pnat.bgzf_decompress_native(gz) is None
+    assert jnat.bgzf_decompress_native(gz) is None
+    end = ppat._last_block_end(raw[:100_000])
+    assert 0 < end == jpat._last_block_end(raw[:100_000]) <= 100_000
+
+
+@pytest.mark.parametrize("lbeta", [False, True])
+def test_trim_to_uint_equals_jax(lbeta):
+    """At the saturation edges: coverage max - 1, max, max + 1, far above;
+    meth 0 and meth == cov; then random counts across the edge."""
+    m = 65535 if lbeta else 255
+    edges = np.array([[0, 0], [m - 1, m - 1], [m, m], [m + 1, m + 1],
+                      [0, m + 1], [1, m + 1], [m, m + 1], [7, 3 * m],
+                      [2**31 - 2, 2**31 - 1], [1, 2**40]], dtype=np.int64)
+    rng = np.random.default_rng(5 + lbeta)
+    cov = rng.integers(0, 3 * m, size=5000)
+    rand = np.stack([rng.integers(0, cov + 1), cov], axis=1)
+    for data in (edges, rand):
+        got, want = trim_to_uint(data, lbeta), jax_trim(data, lbeta)
+        assert got.dtype == want.dtype == (np.uint16 if lbeta else np.uint8)
+        assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+@pytest.mark.parametrize("window", [(1, 30_000), (4_000, 9_000)])
+def test_pileup_native_equals_jax(threads, window):
+    """The oracle of the device kernels, and its add into a given total.
+    70,000 fragments: above the 2^16 threshold of the threaded path."""
+    f = _frags(21, n=70_000, nr_sites=30_000, max_len=40, max_count=3000)
+    ws, n = window
+    kw = dict(threads=threads)
+    want = jnat.pileup_native(f.start, f.length, f.count, f.codes, ws, n, **kw)
+    got = pnat.pileup_native(f.start, f.length, f.count, f.codes, ws, n, **kw)
+    assert got.dtype == np.int64 and np.array_equal(got, want)
+    assert want[:, 1].sum() > 0
+    out = np.ones((n, 2), np.int64)
+    pnat.pileup_native(f.start, f.length, f.count, f.codes, ws, n, out=out,
+                       **kw)
+    assert np.array_equal(out, want + 1)
+
+
+def _pieces(seed, n=4000):
+    """Pieces as stage_v3 makes them: grouped by ascending sub-block g,
+    each inside its sub-block ([rr, rr + len) within 128 lanes), with the
+    codes they are cut from."""
+    rng = np.random.default_rng(seed)
+    g = np.sort(rng.integers(0, n // 10, size=n)).astype(np.int32)
+    rr = rng.integers(0, 128, size=n).astype(np.int32)
+    ln = np.minimum(rng.integers(1, 30, size=n), 128 - rr).astype(np.int32)
+    cnt = rng.integers(1, 6, size=n).astype(np.int32)  # few: rows shared
+    codes = rng.integers(0, 4, size=(n, 40)).astype(np.uint8)
+    src = rng.permutation(n).astype(np.int64)
+    off = rng.integers(0, 40 - ln + 1).astype(np.int64)
+    return g, cnt, rr, ln, codes, src, off
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pack_and_place_equal_jax(seed):
+    """pack_rows_native, then place_vals / place_pack / place_counts on its
+    rows: every output array equal to the JAX package's."""
+    g, cnt, rr, ln, codes, src, off = _pieces(seed)
+    want = jnat.pack_rows_native(g, cnt, rr, ln)
+    got = pnat.pack_rows_native(g, cnt, rr, ln)
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    piece_row, row_g, _ = got
+    R = row_g.shape[0]
+    assert 0 < R < g.shape[0]  # pieces share rows
+    args = (codes, src, off, rr, ln)
+    planes = {}
+    for mod in (pnat, jnat):
+        mv, cv = np.zeros((R, 128), np.uint8), np.zeros((R, 128), np.uint8)
+        words = np.full((R, 8), -1, np.int32)
+        cnts = np.zeros((R, 32), np.int32)
+        assert mod.place_vals_native(*args, cnt, piece_row, mv, cv) == len(g)
+        assert mod.place_pack_native(*args, piece_row, words) == len(g)
+        assert mod.place_counts_native(cnt, rr, ln, piece_row, cnts) == len(g)
+        planes[mod] = (mv, cv, words, cnts)
+    for a, b in zip(planes[pnat], planes[jnat]):
+        assert np.array_equal(a, b)
+    assert planes[pnat][0].any() and planes[pnat][3].any()
+
+
+def test_pack_and_place_refuse_what_jax_refuses():
+    """None, as in the JAX package, for pieces not grouped by sub-block
+    and for a count above 255 in the value and count placers."""
+    g, cnt, rr, ln, codes, src, off = _pieces(7, n=300)
+    bad_g = g[::-1].copy()
+    assert pnat.pack_rows_native(bad_g, cnt, rr, ln) is None
+    assert jnat.pack_rows_native(bad_g, cnt, rr, ln) is None
+    piece_row, row_g, _ = pnat.pack_rows_native(g, cnt, rr, ln)
+    big = cnt.copy()
+    big[5] = 256
+    R = row_g.shape[0]
+    for mod in (pnat, jnat):
+        mv, cv = np.zeros((R, 128), np.uint8), np.zeros((R, 128), np.uint8)
+        assert mod.place_vals_native(codes, src, off, rr, ln, big, piece_row,
+                                     mv, cv) is None
+        assert mod.place_counts_native(big, rr, ln, piece_row,
+                                       np.zeros((R, 32), np.int32)) is None
+
+
+def test_genome_nr_sites_equals_jax(mini_genome):
+    """The CpG site count of a reference made by init_genome, by name and
+    through the default link; unknown names raise as in the JAX package."""
+    assert Genome("mini").get_nr_sites() == mini_genome.get_nr_sites() > 0
+    assert Genome(None).get_nr_sites() == JaxGenome(None).get_nr_sites()
+    assert Genome(None).name == JaxGenome(None).name == "mini"
+    with pytest.raises(JaxIllegalArgument):
+        JaxGenome("no_such_genome")
+    with pytest.raises(putils.IllegalArgumentError, match="Invalid reference"):
+        Genome("no_such_genome")
+
+
+def test_utils_equal_jax(tmp_path, capsys):
+    for name in ("a.pat.gz", "x/y.beta", "b.lbeta", "c.tar.gz", "plain", ".gz"):
+        assert putils.splitextgz(name) == jax_splitextgz(name)
+    out = tmp_path / "o.beta"
+    for mod_delete in (putils.delete_or_skip, jax_delete_or_skip):
+        out.write_bytes(b"x")
+        (tmp_path / "o.beta.cdx").write_bytes(b"x")
+        assert mod_delete(str(out), False) is False
+        assert "already exists" in capsys.readouterr().err
+        assert mod_delete(str(out), True) is True
+        assert not out.exists() and not (tmp_path / "o.beta.cdx").exists()
+        assert mod_delete(str(out), False) is True
+    out.write_bytes(b"x")
+    assert putils.validate_single_file(str(out)) == str(out)
+    with pytest.raises(putils.IllegalArgumentError, match="No such file"):
+        putils.validate_single_file(str(tmp_path / "missing.pat.gz"))
+    with pytest.raises(putils.IllegalArgumentError, match="must end with"):
+        putils.validate_single_file(str(out), ".pat.gz")

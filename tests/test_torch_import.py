@@ -1,5 +1,7 @@
-"""The port imports without jax, and refuses devices it has no path for."""
+"""The port imports without jax and without the JAX package, and refuses
+devices it has no path for."""
 
+import ast
 import os.path as op
 import subprocess
 import sys
@@ -10,29 +12,31 @@ torch = pytest.importorskip("torch")
 
 REPO = op.dirname(op.dirname(op.abspath(__file__)))
 
-# a meta-path finder that fails any import of jax, then every module of the
-# port; run in a fresh interpreter because this test process (conftest.py)
-# has imported jax already
+# a meta-path finder that fails any import of jax, jaxlib or the JAX package
+# (wgbs_tools_tpu and its submodules), then every module of the port; run in
+# a fresh interpreter because this test process (conftest.py) has imported
+# jax already
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
 
-class BlockJax:
+def blocked(name):
+    return (name in ("jax", "jaxlib", "wgbs_tools_tpu")
+            or name.startswith(("jax.", "jaxlib.", "wgbs_tools_tpu.")))
+
+class Block:
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith(("jax.", "jaxlib")):
+        if blocked(name):
             raise ImportError("blocked import of " + name)
         return None
 
-sys.meta_path.insert(0, BlockJax())
+sys.meta_path.insert(0, Block())
 import wgbs_tools_tpu_torch
 names = sorted(m.name for m in pkgutil.walk_packages(
     wgbs_tools_tpu_torch.__path__, "wgbs_tools_tpu_torch."))
 for name in names:
     importlib.import_module(name)
-assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
-jaxed = [m for m in sys.modules if m.startswith(
-    ("wgbs_tools_tpu.ops", "wgbs_tools_tpu.models", "wgbs_tools_tpu.parallel",
-     "wgbs_tools_tpu.pipeline", "wgbs_tools_tpu.cli"))]
-assert not jaxed, jaxed
+loaded = [m for m in sys.modules if blocked(m)]
+assert not loaded, loaded
 print(" ".join(names))
 """
 
@@ -43,12 +47,43 @@ def test_port_imports_without_jax():
     assert r.returncode == 0, r.stderr
     # every module of the port was imported, not an empty walk
     names = set(r.stdout.split())
-    assert len(names) >= 16
+    assert len(names) >= 24
     assert {"wgbs_tools_tpu_torch.parallel.mesh",
             "wgbs_tools_tpu_torch.parallel.sharded",
             "wgbs_tools_tpu_torch.parallel.multihost",
             "wgbs_tools_tpu_torch.ops.pileup_v1",
-            "wgbs_tools_tpu_torch.ops.pileup_v2"} <= names
+            "wgbs_tools_tpu_torch.ops.pileup_v2",
+            "wgbs_tools_tpu_torch.utils",
+            "wgbs_tools_tpu_torch.native",
+            "wgbs_tools_tpu_torch.formats.pat",
+            "wgbs_tools_tpu_torch.formats.bgzf",
+            "wgbs_tools_tpu_torch.formats.beta",
+            "wgbs_tools_tpu_torch.genome.refdir"} <= names
+
+
+def _imported_modules(path):
+    """Every module an `import` or `from ... import` in the file names
+    (relative imports as written, with their leading dots)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append("." * node.level + (node.module or ""))
+    return names
+
+
+def test_chip_smoke_imports_nothing_of_the_jax_package():
+    """chip_smoke.py runs where the JAX package is not the code under test:
+    its imports reach the port (wgbs_tools_tpu_torch), never jax nor
+    wgbs_tools_tpu."""
+    names = _imported_modules(op.join(REPO, "chip_smoke.py"))
+    assert "wgbs_tools_tpu_torch.ops.pileup" in names  # not an empty parse
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib",
+                                                   "wgbs_tools_tpu")]
+    assert not bad, bad
 
 
 def test_kernel_wrappers_refuse_other_devices():

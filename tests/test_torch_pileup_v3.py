@@ -9,6 +9,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import chip_smoke  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from synth import random_frags  # noqa: E402
 from wgbs_tools_tpu.native import get_lib  # noqa: E402
@@ -289,6 +290,50 @@ def test_vals_add_rejects_bad_totals():
                                 classic[0], wl)
 
 
+def _numpy_vals_pileup(staged, wl):
+    """The value-plane pileup of a staged tuple by a plain loop over chunks:
+    row r of chunk c (tile t) adds its 256 bytes into sub-block base + dg,
+    where dg is in [0, g_max) and the sub-block in the tile; int64."""
+    c0, c1, meta, mv, cv, _mc, tile, rc, g_max, _tag = staged
+    plane = (mv if cv is None else np.concatenate([mv, cv], 1)).astype(
+        np.int64)
+    tile_sb = tile // 128
+    acc = np.zeros((len(c0) * tile_sb, 256), np.int64)
+    for t in range(len(c0)):
+        for c in range(c0[t], c1[t]):
+            dg = meta[c, 1].astype(np.int64)
+            sb = dg[rc - 1] - g_max - t * tile_sb + dg
+            ok = (dg >= 0) & (dg < g_max) & (sb >= 0) & (sb < tile_sb)
+            np.add.at(acc, t * tile_sb + sb[ok],
+                      plane[c * rc + np.nonzero(ok)[0]])
+    return np.stack([acc[:, :128].reshape(-1), acc[:, 128:].reshape(-1)],
+                    axis=1)[:wl]
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("name", chip_smoke.VALS_EDGE)
+def test_vals_edge_twins_equal_numpy(name, fused):
+    """The twins of the value-plane kernels on the edge cases that the card
+    tests and chip_smoke.py hold the kernels to (shuffled rows, padding
+    between rows, padding-only chunks, 5 chunks in a tile, every byte 255,
+    a ragged window, rows outside their tile): equal to a plain numpy loop;
+    the add twin adds it into a total and leaves chunkless tiles alone."""
+    staged, wl = chip_smoke.vals_edge_batch(name, fused)
+    st = pileup_v3.staged_from_numpy(staged, "cpu")
+    want = _numpy_vals_pileup(staged, wl)
+    got = pileup_v3.call_staged(st, wl)
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    total0 = _total0(np.random.default_rng(wl), wl)
+    total = torch.from_numpy(total0.copy())
+    pileup_v3.flat_vals_add(total, st, wl)
+    wrapped = (total0.astype(np.int64) + want + 2**31) % 2**32 - 2**31
+    assert np.array_equal(total.numpy(), wrapped)
+    empty = np.repeat((staged[1] - staged[0]) == 0, staged[6])[:wl]
+    assert np.array_equal(total.numpy()[empty], total0[empty])
+    if name == "all_255":
+        assert empty.any() and want.max() > 255 * 256
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -361,6 +406,39 @@ def test_cuda_split_and_add_kernels_equal_twins(cuda_device, name):
         assert torch.equal(total,
                            pileup_v3.flat_vals_add_plain(total0.clone(), st,
                                                          wl))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", chip_smoke.VALS_EDGE)
+def test_cuda_vals_edge_cases(cuda_device, name):
+    """The value-plane kernels on the card == their twins, tolerance 0, on
+    each edge case, in both plane forms; the add from a seeded nonzero
+    total, fresh (16-byte aligned) and as an 8-byte-aligned row slice of a
+    larger table."""
+    for fused in (True, False):
+        staged, wl = chip_smoke.vals_edge_batch(name, fused)
+        st = pileup_v3.staged_from_numpy(staged, cuda_device)
+        kernel = pileup_v3.flat_vals_fused if fused else pileup_v3.flat_vals
+        plain = (pileup_v3.flat_vals_fused_plain if fused
+                 else pileup_v3.flat_vals_plain)
+        before = kernel.launches
+        got = kernel(st, wl)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert torch.equal(got, plain(st, wl))
+        base = torch.from_numpy(_total0(np.random.default_rng(wl),
+                                        wl + 2)).to(cuda_device)
+        for off in (0, 1):  # rows from 0: 16-byte aligned; from 1: 8 only
+            table = base.clone()
+            total = table[off : off + wl]
+            assert total.data_ptr() % 16 == 8 * off
+            pileup_v3.flat_vals_add(total, st, wl)
+            torch.cuda.synchronize()
+            assert torch.equal(total, pileup_v3.flat_vals_add_plain(
+                base[off : off + wl].clone(), st, wl))
+            keep = torch.ones(wl + 2, dtype=torch.bool, device=cuda_device)
+            keep[off : off + wl] = False
+            assert torch.equal(table[keep], base[keep])
 
 
 @pytest.mark.cuda

@@ -134,7 +134,7 @@ def test_stage_v3_empty_batch_equals_jax():
 def test_staging_raises_without_native(monkeypatch, fn, counts):
     """The JAX package falls back (to v2 or other staged forms) when a
     native call returns None; the port raises."""
-    import wgbs_tools_tpu.native as nat
+    import wgbs_tools_tpu_torch.native as nat
 
     f = random_frags(np.random.default_rng(3), 200, 2000, max_count=counts)
     monkeypatch.setattr(nat, fn, lambda *a, **k: None)
@@ -145,7 +145,7 @@ def test_staging_raises_without_native(monkeypatch, fn, counts):
 def test_lane_staging_raises_without_place_counts(monkeypatch):
     """The JAX package's stage_v3 returns None when place_counts fails
     (and pileup_pallas_v3 drops to v2); the port raises."""
-    import wgbs_tools_tpu.native as nat
+    import wgbs_tools_tpu_torch.native as nat
 
     f = random_frags(np.random.default_rng(5), 200, 2000)
     monkeypatch.setattr(nat, "place_counts_native", lambda *a, **k: None)
@@ -157,10 +157,17 @@ def test_lane_staging_raises_without_place_counts(monkeypatch):
                                   2000)) == 10
 
 
-def test_staging_raises_without_native_lib(monkeypatch):
-    import wgbs_tools_tpu.native as nat
+def test_staging_raises_without_native_lib(monkeypatch, tmp_path):
+    """The port builds its own host library with g++; a source that does
+    not compile makes staging raise, with g++'s output."""
+    import wgbs_tools_tpu_torch.native as nat
 
+    broken = tmp_path / "wgbsio.cpp"
+    broken.write_text("int pat_scan(;\n")
+    monkeypatch.setattr(nat, "_LIB", None)
+    monkeypatch.setattr(nat, "SOURCE", str(broken))
+    monkeypatch.setattr(nat, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(nat, "_SO", str(tmp_path / "build" / "lib.so"))
     f = random_frags(np.random.default_rng(4), 50, 1000)
-    monkeypatch.setattr(nat, "get_lib", lambda: None)
-    with pytest.raises(RuntimeError, match="could not be built"):
+    with pytest.raises(RuntimeError, match=r"could not be built(.|\n)*g\+\+ failed"):
         pileup_v3.stage_v3(f.start, f.length, f.count, f.codes, 1, 1000)

@@ -2,9 +2,11 @@
 
 The JAX package `wgbs_tools_tpu` stays the reference. This package re-runs
 its pipelines with PyTorch tensors and hand-written CUDA kernels
-(`csrc/*.cu`, built with nvcc for sm_90a at first CUDA use). Its jax-free
-host modules (`formats`, `genome`, `native`, `utils`) are imported, not
-copied. Importing this package never imports jax.
+(`csrc/*.cu`, built with nvcc for sm_90a at first CUDA use). It keeps its
+own copy of the host layer it needs (`formats`, `genome`, `native` with
+its C++ source `host/wgbsio.cpp`, built with g++ at first use, `utils`):
+importing this package imports neither jax nor anything of
+wgbs_tools_tpu.
 
 Ported so far: `pat2beta` (`pipeline.pat2beta`, CLI
 `python -m wgbs_tools_tpu_torch pat2beta`) on one GPU, over site shards

@@ -15,19 +15,18 @@ import difflib
 import os.path as op
 import sys
 
-from wgbs_tools_tpu.genome.refdir import Genome
-from wgbs_tools_tpu.utils import (
+from ..device import resolve_device
+from ..genome.refdir import Genome
+from ..parallel.multihost import run_pat2beta_multiprocess
+from ..pipeline.pat2beta import pat2beta
+from ..utils import (
     IllegalArgumentError,
     delete_or_skip,
     eprint,
+    logger,
     splitextgz,
     validate_single_file,
 )
-from wgbs_tools_tpu.utils.log import logger
-
-from ..device import resolve_device
-from ..parallel.multihost import run_pat2beta_multiprocess
-from ..pipeline.pat2beta import pat2beta
 
 
 def main_pat2beta(argv):

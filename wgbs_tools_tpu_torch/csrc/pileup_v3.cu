@@ -24,27 +24,59 @@
 // and write the (window_len, 2) int32 [meth, cov] pileup of the window, or, for
 // flat_vals_add, add it into a given (window_len, 2) int32 total.
 //
-// Design of the flat kernels: one CTA per output tile (tile_sb sub-blocks of
-// 128 sites). The CTA walks its chunks in order; each thread owns one lane of
-// the row, so every shared-memory accumulator cell has exactly one writer and
-// plain int32 adds suffice (no atomics, no tensor cores: counts stay exact
-// integers, and the grouping of integer adds does not change the bits). The
-// accumulator is tile_sb x 256 int32 in dynamic shared memory (64 KB at the
-// default tile_sb = 64, above the 48 KB static limit, hence the attribute
-// call). A tile with no chunks still writes zeros in the kernels that write a
-// fresh output (every site of the window is written, so the wrapper allocates
-// it with torch.empty); flat_vals_add leaves such a tile's rows of the total
-// as they were. tiled_classic is the chunk-parallel form of the same pileup:
-// see its own note.
+// Design of the classic flat kernels (flat_classic, flat_lc): one CTA per
+// output tile (tile_sb sub-blocks of 128 sites). The CTA walks its chunks in
+// order; each thread owns one lane of the row, so every shared-memory
+// accumulator cell has exactly one writer and plain int32 adds suffice (no
+// atomics, no tensor cores: counts stay exact integers, and the grouping of
+// integer adds does not change the bits). The accumulator is tile_sb x 256
+// int32 in dynamic shared memory (8 KB at the classic default tile_sb = 8;
+// the attribute call allows more than 48 KB). A tile with no chunks
+// still writes zeros (every site of the window is written, so the wrapper
+// allocates the output with torch.empty). tiled_classic is the
+// chunk-parallel form of the same pileup: see its own note. The
+// value-plane kernels have their own body (pile_vals, below); of them,
+// flat_vals_add leaves a chunkless tile's rows of the total as they were.
 //
-// Bound: load latency, not bandwidth. The planes are read once (256 B per
-// row for the value planes, 32 B + the count for the classic form) and the
-// output written once, with almost no arithmetic, so the floor is the
-// device-memory bytes; but each thread loads one byte (value planes) or one
-// word (classic) per row and a CTA walks its rows one after another, so few
-// loads are in flight and measured throughput stays far below that floor
-// (PERF.md). The fix is later work: wider per-thread loads (16 B vectors)
-// and several rows in flight per CTA (unrolling, cp.async or TMA).
+// Bound of the value-plane kernels (flat_vals_fused, flat_vals_add, and
+// flat_vals on the same body): device-memory bytes. Their work is one
+// integer add per plane byte, while each must move 256 B per real row, 4 B
+// of dg per staged row of a visited chunk and 8 B per output site (16 for
+// the add, which reads the total too); chip_smoke.py computes that floor
+// (bound_ms) from each run's batches, and PERF.md gives it beside the
+// measured times. A body that loads one byte per thread per row, walks a
+// CTA's rows one after another and does a shared-memory read-modify-write
+// per byte keeps few loads in flight and stays load-latency-bound at ~12 %
+// of that floor (PERF.md); this body does three things about it:
+// - Wide loads: a thread loads 16 B of a row (uint4, __ldg), 16 threads
+//   (a half-warp) one whole 256-B row, neighbouring threads neighbouring
+//   addresses; a warp's load instruction covers two rows.
+// - Many rows in flight: the CTA stages up to WIN rows' dg (sub-block
+//   offsets) in shared memory with one coalesced pass, then each half-warp
+//   takes a contiguous run of those rows and issues UNROLL row loads before
+//   it adds any of them (UNROLL x 16 B per thread, 32 KB per CTA, ~96 KB per
+//   SM at 3 CTAs). Padding rows (dg outside [0, g_max)) and rows whose
+//   sub-block lies outside the tile are never loaded.
+// - Few shared-memory updates: staging packs rows in ascending sub-block
+//   order, ~15 rows per sub-block, so a thread keeps its 16 lanes' running
+//   sums in registers, two lanes per 32-bit register (16-bit halves, each
+//   byte masked in with 0x00FF00FF: one add per two bytes), and flushes them
+//   into the tile accumulator with shared-memory atomicAdd only when the
+//   row's sub-block changes or 256 rows have been added (256 x 255 < 2^16, so
+//   a half never carries into its neighbour). Flush-on-change is right for
+//   rows in any order (a shuffled chunk only flushes more often), and the
+//   integer atomics are exact in any order. The accumulator row is padded
+//   to 272 ints (one int after each 16 lanes), so the 16 threads of a
+//   half-warp flushing lane k of their segments hit 16 distinct banks.
+// Balance: one CTA per tile, 256 threads, (64 x 272 + 1024) x 4 = 72 KB of
+// shared memory at the default tile_sb = 64, so 3 CTAs share an SM and the
+// big slab's 972 tiles run as ~2.5 waves of 396 CTAs; the hardware hands a
+// finished CTA's SM the next tile, so the ragged tail is one tile deep
+// (a persistent grid would balance no better at this granularity, and a
+// smaller accumulator would force a tile's chunks apart).
+// Epilogue: two sites per thread, one 16-B store of (meth, cov, meth, cov)
+// where the output is 16-B aligned (8-B stores for a total that is a row
+// slice only 8-B aligned, and at the window's last odd site).
 //
 // No entry point sets the CUDA device (see launch.cuh).
 
@@ -72,25 +104,6 @@ __device__ __forceinline__ void store_tile(const int* acc, int2* out, int t,
     }
 }
 
-// total[site] += (meth, cov) for the tile's sites, clipped to the window.
-// Each site belongs to exactly one tile, so exactly one CTA reads, adds and
-// writes it: the plain read-add-write is race-free without atomics. The add
-// wraps modulo 2^32, as the JAX package's int32 add does (no widening).
-__device__ __forceinline__ void add_tile(const int* acc, int2* total, int t,
-                                         int tile_sb, int64_t window_len) {
-    const int64_t site0 = (int64_t)t * tile_sb * SB;
-    for (int i = threadIdx.x; i < tile_sb * SB; i += blockDim.x) {
-        const int64_t site = site0 + i;
-        if (site < window_len) {
-            const int* a = acc + (i / SB) * ROW_W + (i % SB);
-            int2 v = total[site];
-            v.x = (int)((unsigned)v.x + (unsigned)a[0]);
-            v.y = (int)((unsigned)v.y + (unsigned)a[SB]);
-            total[site] = v;
-        }
-    }
-}
-
 // out[site] += (meth, cov) for the tile's nonzero cells, clipped to the
 // window, with global atomics: several CTAs (one per chunk of the tile) add
 // into one site. Integer atomics are exact, and their order does not change
@@ -113,20 +126,117 @@ __device__ __forceinline__ void zero_acc(int* acc, int tile_sb) {
     for (int i = threadIdx.x; i < tile_sb * ROW_W; i += blockDim.x) acc[i] = 0;
 }
 
-// The value-plane pileup shared by flat_vals_fused, flat_vals and
-// flat_vals_add: 256 threads, thread = lane of the meth|cov row. FUSED: one
-// (rows, 256) plane, lane l reads plane[row * 256 + l]. Split: lanes 0-127
-// read mv[row * 128 + lane], lanes 128-255 cv[row * 128 + lane - 128]. With
-// ADD the tile is added into `out` (the running total), and a tile with no
-// chunks returns at once, leaving its rows of the total untouched; without
-// ADD the tile is written, zeros for a tile with no chunks.
-//
-// The plane form is a template parameter, so the row stride is a constant and
-// the fused plane is read through one direct pointer, and the plane and meta
-// loads carry __ldg. Measured on the H100 (PERF.md, Findings): the same loop with
-// the stride and the plane form chosen at run time, or with the per-lane
-// pointer select and no __ldg, ran 36-50 % slower, although every variant's
-// plane loads compile to read-only-cache loads (LDG.E.U8.CONSTANT).
+// ---------------------------------------------------------------------------
+// The value-plane body (flat_vals_fused, flat_vals, flat_vals_add): see the
+// design note at the top of the file.
+// ---------------------------------------------------------------------------
+
+constexpr int VT = 256;                // threads of a value-plane CTA
+constexpr int SEG = 16;                // plane bytes a thread loads per row
+constexpr int SEGS = ROW_W / SEG;      // threads per row: one half-warp
+constexpr int GROUPS = VT / SEGS;      // row groups (half-warps) per CTA
+constexpr int ACC_W = ROW_W + SEGS;    // padded accumulator row, in ints
+constexpr int WIN = 1024;              // rows whose dg a CTA stages at once
+constexpr int UNROLL = 8;              // row loads a thread issues ahead
+constexpr int RUN_MAX = 256;           // rows a 16-bit half may add (x 255)
+static_assert(SEGS == 16 && GROUPS == 16, "a half-warp covers one row");
+
+// Shared memory of a value-plane CTA: the padded accumulator, then the
+// staged dg window.
+__host__ __device__ constexpr size_t vals_smem_bytes(int tile_sb) {
+    return ((size_t)tile_sb * ACC_W + WIN) * sizeof(int);
+}
+
+// A thread's running sums of its 16 lanes of one sub-block: lane 4j + i of
+// the segment is the low (i = 0, 2) or high (i = 1, 3) 16-bit half of lo[j]
+// (even bytes of plane word j) or hi[j] (odd bytes).
+struct SegSums {
+    uint32_t lo[4], hi[4];
+
+    __device__ __forceinline__ void clear() {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) lo[j] = hi[j] = 0u;
+    }
+
+    __device__ __forceinline__ void add(const uint4& v) {
+        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            lo[j] += w[j] & 0x00FF00FFu;
+            hi[j] += (w[j] >> 8) & 0x00FF00FFu;
+        }
+    }
+
+    // Adds the sums into the accumulator row `row` (already offset to the
+    // thread's segment: lane l of the segment is row[l]) and clears them.
+    __device__ __forceinline__ void flush(int* row) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            atomicAdd(row + 4 * j + 0, (int)(lo[j] & 0xFFFFu));
+            atomicAdd(row + 4 * j + 1, (int)(hi[j] & 0xFFFFu));
+            atomicAdd(row + 4 * j + 2, (int)(lo[j] >> 16));
+            atomicAdd(row + 4 * j + 3, (int)(hi[j] >> 16));
+        }
+        clear();
+    }
+};
+
+// *o = (meth, cov), or *o += (meth, cov) with ADD (int32 adds that wrap).
+template <bool ADD>
+__device__ __forceinline__ void store_pair(int2* o, int meth, int cov) {
+    if (ADD) {
+        const int2 x = *o;
+        meth = (int)((unsigned)x.x + (unsigned)meth);
+        cov = (int)((unsigned)x.y + (unsigned)cov);
+    }
+    *o = make_int2(meth, cov);
+}
+
+// The tile's output pairs p (sites 2p, 2p + 1 of the tile): without ADD
+// written as (meth, cov, meth, cov), with ADD added into the total (int32
+// adds that wrap, as the JAX package's do); clipped to the window. acc is
+// the padded accumulator, or nullptr for a tile of zeros. Lane l of sub-
+// block sb sits at acc[sb * ACC_W + l + l / 16]; l and l + 1 (l even) share
+// a 16-lane segment, and cov lane 128 + l sits 136 ints after meth lane l.
+template <bool ADD>
+__device__ __forceinline__ void vals_epilogue(const int* acc, int2* out,
+                                              int t, int tile_sb,
+                                              int64_t window_len) {
+    const int64_t site0 = (int64_t)t * tile_sb * SB;
+    const bool wide = ((uintptr_t)out & 15u) == 0;  // uniform over the CTA
+    for (int p = threadIdx.x; p < tile_sb * SB / 2; p += VT) {
+        const int64_t site = site0 + 2 * p;
+        if (site >= window_len) break;  // p only grows
+        int4 v = make_int4(0, 0, 0, 0);
+        if (acc != nullptr) {
+            const int l = (2 * p) % SB;
+            const int* a = acc + (2 * p / SB) * ACC_W + l + l / SEGS;
+            v = make_int4(a[0], a[SB + SB / SEGS], a[1], a[SB + SB / SEGS + 1]);
+        }
+        int2* o = out + site;
+        if (wide && site + 1 < window_len) {
+            if (ADD) {
+                const int4 x = *reinterpret_cast<const int4*>(o);
+                v.x = (int)((unsigned)x.x + (unsigned)v.x);
+                v.y = (int)((unsigned)x.y + (unsigned)v.y);
+                v.z = (int)((unsigned)x.z + (unsigned)v.z);
+                v.w = (int)((unsigned)x.w + (unsigned)v.w);
+            }
+            *reinterpret_cast<int4*>(o) = v;
+            continue;
+        }
+        store_pair<ADD>(o, v.x, v.y);
+        if (site + 1 < window_len) store_pair<ADD>(o + 1, v.z, v.w);
+    }
+}
+
+// The value-plane pileup of tile t. FUSED: one (rows, 256) plane, a row's
+// segment s at plane + row * 256 + 16 s. Split: segments 0-7 in mv (rows,
+// 128), 8-15 in cv. With ADD the tile is added into `out` (the running
+// total), and a tile with no chunks returns at once, leaving its rows of the
+// total untouched; without ADD the tile is written, zeros for a tile with no
+// chunks. The plane form is a template parameter (a run-time form cost the
+// first body 36-50 %, PERF.md), so the row stride is a constant.
 template <bool ADD, bool FUSED>
 __device__ __forceinline__ void pile_vals(const int* __restrict__ c0,
                                           const int* __restrict__ c1,
@@ -136,40 +246,84 @@ __device__ __forceinline__ void pile_vals(const int* __restrict__ c0,
                                           int2* __restrict__ out,
                                           int64_t window_len, int tile_sb,
                                           int rc, int g_max) {
-    constexpr int STRIDE = FUSED ? ROW_W : SB;
-    extern __shared__ int acc[];
+    constexpr int STRIDE = FUSED ? ROW_W : SB;  // bytes per plane row
+    extern __shared__ int4 smem4[];
+    int* acc = reinterpret_cast<int*>(smem4);
+    int* s_dg = acc + tile_sb * ACC_W;
     const int t = blockIdx.x;
-    const int lane = threadIdx.x;
     const int c_beg = c0[t];
     const int c_end = c1[t];
-    if (ADD && c_beg == c_end) return;  // uniform over the block
-    zero_acc(acc, tile_sb);
-    __syncthreads();
-    const uint8_t* lane_col =
-        FUSED ? mv + lane : (lane < SB ? mv + lane : cv + (lane - SB));
+    if (c_beg == c_end) {  // uniform over the block
+        if (!ADD) vals_epilogue<false>(nullptr, out, t, tile_sb, window_len);
+        return;
+    }
+    for (int i = threadIdx.x; i < tile_sb * ACC_W / 4; i += VT)
+        smem4[i] = make_int4(0, 0, 0, 0);
+
+    const int seg = threadIdx.x % SEGS;
+    const int grp = threadIdx.x / SEGS;
+    const uint8_t* col = FUSED ? mv + SEG * seg
+                               : (seg < SEGS / 2 ? mv + SEG * seg
+                                                 : cv + SEG * (seg - SEGS / 2));
+    int* acc_seg = acc + seg * (SEG + 1);  // lane l of the segment: [l]
+    SegSums sums;
+    sums.clear();
+    int cur = -1;  // sub-block the sums belong to, -1 before the first row
+    int run = 0;   // rows added since the last flush
+
     for (int c = c_beg; c < c_end; ++c) {
         const int* dg_row = meta + ((int64_t)c * 2 + 1) * rc;
         // sub-block of dg = 0, relative to this tile
         const int base = __ldg(dg_row + rc - 1) - g_max - t * tile_sb;
-        const uint8_t* col = lane_col + (int64_t)c * rc * STRIDE;
-#pragma unroll 8
-        for (int r = 0; r < rc; ++r) {
-            const int dg = __ldg(dg_row + r);
-            const int sb = base + dg;
-            if (dg >= 0 && dg < g_max && sb >= 0 && sb < tile_sb)
-                acc[sb * ROW_W + lane] += __ldg(col + (int64_t)r * STRIDE);
+        const uint8_t* chunk = col + (int64_t)c * rc * STRIDE;
+        for (int w0 = 0; w0 < rc; w0 += WIN) {
+            const int n = min(WIN, rc - w0);
+            __syncthreads();  // the zeroing, or the last window's dg reads
+            for (int i = threadIdx.x; i < n; i += VT)
+                s_dg[i] = __ldg(dg_row + w0 + i);
+            __syncthreads();
+            const int per = (n + GROUPS - 1) / GROUPS;
+            const int r_end = min((grp + 1) * per, n);
+            for (int r = grp * per; r < r_end; r += UNROLL) {
+                uint4 v[UNROLL];
+                int sb[UNROLL];
+#pragma unroll
+                for (int k = 0; k < UNROLL; ++k) {
+                    const int row = r + k;
+                    sb[k] = -1;
+                    v[k] = make_uint4(0u, 0u, 0u, 0u);
+                    if (row < r_end) {
+                        const int dg = s_dg[row];
+                        const int b = base + dg;
+                        if (dg >= 0 && dg < g_max && b >= 0 && b < tile_sb) {
+                            sb[k] = b;
+                            v[k] = __ldg(reinterpret_cast<const uint4*>(
+                                chunk + (int64_t)(w0 + row) * STRIDE));
+                        }
+                    }
+                }
+#pragma unroll
+                for (int k = 0; k < UNROLL; ++k) {
+                    if (sb[k] < 0) continue;
+                    if (sb[k] != cur || run == RUN_MAX) {
+                        if (cur >= 0) sums.flush(acc_seg + cur * ACC_W);
+                        cur = sb[k];
+                        run = 0;
+                    }
+                    sums.add(v[k]);
+                    ++run;
+                }
+            }
         }
     }
+    if (cur >= 0) sums.flush(acc_seg + cur * ACC_W);
     __syncthreads();
-    if (ADD)
-        add_tile(acc, out, t, tile_sb, window_len);
-    else
-        store_tile(acc, out, t, tile_sb, window_len);
+    vals_epilogue<ADD>(acc, out, t, tile_sb, window_len);
 }
 
 // Replaces wgbs_tools_tpu/ops/pileup_tpu3.py::_kernel_flat_vals_fused (the
 // default pileup kernel: a one-hot (g_max x rc) x (rc x 256) MXU dot per chunk).
-__global__ void __launch_bounds__(ROW_W)
+__global__ void __launch_bounds__(VT, 3)
 flat_vals_fused_kernel(const int* __restrict__ c0, const int* __restrict__ c1,
                        const int* __restrict__ meta,
                        const uint8_t* __restrict__ plane,
@@ -181,7 +335,7 @@ flat_vals_fused_kernel(const int* __restrict__ c0, const int* __restrict__ c1,
 
 // Replaces wgbs_tools_tpu/ops/pileup_tpu3.py::_kernel_flat_vals (the same math
 // over two separate (rc, 128) planes, two one-hot dots per chunk on the TPU).
-__global__ void __launch_bounds__(ROW_W)
+__global__ void __launch_bounds__(VT, 3)
 flat_vals_kernel(const int* __restrict__ c0, const int* __restrict__ c1,
                  const int* __restrict__ meta, const uint8_t* __restrict__ mv,
                  const uint8_t* __restrict__ cv, int2* __restrict__ out,
@@ -195,7 +349,7 @@ flat_vals_kernel(const int* __restrict__ c0, const int* __restrict__ c1,
 // dispatch): the pileup with an in-place add epilogue, in one launch. One
 // instantiation per plane form (cv is unused when FUSED).
 template <bool FUSED>
-__global__ void __launch_bounds__(ROW_W)
+__global__ void __launch_bounds__(VT, 3)
 flat_vals_add_kernel(const int* __restrict__ c0, const int* __restrict__ c1,
                      const int* __restrict__ meta,
                      const uint8_t* __restrict__ mv,
@@ -333,6 +487,21 @@ int launch(Kernel kernel, int threads, dim3 grid, int64_t tile_sb,
                         (size_t)tile_sb * ROW_W * sizeof(int), stream, args...);
 }
 
+// Launches a value-plane kernel, one CTA of VT threads per tile, with its
+// padded accumulator and dg window (vals_smem_bytes) as dynamic shared
+// memory and the SM's carveout set to the most shared memory, so that 3
+// CTAs fit on an SM at the default tile_sb = 64.
+template <typename Kernel, typename... Args>
+int launch_vals(Kernel kernel, int64_t num_tiles, int64_t tile_sb,
+                void* stream, Args... args) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    return wgbs::launch(kernel, dim3((unsigned)num_tiles), VT,
+                        vals_smem_bytes((int)tile_sb), stream, args...);
+}
+
 }  // namespace
 
 extern "C" {
@@ -341,20 +510,20 @@ int pileup_flat_vals_fused(const void* c0, const void* c1, const void* meta,
                            const void* plane, void* out, int64_t num_tiles,
                            int64_t window_len, int64_t tile_sb, int64_t rc,
                            int64_t g_max, void* stream) {
-    return launch(flat_vals_fused_kernel, ROW_W, dim3((unsigned)num_tiles),
-                  tile_sb, stream, (const int*)c0, (const int*)c1,
-                  (const int*)meta, (const uint8_t*)plane, (int2*)out,
-                  window_len, (int)tile_sb, (int)rc, (int)g_max);
+    return launch_vals(flat_vals_fused_kernel, num_tiles, tile_sb, stream,
+                       (const int*)c0, (const int*)c1, (const int*)meta,
+                       (const uint8_t*)plane, (int2*)out, window_len,
+                       (int)tile_sb, (int)rc, (int)g_max);
 }
 
 int pileup_flat_vals(const void* c0, const void* c1, const void* meta,
                      const void* mv, const void* cv, void* out,
                      int64_t num_tiles, int64_t window_len, int64_t tile_sb,
                      int64_t rc, int64_t g_max, void* stream) {
-    return launch(flat_vals_kernel, ROW_W, dim3((unsigned)num_tiles), tile_sb,
-                  stream, (const int*)c0, (const int*)c1, (const int*)meta,
-                  (const uint8_t*)mv, (const uint8_t*)cv, (int2*)out,
-                  window_len, (int)tile_sb, (int)rc, (int)g_max);
+    return launch_vals(flat_vals_kernel, num_tiles, tile_sb, stream,
+                       (const int*)c0, (const int*)c1, (const int*)meta,
+                       (const uint8_t*)mv, (const uint8_t*)cv, (int2*)out,
+                       window_len, (int)tile_sb, (int)rc, (int)g_max);
 }
 
 // cv == NULL: mv is the fused (rows, 256) plane; else mv and cv are the two
@@ -364,12 +533,12 @@ int pileup_flat_vals_add(const void* c0, const void* c1, const void* meta,
                          int64_t num_tiles, int64_t window_len,
                          int64_t tile_sb, int64_t rc, int64_t g_max,
                          void* stream) {
-    return launch(cv == nullptr ? flat_vals_add_kernel<true>
-                                : flat_vals_add_kernel<false>,
-                  ROW_W, dim3((unsigned)num_tiles), tile_sb, stream,
-                  (const int*)c0, (const int*)c1, (const int*)meta,
-                  (const uint8_t*)mv, (const uint8_t*)cv, (int2*)total,
-                  window_len, (int)tile_sb, (int)rc, (int)g_max);
+    return launch_vals(cv == nullptr ? flat_vals_add_kernel<true>
+                                     : flat_vals_add_kernel<false>,
+                       num_tiles, tile_sb, stream, (const int*)c0,
+                       (const int*)c1, (const int*)meta, (const uint8_t*)mv,
+                       (const uint8_t*)cv, (int2*)total, window_len,
+                       (int)tile_sb, (int)rc, (int)g_max);
 }
 
 int pileup_flat_classic(const void* c0, const void* c1, const void* meta,

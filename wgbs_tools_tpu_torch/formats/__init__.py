@@ -1,0 +1,2 @@
+"""The port's own copy of the pat / beta / BGZF host code it calls from
+wgbs_tools_tpu/formats/ (same names, no jax in either)."""

@@ -1,0 +1,2 @@
+"""The port's own copy of the genome reference lookup it calls from
+wgbs_tools_tpu/genome/ (same names, no jax in either)."""

@@ -1,0 +1,71 @@
+"""Genome reference directories, read only.
+
+The port's copy of what pat2beta and the CLI need from
+wgbs_tools_tpu/genome/refdir.py and cpg_index.py: the `references/<name>/`
+layout with a `default` symlink (ref: src/python/utils_wgbs.py:53-115),
+rooted at $WGBS_TPU_REFDIR (default: <repo>/references), and the genome's
+number of CpG sites, read from the CpG index that `init_genome` writes
+(`cpg_index.npz` + `cpg_index.json`).
+"""
+
+import os
+import os.path as op
+from pathlib import Path
+
+import numpy as np
+
+from ..utils import IllegalArgumentError
+
+INDEX_BASENAME = "cpg_index.npz"
+META_BASENAME = "cpg_index.json"
+
+
+def references_root():
+    env = os.environ.get("WGBS_TPU_REFDIR")
+    if env:
+        return env
+    return op.join(str(Path(op.realpath(__file__)).parent.parent.parent),
+                   "references")
+
+
+def genome_dir(name=None):
+    name = name or "default"
+    refdir = op.join(references_root(), name)
+    if name == "default":
+        if not op.islink(refdir):
+            raise IllegalArgumentError(
+                "No default genome set. Run init_genome or set_default_ref.")
+        refdir = str(Path(refdir).resolve())
+    if not op.isdir(refdir):
+        raise IllegalArgumentError(f"Invalid reference name: {name}")
+    return refdir
+
+
+def resolve_genome_name(name=None):
+    if name is None or name == "default":
+        refdir = op.join(references_root(), "default")
+        if not op.islink(refdir):
+            raise IllegalArgumentError("No default genome set.")
+        return os.readlink(refdir)
+    return name
+
+
+class Genome:
+    """A genome of the reference directory: its name, its directory and
+    its number of CpG sites (loaded at the first get_nr_sites)."""
+
+    def __init__(self, name=None):
+        self.name = resolve_genome_name(name)
+        self.refdir = genome_dir(name)
+        self._nr_sites = None
+
+    def get_nr_sites(self):
+        if self._nr_sites is None:
+            npz_path = op.join(self.refdir, INDEX_BASENAME)
+            if not (op.isfile(npz_path)
+                    and op.isfile(op.join(self.refdir, META_BASENAME))):
+                raise IllegalArgumentError(
+                    f"Not an initialized genome dir: {self.refdir}")
+            with np.load(npz_path) as z:
+                self._nr_sites = int(z["loci"].shape[0])
+        return self._nr_sites

@@ -1,0 +1,472 @@
+// Host library of the PyTorch port: pat text parsing, the BGZF block
+// inflater, the host pileup (the oracle of the device kernels) and the v3
+// row packer and placers that the pileup staging runs.
+//
+// The port's own copy of the functions it calls from native/wgbsio.cpp,
+// unchanged, with the same C names, so that a reader finds each one's
+// counterpart there. wgbs_tools_tpu_torch/native.py builds this file with
+// g++ at first use and binds it with ctypes.
+//
+// Build: g++ -O3 -shared -fPIC -o libwgbs_host.so wgbsio.cpp -lz -lpthread
+
+#include <algorithm>
+#include <cstdint>
+#include <cstring>
+#include <string>
+#include <thread>
+#include <vector>
+#include <zlib.h>
+
+extern "C" {
+
+// ---------------------------------------------------------------------------
+// pat text parsing
+// ---------------------------------------------------------------------------
+
+// First pass: count records and the maximum pattern length.
+// Returns 0 on success, -1 on malformed input.
+int pat_scan(const char* buf, int64_t len, int64_t* n_lines,
+             int64_t* max_len) {
+    int64_t lines = 0, maxlen = 0;
+    const char* p = buf;
+    const char* end = buf + len;
+    while (p < end) {
+        const char* nl = (const char*)memchr(p, '\n', end - p);
+        const char* line_end = nl ? nl : end;
+        if (line_end > p) {
+            // third column is the pattern
+            const char* t1 = (const char*)memchr(p, '\t', line_end - p);
+            if (!t1) return -1;
+            const char* t2 = (const char*)memchr(t1 + 1, '\t', line_end - t1 - 1);
+            if (!t2) return -1;
+            const char* t3 = (const char*)memchr(t2 + 1, '\t', line_end - t2 - 1);
+            if (!t3) return -1;
+            int64_t plen = t3 - (t2 + 1);
+            if (plen > maxlen) maxlen = plen;
+            lines++;
+        }
+        if (!nl) break;
+        p = nl + 1;
+    }
+    *n_lines = lines;
+    *max_len = maxlen;
+    return 0;
+}
+
+// Second pass: fill the SoA arrays.
+//   starts/lengths/counts: int32[n_lines]
+//   codes: uint8[n_lines * max_len], pre-filled by caller or filled here
+//          with 3 ('.') padding. T=0 C=1 H=2 .=3
+//   chrom_ids: int16[n_lines]
+//   chrom_buf: char[chrom_buf_cap] receives '\n'-separated distinct chrom
+//              names in first-appearance order.
+//   extras_off: int64[n_lines + 1]; extras byte ranges into buf (0-length
+//               when a line has exactly 4 columns).
+// Returns number of distinct chroms, or -1 on error.
+int pat_parse(const char* buf, int64_t len, int64_t n_lines, int64_t max_len,
+              int32_t* starts, int32_t* lengths, int32_t* counts,
+              uint8_t* codes, int16_t* chrom_ids, char* chrom_buf,
+              int64_t chrom_buf_cap, int64_t* extras_off) {
+    // thread-safe lazy init (C++11 magic static): pat_parse now runs
+    // concurrently on disjoint ranges from the Python-side MT parse
+    struct PatLut {
+        int8_t v[256];
+        PatLut() {
+            memset(v, -1, sizeof(v));
+            v[(uint8_t)'T'] = 0; v[(uint8_t)'C'] = 1;
+            v[(uint8_t)'H'] = 2; v[(uint8_t)'.'] = 3;
+        }
+    };
+    static const PatLut lut_holder;
+    const int8_t* lut = lut_holder.v;
+
+    memset(codes, 3, (size_t)n_lines * max_len);
+
+    std::vector<std::string> chroms;
+    std::string cur_chrom;
+    int16_t cur_id = -1;
+
+    const char* p = buf;
+    const char* end = buf + len;
+    int64_t i = 0;
+    while (p < end && i < n_lines) {
+        const char* nl = (const char*)memchr(p, '\n', end - p);
+        const char* line_end = nl ? nl : end;
+        if (line_end > p) {
+            const char* t1 = (const char*)memchr(p, '\t', line_end - p);
+            const char* t2 = (const char*)memchr(t1 + 1, '\t', line_end - t1 - 1);
+            const char* t3 = (const char*)memchr(t2 + 1, '\t', line_end - t2 - 1);
+            if (!t1 || !t2 || !t3) return -1;
+
+            // chrom
+            if (cur_id < 0 || (size_t)(t1 - p) != cur_chrom.size() ||
+                memcmp(p, cur_chrom.data(), t1 - p) != 0) {
+                cur_chrom.assign(p, t1 - p);
+                cur_id = -1;
+                for (size_t c = 0; c < chroms.size(); c++) {
+                    if (chroms[c] == cur_chrom) { cur_id = (int16_t)c; break; }
+                }
+                if (cur_id < 0) {
+                    cur_id = (int16_t)chroms.size();
+                    chroms.push_back(cur_chrom);
+                }
+            }
+            chrom_ids[i] = cur_id;
+
+            // start
+            int64_t v = 0;
+            for (const char* q = t1 + 1; q < t2; q++) {
+                if (*q < '0' || *q > '9') return -1;
+                v = v * 10 + (*q - '0');
+            }
+            starts[i] = (int32_t)v;
+
+            // pattern
+            int64_t plen = t3 - (t2 + 1);
+            lengths[i] = (int32_t)plen;
+            uint8_t* row = codes + (size_t)i * max_len;
+            for (int64_t j = 0; j < plen; j++) {
+                int8_t c = lut[(uint8_t)t2[1 + j]];
+                if (c < 0) return -1;
+                row[j] = (uint8_t)c;
+            }
+
+            // count (4th column, up to tab or line end)
+            const char* t4 = (const char*)memchr(t3 + 1, '\t', line_end - t3 - 1);
+            const char* cnt_end = t4 ? t4 : line_end;
+            v = 0;
+            for (const char* q = t3 + 1; q < cnt_end; q++) {
+                if (*q < '0' || *q > '9') return -1;
+                v = v * 10 + (*q - '0');
+            }
+            counts[i] = (int32_t)v;
+
+            // extras
+            if (t4) {
+                extras_off[2 * i] = (t4 + 1) - buf;
+                extras_off[2 * i + 1] = line_end - buf;
+            } else {
+                extras_off[2 * i] = 0;
+                extras_off[2 * i + 1] = 0;
+            }
+            i++;
+        }
+        if (!nl) break;
+        p = nl + 1;
+    }
+
+    // emit chrom names
+    int64_t off = 0;
+    for (auto& c : chroms) {
+        if (off + (int64_t)c.size() + 1 > chrom_buf_cap) return -1;
+        memcpy(chrom_buf + off, c.data(), c.size());
+        off += c.size();
+        chrom_buf[off++] = '\n';
+    }
+    if (off < chrom_buf_cap) chrom_buf[off] = 0;
+    return (int)chroms.size();
+}
+
+// ---------------------------------------------------------------------------
+// BGZF block inflater (multi-threaded)
+// ---------------------------------------------------------------------------
+
+// Decompress a BGZF/multi-member-gzip buffer. Two-phase:
+// bgzf_scan_blocks fills (in_off, out_off) pairs so callers can size the
+// output and decompress in parallel.
+int64_t bgzf_scan_blocks(const uint8_t* data, int64_t len, int64_t* in_offs,
+                         int64_t* out_offs, int64_t max_blocks) {
+    int64_t nb = 0;
+    int64_t in_pos = 0, out_pos = 0;
+    while (in_pos + 18 <= len && nb < max_blocks) {
+        if (data[in_pos] != 0x1f || data[in_pos + 1] != 0x8b) return -1;
+        uint16_t xlen = data[in_pos + 10] | (data[in_pos + 11] << 8);
+        // find BC subfield
+        int64_t xs = in_pos + 12;
+        int64_t bsize = -1;
+        int64_t p = xs;
+        while (p + 4 <= xs + xlen) {
+            uint8_t s1 = data[p], s2 = data[p + 1];
+            uint16_t slen = data[p + 2] | (data[p + 3] << 8);
+            if (s1 == 'B' && s2 == 'C' && slen == 2) {
+                bsize = (data[p + 4] | (data[p + 5] << 8)) + 1;
+                break;
+            }
+            p += 4 + slen;
+        }
+        if (bsize < 0) return -2;  // not BGZF
+        uint32_t isize;
+        memcpy(&isize, data + in_pos + bsize - 4, 4);
+        in_offs[nb] = in_pos;
+        out_offs[nb] = out_pos;
+        out_pos += isize;
+        in_pos += bsize;
+        nb++;
+    }
+    in_offs[nb] = in_pos;
+    out_offs[nb] = out_pos;
+    return nb;
+}
+
+int bgzf_decompress_mt(const uint8_t* data, int64_t len, const int64_t* in_offs,
+                       const int64_t* out_offs, int64_t n_blocks, uint8_t* out,
+                       int n_threads) {
+    volatile int err = 0;
+    auto worker = [&](int tid) {
+        for (int64_t b = tid; b < n_blocks; b += n_threads) {
+            int64_t in_pos = in_offs[b];
+            uint16_t xlen = data[in_pos + 10] | (data[in_pos + 11] << 8);
+            int64_t payload_off = in_pos + 12 + xlen;
+            int64_t payload_len = in_offs[b + 1] - payload_off - 8;
+            int64_t out_n = out_offs[b + 1] - out_offs[b];
+            if (out_n == 0) continue;
+            z_stream zs;
+            memset(&zs, 0, sizeof(zs));
+            inflateInit2(&zs, -15);
+            zs.next_in = (Bytef*)(data + payload_off);
+            zs.avail_in = (uInt)payload_len;
+            zs.next_out = out + out_offs[b];
+            zs.avail_out = (uInt)out_n;
+            int r = inflate(&zs, Z_FINISH);
+            if (r != Z_STREAM_END) err = 1;
+            inflateEnd(&zs);
+        }
+    };
+    std::vector<std::thread> threads;
+    for (int t = 0; t < n_threads; t++) threads.emplace_back(worker, t);
+    for (auto& t : threads) t.join();
+    return err ? -1 : 0;
+}
+
+// ---------------------------------------------------------------------------
+// pileup (host fallback of the device kernel)
+// ---------------------------------------------------------------------------
+
+// Accumulate pat fragments into a (n_sites, 2) int64 [meth, cov] table —
+// the same reduction as ops/pileup.py (ref: src/pat2beta/stdin2beta.cpp:59-93)
+// computed on the host. Used when the accelerator link is thin (the SoA
+// arrays are already decoded, so this runs at memory bandwidth) and as an
+// independent oracle for the device kernels.
+//
+// codes: row-major uint8 (F, max_len), T=0 C=1 H=2 .=3 (formats/pat.py).
+// start: 1-based global CpG indices, REQUIRED sorted ascending when
+// n_threads > 1 (threads partition the site axis and binary-search their
+// fragment range; the per-thread site guard makes overlap duplication safe).
+// out: caller-zeroed int64 (n_sites, 2); this function adds into it.
+static void pileup_range(const int32_t* start, const int32_t* length,
+                         const int32_t* count, const uint8_t* codes,
+                         int64_t f_lo, int64_t f_hi, int64_t max_len,
+                         int64_t window_start, int64_t site_lo,
+                         int64_t site_hi, int64_t* out) {
+    for (int64_t f = f_lo; f < f_hi; f++) {
+        int64_t rel = (int64_t)start[f] - window_start;
+        int64_t cnt = count[f];
+        const uint8_t* row = codes + f * max_len;
+        int64_t len = length[f];
+        if (len > max_len) len = max_len;
+        for (int64_t j = 0; j < len; j++) {
+            uint8_t c = row[j];
+            if (c == 3) continue;  // '.'
+            int64_t site = rel + j;
+            if (site < site_lo || site >= site_hi) continue;
+            out[2 * site + 1] += cnt;           // cov: C/T/H
+            if (c == 1 || c == 2) out[2 * site] += cnt;  // meth: C/H
+        }
+    }
+}
+
+void pat_pileup(const int32_t* start, const int32_t* length,
+                const int32_t* count, const uint8_t* codes, int64_t n_frags,
+                int64_t max_len, int64_t window_start, int64_t n_sites,
+                int64_t* out, int n_threads) {
+    if (n_frags <= 0 || n_sites <= 0) return;
+    if (n_threads < 2 || n_frags < (1 << 16)) {
+        pileup_range(start, length, count, codes, 0, n_frags, max_len,
+                     window_start, 0, n_sites, out);
+        return;
+    }
+    std::vector<std::thread> ts;
+    for (int t = 0; t < n_threads; t++) {
+        int64_t site_lo = n_sites * t / n_threads;
+        int64_t site_hi = n_sites * (t + 1) / n_threads;
+        // fragments that can touch [site_lo, site_hi): start (1-based,
+        // window-relative rel = start - window_start) in
+        // [site_lo - max_len + 1, site_hi)
+        int32_t lo_key = (int32_t)(site_lo - max_len + 1 + window_start);
+        int32_t hi_key = (int32_t)(site_hi + window_start);
+        const int32_t* b = std::lower_bound(start, start + n_frags, lo_key);
+        const int32_t* e = std::lower_bound(start, start + n_frags, hi_key);
+        int64_t f_lo = b - start, f_hi = e - start;
+        ts.emplace_back(pileup_range, start, length, count, codes, f_lo,
+                        f_hi, max_len, window_start, site_lo, site_hi, out);
+    }
+    for (auto& th : ts) th.join();
+}
+
+// ---------------------------------------------------------------------------
+// Row packing for the v3 pileup kernel: pieces (each inside one 128-site
+// sub-block) are bin-packed into shared kernel rows. Two pieces may share a
+// row iff they have the same sub-block g, the same repeat count (the row
+// count is a scalar multiplier in the kernel), and disjoint [rr, rr+len)
+// site intervals — enforced exactly with a 128-bit occupancy mask per row
+// (first-fit). Pieces must arrive grouped by ascending g (sorted pat order
+// guarantees it); rows come out grouped by g in creation order.
+// Returns n_rows (or -1 on bad input).
+int64_t pack_rows128(const int32_t* g, const int32_t* count,
+                     const int32_t* rr, const int32_t* len, int64_t n,
+                     int32_t* piece_row, int32_t* row_g, int32_t* row_count) {
+    struct Row {
+        uint64_t m0, m1;
+        int32_t idx;
+    };
+    // per-count open rows of the CURRENT g (counts are few distinct values;
+    // linear scan over classes is fine)
+    std::vector<int32_t> class_count;
+    std::vector<std::vector<Row>> class_rows;
+    int64_t n_rows = 0;
+    int32_t cur_g = n ? g[0] : 0;
+    for (int64_t i = 0; i < n; i++) {
+        if (g[i] < cur_g) return -1;  // not grouped
+        if (g[i] != cur_g) {
+            class_count.clear();
+            class_rows.clear();
+            cur_g = g[i];
+        }
+        const int32_t r0 = rr[i], ln = len[i];
+        if (r0 < 0 || ln <= 0 || r0 + ln > 128) return -1;
+        uint64_t m0 = 0, m1 = 0;
+        {
+            // bits [r0, r0+ln) across the two 64-bit halves
+            int lo = r0, hi = r0 + ln;
+            if (lo < 64) {
+                int h = hi < 64 ? hi : 64;
+                m0 = (h - lo == 64) ? ~0ULL : (((1ULL << (h - lo)) - 1) << lo);
+            }
+            if (hi > 64) {
+                int l2 = lo > 64 ? lo - 64 : 0;
+                int h2 = hi - 64;
+                m1 = (h2 - l2 == 64) ? ~0ULL
+                                     : (((1ULL << (h2 - l2)) - 1) << l2);
+            }
+        }
+        size_t cls = 0;
+        for (; cls < class_count.size(); cls++)
+            if (class_count[cls] == count[i]) break;
+        if (cls == class_count.size()) {
+            class_count.push_back(count[i]);
+            class_rows.emplace_back();
+        }
+        auto& rows = class_rows[cls];
+        int32_t target = -1;
+        for (auto& r : rows) {
+            if ((r.m0 & m0) == 0 && (r.m1 & m1) == 0) {
+                r.m0 |= m0;
+                r.m1 |= m1;
+                target = r.idx;
+                break;
+            }
+        }
+        if (target < 0) {
+            target = (int32_t)n_rows;
+            rows.push_back({m0, m1, target});
+            row_g[n_rows] = cur_g;
+            row_count[n_rows] = count[i];
+            n_rows++;
+        }
+        piece_row[i] = target;
+    }
+    return n_rows;
+}
+
+// Fused code placement + planar 2-bit packing for the v3 pileup staging.
+// Replaces the numpy rowmat scatter + planar_pack_cols pass (the two
+// dominant host-staging costs, ~1.1 s per 2M fragments): each packed
+// piece's codes are written straight into the per-row planar words.
+// Layout matches ops/pileup_tpu2.py::planar_pack_cols with w_cols = 8:
+// in-sub-block position pos -> word column pos % 8, bit 2 * (pos / 8).
+// words must be pre-filled with -1 (0b11 == '.' in every field).
+int64_t place_pack_rows(const uint8_t* codes, int64_t W, int64_t P,
+                        const int64_t* p_src, const int64_t* p_off,
+                        const int64_t* p_rr, const int64_t* p_len,
+                        const int32_t* piece_row, int32_t* words) {
+    constexpr int64_t W_COLS = 8;
+    for (int64_t p = 0; p < P; p++) {
+        const uint8_t* src = codes + p_src[p] * W + p_off[p];
+        int32_t* row = words + (int64_t)piece_row[p] * W_COLS;
+        const int64_t rr = p_rr[p], len = p_len[p];
+        if (rr < 0 || len < 0 || rr + len > 128) return -1;
+        for (int64_t j = 0; j < len; j++) {
+            const int64_t pos = rr + j;
+            const uint32_t s = (uint32_t)(2 * (pos >> 3));
+            int32_t* w = row + (pos & 7);
+            // unsigned word arithmetic: 3 << 30 on a signed literal is UB
+            // pre-C++20 (matches pack_rows128's mask handling)
+            const uint32_t wu =
+                ((uint32_t)*w & ~(3u << s)) | (((uint32_t)src[j] & 3u) << s);
+            *w = (int32_t)wu;
+        }
+    }
+    return P;
+}
+
+// Per-LANE repeat counts for the count-agnostic v3 row packing: write each
+// piece's count (< 256) into the 8-bit field of its lanes, 4 lanes per
+// int32 word (lane l -> word l%32, byte l/32 — mirroring the code layout's
+// word l%8 / field l/8). words must be zero-initialized ((R, 32) int32).
+int64_t place_counts_rows(const int32_t* p_cnt, const int32_t* p_rr,
+                          const int32_t* p_len, const int32_t* piece_row,
+                          int64_t P, int32_t* words) {
+    constexpr int64_t W_COLS = 32;
+    for (int64_t p = 0; p < P; p++) {
+        int32_t* row = words + (int64_t)piece_row[p] * W_COLS;
+        const int64_t rr = p_rr[p], len = p_len[p];
+        if (rr < 0 || len < 0 || rr + len > 128) return -1;
+        if (p_cnt[p] < 0 || p_cnt[p] > 255) return -1;
+        const uint32_t c = (uint32_t)p_cnt[p];
+        for (int64_t j = 0; j < len; j++) {
+            const int64_t pos = rr + j;
+            const uint32_t s = (uint32_t)(8 * (pos >> 5));
+            int32_t* w = row + (pos & 31);
+            const uint32_t wu = ((uint32_t)*w & ~(0xFFu << s)) | (c << s);
+            *w = (int32_t)wu;
+        }
+    }
+    return P;
+}
+
+// Pre-masked uint8 VALUE PLANES for the v3 value-plane staging: instead
+// of packed 2-bit codes + packed 8-bit counts (which the kernel must
+// unpack, compare and select every step), write the two dot operands the
+// kernel actually needs, one byte per lane: mv[pos] = count if the code
+// is a methylation call (C/H), cv[pos] = count if observed (not '.'),
+// else 0. Planes are (R, 128) uint8, ZERO-initialized by the caller
+// (zero == "no contribution", so padding needs no fill pass). Pieces
+// within a row occupy disjoint [rr, rr+len) ranges (pack_rows128's
+// first-fit invariant), so plain stores suffice. Counts must be < 256
+// (the lane/vals forms are gated off above that; return -1 restores the
+// classic path).
+int64_t place_vals_rows(const uint8_t* codes, int64_t W, int64_t P,
+                        const int64_t* p_src, const int64_t* p_off,
+                        const int64_t* p_rr, const int64_t* p_len,
+                        const int32_t* p_cnt, const int32_t* piece_row,
+                        uint8_t* mv, uint8_t* cv) {
+    for (int64_t p = 0; p < P; p++) {
+        const uint8_t* src = codes + p_src[p] * W + p_off[p];
+        const int64_t rr = p_rr[p], len = p_len[p];
+        if (rr < 0 || len < 0 || rr + len > 128) return -1;
+        if (p_cnt[p] < 0 || p_cnt[p] > 255) return -1;
+        const uint8_t c = (uint8_t)p_cnt[p];
+        uint8_t* mrow = mv + (int64_t)piece_row[p] * 128;
+        uint8_t* crow = cv + (int64_t)piece_row[p] * 128;
+        for (int64_t j = 0; j < len; j++) {
+            const uint8_t code = src[j] & 3u;
+            if (code == 3u) continue;  // '.' — unobserved, leave 0
+            const int64_t pos = rr + j;
+            crow[pos] = c;
+            if (code != 0u) mrow[pos] = c;  // codes 1 (C) and 2 (H)
+        }
+    }
+    return P;
+}
+
+}  // extern "C"

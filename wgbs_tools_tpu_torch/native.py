@@ -1,0 +1,332 @@
+"""ctypes bindings of the port's host library (host/wgbsio.cpp).
+
+The port's own copy of the wrappers it calls from
+wgbs_tools_tpu/native/__init__.py, with the same names. g++ builds the
+library at first use (never at import) into `build/` beside this file,
+and again when the source is newer than the library. The port has no
+Python fallback: a library that cannot be built or loaded raises, with
+g++'s output. A wrapper returns None only where its input is refused (a
+malformed pat line, a buffer that is not BGZF, a count above 255), as the
+JAX package's do.
+"""
+
+import ctypes
+import os
+import os.path as op
+import shutil
+import subprocess
+import tempfile
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+_PKG_DIR = op.dirname(op.abspath(__file__))
+SOURCE = op.join(_PKG_DIR, "host", "wgbsio.cpp")
+BUILD_DIR = op.join(_PKG_DIR, "build")
+_SO = op.join(BUILD_DIR, "libwgbs_host.so")
+
+_LIB = None
+_LOCK = threading.Lock()
+
+
+def build(force=False):
+    """Compile host/wgbsio.cpp into the shared library if it is missing or
+    older than the source. Returns the library path; raises on failure."""
+    if not force and op.isfile(_SO) and op.getmtime(_SO) >= op.getmtime(SOURCE):
+        return _SO
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    # built under a private name, then renamed: a concurrent loader never
+    # sees a half-written library
+    tmpdir = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        tmp_so = op.join(tmpdir, "lib.so")
+        cmd = ["g++", "-O3", "-shared", "-fPIC", "-o", tmp_so, SOURCE, "-lz",
+               "-lpthread"]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+        except OSError as e:
+            raise RuntimeError(f"cannot run g++ to build the host library: "
+                               f"{e}") from e
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed (exit {proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp_so, _SO)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    return _SO
+
+
+def _bind(lib):
+    i64, vp = ctypes.c_int64, ctypes.c_void_p
+    lib.pat_scan.restype = ctypes.c_int
+    lib.pat_scan.argtypes = [vp, i64, ctypes.POINTER(i64), ctypes.POINTER(i64)]
+    lib.pat_parse.restype = ctypes.c_int
+    lib.pat_parse.argtypes = [vp, i64, i64, i64] + [vp] * 5 \
+        + [ctypes.c_char_p, i64, vp]
+    lib.bgzf_scan_blocks.restype = i64
+    lib.bgzf_scan_blocks.argtypes = [ctypes.c_char_p, i64, vp, vp, i64]
+    lib.bgzf_decompress_mt.restype = ctypes.c_int
+    lib.bgzf_decompress_mt.argtypes = [ctypes.c_char_p, i64, vp, vp, i64,
+                                       ctypes.c_char_p, ctypes.c_int]
+    lib.pat_pileup.restype = None
+    lib.pat_pileup.argtypes = [vp] * 4 + [i64] * 4 + [vp, ctypes.c_int]
+    lib.pack_rows128.restype = i64
+    lib.pack_rows128.argtypes = [vp] * 4 + [i64] + [vp] * 3
+    lib.place_pack_rows.restype = i64
+    lib.place_pack_rows.argtypes = [vp, i64, i64] + [vp] * 6
+    lib.place_counts_rows.restype = i64
+    lib.place_counts_rows.argtypes = [vp] * 4 + [i64, vp]
+    lib.place_vals_rows.restype = i64
+    lib.place_vals_rows.argtypes = [vp, i64, i64] + [vp] * 8
+
+
+def get_lib():
+    """The loaded host library, building it first if needed; raises when
+    it cannot be built or loaded."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            try:
+                lib = ctypes.CDLL(build())
+                _bind(lib)
+            except (RuntimeError, OSError, AttributeError) as e:
+                raise RuntimeError(
+                    f"the host library ({SOURCE}) could not be built or "
+                    f"loaded (needs g++ and zlib): {e}") from e
+            _LIB = lib
+    return _LIB
+
+
+def _c(a, dtype):
+    return np.ascontiguousarray(a, dtype=dtype)
+
+
+def parse_pat_native(data: bytes, threads=None):
+    """pat text -> (starts, lengths, counts, codes, chrom_ids, chrom_names,
+    extras) via the C++ parser, or None when a line is malformed.
+
+    Large buffers parse in parallel: the text splits at line boundaries
+    into per-thread ranges (scan + parse per range, GIL released inside
+    the C calls), each range writing its rows directly into the shared
+    output at its prefix offset; per-range chromosome tables merge in
+    range order, which equals first-appearance order over the whole
+    buffer."""
+    lib = get_lib()
+    if not data:
+        return None
+    view = np.frombuffer(data, dtype=np.uint8)  # zero-copy address anchor
+    base = view.ctypes.data
+    n_bytes = len(data)
+    if threads is None:
+        threads = min(os.cpu_count() or 1, 8)
+    if n_bytes < (4 << 20):
+        threads = 1
+    cuts = [0]
+    for t in range(1, threads):
+        pos = n_bytes * t // threads
+        nl = data.find(b"\n", pos)
+        pos = n_bytes if nl < 0 else nl + 1
+        if pos > cuts[-1]:
+            cuts.append(pos)
+    if cuts[-1] != n_bytes:
+        cuts.append(n_bytes)
+    ranges = list(zip(cuts[:-1], cuts[1:]))
+
+    def scan(rng):
+        a, b = rng
+        nl_ = ctypes.c_int64()
+        ml_ = ctypes.c_int64()
+        rc = lib.pat_scan(base + a, b - a, ctypes.byref(nl_),
+                          ctypes.byref(ml_))
+        return None if rc != 0 else (nl_.value, ml_.value)
+
+    with ThreadPoolExecutor(len(ranges)) as pool:
+        scans = list(pool.map(scan, ranges))
+        if any(s is None for s in scans):
+            return None
+        per_n = [s[0] for s in scans]
+        n = sum(per_n)
+        L = max(max((s[1] for s in scans), default=1), 1)
+        offs = np.concatenate([[0], np.cumsum(per_n)]).astype(np.int64)
+
+        starts = np.empty(n, dtype=np.int32)
+        lengths = np.empty(n, dtype=np.int32)
+        counts = np.empty(n, dtype=np.int32)
+        codes = np.empty((n, L), dtype=np.uint8)
+        chrom_ids = np.empty(n, dtype=np.int16)
+        extras_off = np.empty(2 * n + 2, dtype=np.int64)
+        cbufs = [ctypes.create_string_buffer(65536) for _ in ranges]
+
+        def parse(t):
+            a, b = ranges[t]
+            o = int(offs[t])
+            if per_n[t] == 0:
+                return 0
+            return lib.pat_parse(
+                base + a, b - a, per_n[t], L, starts.ctypes.data + 4 * o,
+                lengths.ctypes.data + 4 * o, counts.ctypes.data + 4 * o,
+                codes.ctypes.data + L * o, chrom_ids.ctypes.data + 2 * o,
+                cbufs[t], 65536, extras_off.ctypes.data + 16 * o)
+
+        rcs = list(pool.map(parse, range(len(ranges))))
+    if any(r < 0 for r in rcs):
+        return None
+
+    # merge per-range chromosome tables (range order == first appearance)
+    chrom_names = []
+    cmap = {}
+    for t, rc in enumerate(rcs):
+        if per_n[t] == 0:
+            continue
+        local = cbufs[t].value.decode().split("\n")[:rc]
+        lut = np.empty(max(rc, 1), dtype=np.int16)
+        for i, name in enumerate(local):
+            if name not in cmap:
+                cmap[name] = len(chrom_names)
+                chrom_names.append(name)
+            lut[i] = cmap[name]
+        sl = slice(int(offs[t]), int(offs[t + 1]))
+        if not (np.arange(rc, dtype=np.int16) == lut[:rc]).all():
+            chrom_ids[sl] = lut[chrom_ids[sl]]
+        # extras offsets are relative to the range start
+        extras_off[2 * int(offs[t]) : 2 * int(offs[t + 1])] += ranges[t][0]
+
+    eo = extras_off[: 2 * n].reshape(n, 2)
+    extras = None
+    if n and (eo[:, 1] > eo[:, 0]).any():
+        extras = np.array(
+            [data[a:b] if b > a else None for a, b in eo.tolist()],
+            dtype=object)
+    return starts, lengths, counts, codes, chrom_ids, chrom_names, extras
+
+
+def bgzf_decompress_native(data: bytes, n_threads=None):
+    """Inflate a buffer of whole BGZF blocks on n_threads threads; None when
+    the buffer is not BGZF or a block does not inflate."""
+    lib = get_lib()
+    if not data:
+        return None
+    if n_threads is None:
+        n_threads = min(os.cpu_count() or 1, 16)
+    max_blocks = len(data) // 28 + 2
+    in_offs = np.empty(max_blocks + 1, dtype=np.int64)
+    out_offs = np.empty(max_blocks + 1, dtype=np.int64)
+    nb = lib.bgzf_scan_blocks(data, len(data), in_offs.ctypes.data,
+                              out_offs.ctypes.data, max_blocks)
+    if nb < 0:
+        return None  # plain gzip, not BGZF
+    total = int(out_offs[nb])
+    out = ctypes.create_string_buffer(max(total, 1))
+    rc = lib.bgzf_decompress_mt(data, len(data), in_offs.ctypes.data,
+                                out_offs.ctypes.data, nb, out,
+                                max(n_threads, 1))
+    if rc != 0:
+        return None
+    return out.raw[:total]
+
+
+def pack_rows_native(g, count, rr, ln):
+    """First-fit 128-bit-mask interval packing for the v3 pileup staging.
+
+    Pieces grouped by ascending sub-block g; same-(g, count) pieces with
+    disjoint [rr, rr+len) share a kernel row. Returns (piece_row int32[n],
+    row_g int32[R], row_count int32[R]), or None when the pieces are not
+    grouped by g or a piece leaves its sub-block."""
+    lib = get_lib()
+    g, count, rr, ln = (_c(a, np.int32) for a in (g, count, rr, ln))
+    n = g.shape[0]
+    piece_row = np.empty(max(n, 1), dtype=np.int32)
+    row_g = np.empty(max(n, 1), dtype=np.int32)
+    row_count = np.empty(max(n, 1), dtype=np.int32)
+    nr = lib.pack_rows128(g.ctypes.data, count.ctypes.data, rr.ctypes.data,
+                          ln.ctypes.data, n, piece_row.ctypes.data,
+                          row_g.ctypes.data, row_count.ctypes.data)
+    if nr < 0:
+        return None
+    return piece_row[:n], row_g[:nr], row_count[:nr]
+
+
+def place_pack_native(codes, p_src, p_off, p_rr, p_len, piece_row, words):
+    """Fused code placement + planar 2-bit packing into the (R, 8) int32
+    word matrix (pre-filled with -1 == all '.'). Returns the piece count,
+    or None on a piece outside its sub-block."""
+    lib = get_lib()
+    codes = _c(codes, np.uint8)
+    p_src, p_off, p_rr, p_len = (_c(a, np.int64)
+                                 for a in (p_src, p_off, p_rr, p_len))
+    piece_row = _c(piece_row, np.int32)
+    if words.dtype != np.int32 or not words.flags.c_contiguous:
+        raise ValueError("words: want a C-contiguous int32 array")
+    got = lib.place_pack_rows(
+        codes.ctypes.data, codes.shape[1], p_src.shape[0], p_src.ctypes.data,
+        p_off.ctypes.data, p_rr.ctypes.data, p_len.ctypes.data,
+        piece_row.ctypes.data, words.ctypes.data)
+    return None if got < 0 else int(got)
+
+
+def place_counts_native(p_cnt, p_rr, p_len, piece_row, cnt_words):
+    """Per-lane repeat counts for the count-agnostic v3 packing: write each
+    piece's count (< 256) into its lanes' 8-bit fields of the (R, 32)
+    int32 word matrix (zero-initialized by the caller). Returns the piece
+    count, or None when a count exceeds 255 or a piece leaves its
+    sub-block."""
+    lib = get_lib()
+    p_cnt, p_rr, p_len, piece_row = (_c(a, np.int32)
+                                     for a in (p_cnt, p_rr, p_len, piece_row))
+    if cnt_words.dtype != np.int32 or not cnt_words.flags.c_contiguous:
+        raise ValueError("cnt_words: want a C-contiguous int32 array")
+    got = lib.place_counts_rows(
+        p_cnt.ctypes.data, p_rr.ctypes.data, p_len.ctypes.data,
+        piece_row.ctypes.data, p_cnt.shape[0], cnt_words.ctypes.data)
+    return None if got < 0 else int(got)
+
+
+def place_vals_native(codes, p_src, p_off, p_rr, p_len, p_cnt, piece_row,
+                      mv, cv):
+    """Pre-masked uint8 value planes for the v3 value-plane staging: write
+    each piece's count into mv (where the code is a methylation call) and
+    cv (where observed) at its lane positions of the (R, 128) uint8 planes
+    (zero-initialized by the caller). Returns the piece count, or None
+    when a count exceeds 255 or a piece leaves its sub-block."""
+    lib = get_lib()
+    codes = _c(codes, np.uint8)
+    p_src, p_off, p_rr, p_len = (_c(a, np.int64)
+                                 for a in (p_src, p_off, p_rr, p_len))
+    p_cnt, piece_row = _c(p_cnt, np.int32), _c(piece_row, np.int32)
+    for name, plane in (("mv", mv), ("cv", cv)):
+        if plane.dtype != np.uint8 or not plane.flags.c_contiguous:
+            raise ValueError(f"{name}: want a C-contiguous uint8 array")
+    got = lib.place_vals_rows(
+        codes.ctypes.data, codes.shape[1], p_src.shape[0], p_src.ctypes.data,
+        p_off.ctypes.data, p_rr.ctypes.data, p_len.ctypes.data,
+        p_cnt.ctypes.data, piece_row.ctypes.data, mv.ctypes.data,
+        cv.ctypes.data)
+    return None if got < 0 else int(got)
+
+
+def pileup_native(start, length, count, codes, window_start, n_sites,
+                  out=None, threads=None):
+    """Host pileup of pat fragments into an int64 (n_sites, 2) [meth, cov]
+    table (ref: stdin2beta.cpp:59-93), the oracle of the device kernels.
+
+    `start` must be sorted ascending when threads > 1 (threads partition the
+    site axis and binary-search their fragment range). Adds into `out` when
+    given (zero-initialized by the first caller)."""
+    lib = get_lib()
+    start, length, count = (_c(a, np.int32) for a in (start, length, count))
+    codes = _c(codes, np.uint8)
+    max_len = codes.shape[1] if codes.ndim == 2 else 0
+    if out is None:
+        out = np.zeros((n_sites, 2), dtype=np.int64)
+    if (out.shape != (n_sites, 2) or out.dtype != np.int64
+            or not out.flags.c_contiguous):
+        raise ValueError(f"out: want a C-contiguous int64 ({n_sites}, 2) "
+                         "array")
+    if threads is None:
+        threads = min(os.cpu_count() or 1, 8)
+    lib.pat_pileup(start.ctypes.data, length.ctypes.data, count.ctypes.data,
+                   codes.ctypes.data, start.shape[0], max_len,
+                   int(window_start), int(n_sites), out.ctypes.data,
+                   int(threads))
+    return out

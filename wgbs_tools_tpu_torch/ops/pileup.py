@@ -14,10 +14,10 @@ Backends of PileupAccumulator and pileup_frags:
 - "cuda_v1": v1 host prep + its kernel (ops/pileup_v1.py), the same way.
 - "torch": `pileup_torch`, an index_add_ scatter; CPU only, so that no
   plain path runs on the card in place of the kernels.
-- "native": the host C++ kernel (wgbs_tools_tpu.native.pileup_native)
-  into an int64 host total; CPU only (the accumulator's alone). With
-  `finalize` it is the host oracle: pileup_native followed by
-  trim_to_uint.
+- "native": the host C++ kernel (native.pileup_native, the port's copy
+  of the JAX package's) into an int64 host total; CPU only (the
+  accumulator's alone). With `finalize` it is the host oracle:
+  pileup_native followed by trim_to_uint.
 
 The JAX package picks its pileup with environment switches; the port
 takes keywords, one for each (the v3 form keywords apply to the "cuda"
@@ -40,11 +40,10 @@ import os
 import numpy as np
 import torch
 
-from wgbs_tools_tpu.formats.beta import trim_to_uint
-from wgbs_tools_tpu.formats.pat import CODE_C, CODE_DOT, CODE_H, PatFrags
-from wgbs_tools_tpu.native import pileup_native
-
 from ..device import resolve_device, timed
+from ..formats.beta import trim_to_uint
+from ..formats.pat import CODE_C, CODE_DOT, CODE_H, PatFrags
+from ..native import pileup_native
 from .pileup_v1 import stage_v1, staged_v1_from_numpy, tiles_v1
 from .pileup_v2 import stage_v2, staged_v2_from_numpy, tiles_v2
 from .pileup_v3 import GRIDS, call_staged, stage_v3, staged_from_numpy
@@ -183,10 +182,8 @@ class PileupAccumulator:
             thr = (min(os.cpu_count() or 1, 8)
                    if st.size < 2 or np.all(np.diff(st) >= 0) else 1)
             with self._timed("kernel"):
-                if pileup_native(st, sel.length, sel.count, sel.codes, s,
-                                 self.n, out=self.total, threads=thr) is None:
-                    raise RuntimeError("wgbs_tools_tpu.native is unavailable "
-                                       "(needs g++ and zlib)")
+                pileup_native(st, sel.length, sel.count, sel.codes, s,
+                              self.n, out=self.total, threads=thr)
             return
         span = hi - lo
         if self.backend == "torch":

@@ -33,9 +33,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from wgbs_tools_tpu.formats.pat import CODE_DOT
-
 from .. import _kernels
+from ..formats.pat import CODE_DOT
 from .pileup_v2 import scatter_fragments, sorted_by_start
 
 TILE = 1024       # sites per output tile

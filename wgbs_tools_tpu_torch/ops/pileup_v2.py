@@ -28,9 +28,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from wgbs_tools_tpu.formats.pat import CODE_DOT
-
 from .. import _kernels
+from ..formats.pat import CODE_DOT
 from .pileup_v3 import SB, _prep_window, chunk_tiles
 
 TILE = SB * 8     # sites per output tile

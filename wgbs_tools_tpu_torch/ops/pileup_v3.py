@@ -45,14 +45,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from wgbs_tools_tpu import native
-from wgbs_tools_tpu.formats.pat import CODE_DOT
-
-from .. import _kernels
+from .. import _kernels, native
+from ..formats.pat import CODE_DOT
 
 SB = 128  # sites per sub-block = lanes per row
-# a CTA's shared-memory accumulator is tile_sb x 256 int32; Hopper gives a
-# block at most 227 KB (232,448 bytes) of dynamic shared memory
+# Hopper gives a block at most 227 KB (232,448 bytes) of dynamic shared
+# memory
 MAX_SMEM_BYTES = 232_448
 # default geometry by form: the JAX package's defaults
 # (pileup_tpu3.py:75-97, 1067-1082)
@@ -60,21 +58,10 @@ VALS_GEOMETRY = dict(tile=SB * 64, rc=1024, g_max=64, classes=None)
 CLASSIC_GEOMETRY = dict(tile=SB * 8, rc=256, g_max=8, classes=(16, 128))
 
 
-def require_native():
-    """The native host library that staging packs rows with. Raises when
-    it cannot be built or loaded: the port's staging has no fallback."""
-    lib = native.get_lib()
-    if lib is None:
-        raise RuntimeError("wgbs_tools_tpu.native could not be built or "
-                           "loaded (needs g++ and zlib): v3 staging cannot "
-                           "run without its row packer")
-    return lib
-
-
 def _native_ok(result, what):
     if result is None:
-        raise RuntimeError(f"native {what} failed or is unavailable: v3 "
-                           "staging has no fallback")
+        raise RuntimeError(f"native {what} refused its input: v3 staging "
+                           "has no fallback")
     return result
 
 
@@ -164,9 +151,10 @@ def stage_v3(start, length, count, codes, window_start, window_len,
     lane_counts and fused needs vals, as in JAX. Geometry left as None
     takes the form's default (VALS_GEOMETRY, or CLASSIC_GEOMETRY for both
     code-word forms); explicit `classes` set rc to the largest class.
-    Raises when a native call fails or is unavailable, where the JAX package
-    falls back to another form or to v2."""
-    require_native()
+    Raises when the host library cannot be built (native.get_lib) or a
+    native call refuses its input, where the JAX package falls back to
+    another form or to v2."""
+    native.get_lib()
     rel, length, count, codes = _prep_window(
         start, length, count, codes, window_start, window_len)
     F = rel.shape[0]
@@ -444,6 +432,16 @@ _ROWS = {"vals": (2 * SB, torch.uint8), "vals_split": (SB, torch.uint8),
          "classic": (SB // 16, torch.int32), "lane": (SB // 16, torch.int32)}
 
 
+def _smem_bytes(st):
+    """Dynamic shared memory of the staged form's kernel (csrc/pileup_v3.cu):
+    the value-plane body keeps a padded tile_sb x 272 int32 accumulator and
+    a 1024-row dg window (vals_smem_bytes), the code-word forms a tile_sb x
+    256 int32 accumulator."""
+    if st.form in ("vals", "vals_split"):
+        return (st.tile_sb * (2 * SB + 16) + 1024) * 4
+    return st.tile_sb * 2 * SB * 4
+
+
 def _check(st, forms, window_len):
     """Validate a staged batch for a kernel that takes `forms`; returns
     num_tiles."""
@@ -458,7 +456,7 @@ def _check(st, forms, window_len):
     if st.rc < 2 or st.g_max < 1:
         raise ValueError(f"rc={st.rc}, g_max={st.g_max}: a chunk needs a "
                          "padding row (rc >= 2) and g_max >= 1")
-    if st.tile_sb * 2 * SB * 4 > MAX_SMEM_BYTES:
+    if _smem_bytes(st) > MAX_SMEM_BYTES:
         raise ValueError(f"tile={st.tile}: the tile accumulator exceeds "
                          f"{MAX_SMEM_BYTES} bytes of shared memory")
     num_tiles = (window_len + st.tile - 1) // st.tile
@@ -498,6 +496,17 @@ def _launch(name, st, window_len, num_tiles, planes, out, *extra):
     return out
 
 
+def _plane_ptrs(st):
+    """Data pointers of a value-plane batch's planes (rows, then cv when
+    split); the kernel loads 16-byte vectors, so each must be 16-aligned."""
+    ptrs = tuple(p.data_ptr() for p in (st.rows, st.cv) if p is not None)
+    if any(p % 16 for p in ptrs):
+        raise ValueError("staged value planes: the kernel loads 16-byte "
+                         "vectors; each plane's data pointer must be "
+                         "16-aligned")
+    return ptrs
+
+
 def _new_out(st, window_len):
     return torch.empty((window_len, 2), dtype=torch.int32, device=st.device)
 
@@ -511,7 +520,7 @@ def flat_vals_fused(st, window_len):
     if st.device.type == "cpu":
         return flat_vals_fused_plain(st, window_len)
     out = _launch("pileup_flat_vals_fused", st, window_len, num_tiles,
-                  (st.rows.data_ptr(),), _new_out(st, window_len))
+                  _plane_ptrs(st), _new_out(st, window_len))
     flat_vals_fused.launches += 1
     return out
 
@@ -528,8 +537,7 @@ def flat_vals(st, window_len):
     if st.device.type == "cpu":
         return flat_vals_plain(st, window_len)
     out = _launch("pileup_flat_vals", st, window_len, num_tiles,
-                  (st.rows.data_ptr(), st.cv.data_ptr()),
-                  _new_out(st, window_len))
+                  _plane_ptrs(st), _new_out(st, window_len))
     flat_vals.launches += 1
     return out
 
@@ -560,9 +568,9 @@ def flat_vals_add(total, st, window_len):
     if total.data_ptr() % 8:
         raise ValueError("total: the kernel reads (meth, cov) pairs as "
                          "8-byte words; its data pointer must be 8-aligned")
+    planes = _plane_ptrs(st)
     _launch("pileup_flat_vals_add", st, window_len, num_tiles,
-            (st.rows.data_ptr(), None if st.cv is None else st.cv.data_ptr()),
-            total)
+            planes + (None,) * (2 - len(planes)), total)
     flat_vals_add.launches += 1
     return total
 

@@ -34,9 +34,9 @@ import time
 import numpy as np
 import torch
 
-from wgbs_tools_tpu.utils.log import logger
-
 from ..device import resolve_device
+from ..formats.pat import iter_pat_region
+from ..utils import logger
 
 # the longest a worker waits for the others at init or at a barrier
 COLLECTIVE_TIMEOUT = datetime.timedelta(minutes=10)
@@ -69,8 +69,6 @@ def pat2beta_worker(pat_path, out_path, nr_sites, lbeta=False,
     output file, every process writes its own byte range, and process 0
     returns the path (the others None)."""
     import torch.distributed as dist
-
-    from wgbs_tools_tpu.formats.pat import iter_pat_region
 
     from ..pipeline.pat2beta import stream_into
     from .sharded import ShardedPileupV3

@@ -14,22 +14,15 @@ same bytes.
 import os.path as op
 from concurrent.futures import ThreadPoolExecutor
 
-from wgbs_tools_tpu.formats.pat import iter_pat
-from wgbs_tools_tpu.genome.refdir import Genome
-from wgbs_tools_tpu.utils import splitextgz
-from wgbs_tools_tpu.utils.log import logger
-
 import torch
 
 from ..device import resolve_device, timed
+from ..formats.pat import DEF_CHUNK_BYTES, iter_pat
+from ..genome.refdir import Genome
 from ..ops.pileup import PileupAccumulator
 from ..parallel.mesh import shard_devices
 from ..parallel.sharded import ShardedPileupV3
-
-# one streamed slab: iter_pat reads this many bytes of the file at a time,
-# so a BGZF pat.gz slab is 32 MB compressed (~5M fragments of <= 24 sites)
-# and a plain-text pat slab 32 MB of text; host peak memory stays O(slab)
-DEF_CHUNK_BYTES = 32 << 20
+from ..utils import logger, splitextgz
 
 
 def _accumulator(window, device, backend, timings, sharded, devices,

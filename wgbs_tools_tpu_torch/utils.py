@@ -1,0 +1,64 @@
+"""Host utilities of the port: errors, stderr, the logger, file paths.
+
+The port's own copy of what it calls from wgbs_tools_tpu/utils/
+(`__init__.py`, `log.py`, `files.py`; ref: src/python/utils_wgbs.py),
+with the same names.
+"""
+
+import logging
+import os
+import os.path as op
+import sys
+
+logger = logging.getLogger("wgbs_tpu_torch")
+if not logger.handlers:
+    _h = logging.StreamHandler(sys.stderr)
+    _h.setFormatter(logging.Formatter("[wt %(name)s] %(message)s"))
+    logger.addHandler(_h)
+    logger.setLevel(logging.INFO)
+
+
+class IllegalArgumentError(ValueError):
+    pass
+
+
+def eprint(*args, **kwargs):
+    print(*args, file=sys.stderr, **kwargs)
+
+
+def splitextgz(input_file):
+    """fname.pat.gz -> (fname, '.pat.gz'); fname.beta -> (fname, '.beta')."""
+    b, suff = op.splitext(input_file)
+    if suff == ".gz":
+        b, suff2 = op.splitext(b)
+        suff = suff2 + suff
+    return b, suff
+
+
+def delete_or_skip(output_file, force):
+    """Idempotency at file granularity (ref: utils_wgbs.py:435-454):
+    existing output + force -> delete; existing + no force -> skip (False)."""
+    if output_file is None or output_file == sys.stdout \
+            or output_file == "/dev/stdout":
+        return True
+    if op.isfile(output_file):
+        if force:
+            for f in (output_file, output_file + ".csi", output_file + ".cdx",
+                      output_file + ".cdx.npz"):
+                if op.isfile(f):
+                    os.remove(f)
+        else:
+            eprint(f"File {output_file} already exists. Skipping it. "
+                   "Use [-f] flag to force overwrite.")
+            return False
+    return True
+
+
+def validate_single_file(fpath, suff=None):
+    if fpath is None:
+        raise IllegalArgumentError("Input file is None")
+    if not op.isfile(fpath):
+        raise IllegalArgumentError(f"No such file: {fpath}")
+    if suff is not None and not fpath.endswith(suff):
+        raise IllegalArgumentError(f"file {fpath} must end with {suff}")
+    return fpath
