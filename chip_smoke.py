@@ -26,8 +26,15 @@ result line:
      on hand-made edge cases (VALS_EDGE: shuffled rows, padding between
      rows, a padding-only chunk, 5 chunks in a tile, every byte 255, a
      ragged window, rows outside their tile; the add into a fresh and an
-     8-byte-aligned total). Exactly equal (tolerance 0, the counts are
-     integers); kernel and twin times (CUDA events) on the unaltered slabs,
+     8-byte-aligned total), and the code-word kernels on theirs (CODE_EDGE,
+     in both rc classes: shuffled rows, padding between rows, padding-only
+     chunks, a tile of many chunks, rows outside their tile, a ragged
+     window, every count at its form's most). Exactly equal (tolerance 0,
+     the counts are integers); kernel and twin times (CUDA events) on the
+     unaltered slabs: the kernel's on the card (_device_ms: its launches
+     queued behind a spinning kernel, so no host time between them; the
+     code-word kernels also per rc-class launch) and per call with the
+     host's (_time_ms, the wrapper's checks and launch included),
      beside each kernel's bound (the bytes it must move over 3.35 TB/s, or
      its adds over 67 T/s, whichever is longer: _work) and, for the
      value-plane kernels, the time of one index_add_ of the same rows
@@ -296,6 +303,37 @@ def _time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+SLEEP_CYCLES = 20_000_000  # ~10 ms of a spinning kernel at H100 clocks
+
+
+def _device_ms(fn, reps):
+    """The card's time per call of fn, without the host's: the calls'
+    launches are queued behind a kernel that spins for SLEEP_CYCLES, so the
+    card runs them back to back and the CUDA events around them see no
+    gaps. _time_ms counts the host's time per call (a wrapper's checks and
+    its launch) wherever a launch is shorter than its call. Raises if the
+    queuing outlasted the spin, when the time would include host gaps."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    queued_ms = 1e3 * (time.perf_counter() - t0)
+    ev[2].record()
+    torch.cuda.synchronize()
+    if queued_ms >= ev[0].elapsed_time(ev[1]):
+        raise RuntimeError(f"queuing {reps} calls took {queued_ms:.3f} ms, "
+                           "longer than the spin kernel: raise SLEEP_CYCLES")
+    return ev[1].elapsed_time(ev[2]) / reps
+
+
 def phase_data(work, n_frags):
     """The genome and both pats; returns (big, deep) paths."""
     refs = op.join(work, "refs")
@@ -549,6 +587,140 @@ def _vals_edge_cases(dev):
     return errs
 
 
+# ---------------------------------------------------------------------------
+# edge cases of the code-word body (csrc/pileup_v3.cu::pile_codes), as
+# hand-made staged batches at the classic geometry in both rc classes;
+# tests/test_torch_pileup_v3.py holds the twins to numpy and to the JAX
+# package, and, on the card, the kernels to the twins on them
+# ---------------------------------------------------------------------------
+
+CODE_EDGE = ("shuffled", "padding_between", "padding_chunk", "many_chunks",
+             "outside_tile", "ragged_window", "max_counts")
+CODE_CLASSES = (16, 128)
+
+
+def code_edge_batch(name, form="classic"):
+    """([one staged tuple per rc class (16, 128)], window_len) for one edge
+    case of the code-word kernels at the classic geometry: tile_sb 8,
+    g_max 8, 3 tiles. form "classic": 8-field tuples, row counts in [1,
+    3000]; "lane": 9-field tuples, per-lane counts of any byte. A tile is a
+    list of runs (base sub-block, dg of its rows); each class cuts a run
+    into chunks of at most rc - 1 rows (row rc - 1 stashes the base), and
+    the chunk count is padded to a multiple of 16 with padding chunks in
+    no tile's range, as staging pads it. Rows past a chunk's given ones
+    are padding (dg = g_max); every row, padding too, carries random code
+    words and counts (nonzero in the classic form), which the kernels must
+    skip by dg.
+      shuffled         rows of each chunk out of sub-block order
+      padding_between  padding rows (dg = g_max and dg < 0) between real rows
+      padding_chunk    chunks of padding rows only inside a tile's range, and
+                       a tile whose only chunks are such
+      many_chunks      a tile with 6 runs over overlapping sub-blocks (up to
+                       18 chunks: more than the JAX tiled grid's one step)
+      outside_tile     rows whose sub-block lies outside their chunk's tile
+      ragged_window    window_len = 2 tiles + 511 sites (odd), rows past the
+                       window's end
+      max_counts       every count at its form's most (classic 2^20, so that
+                       a site's sum passes 2^16 many times over; lane 255 in
+                       every lane) over 500 rows of one tile, 400 of them in
+                       one sub-block (runs of more than 256 rows), and a
+                       tile with no chunk"""
+    import numpy as np
+
+    lane = form == "lane"
+    if form not in ("classic", "lane"):
+        raise ValueError(f"code-word form {form!r}: 'classic' or 'lane'")
+    rng = np.random.default_rng(CODE_EDGE.index(name) + 31 + 100 * lane)
+    tile_sb = g_max = 8
+    tile = tile_sb * 128
+    window_len = 3 * tile
+
+    def rows(n, lo=0, hi=g_max):
+        return np.sort(rng.integers(lo, hi, size=n))
+
+    if name == "shuffled":
+        tiles = [[(8 * t, rng.permutation(rows(n)))]
+                 for t, n in enumerate((120, 45, 127))]
+    elif name == "padding_between":
+        tiles = []
+        for t in range(3):
+            d = rows(127)
+            d[::3] = g_max
+            d[1::7] = -5
+            tiles.append([(8 * t, d)])
+    elif name == "padding_chunk":
+        tiles = [[(0, rows(100)), (0, np.full(127, g_max)),
+                  (4, rows(50, 0, 4))],
+                 [(8, np.full(60, g_max))], [(16, rows(10))]]
+    elif name == "many_chunks":
+        tiles = [[(0, rows(90))],
+                 [(8 + k, rows(40, 0, 8 - k)) for k in range(6)],
+                 [(16, rows(127))]]
+    elif name == "outside_tile":
+        tiles = [[(-3, rows(100))], [(8 + 5, rows(100))], [(16, rows(100))]]
+    elif name == "ragged_window":
+        window_len = 2 * tile + 511
+        tiles = [[(8 * t, rows(127))] for t in range(3)]
+    elif name == "max_counts":
+        tiles = [[(0, rows(300, 0, 1)), (0, rows(200, 0, 2))],
+                 [(8, rows(127))], []]
+    else:
+        raise ValueError(f"no code-word edge case {name!r}")
+    out = []
+    for rc in CODE_CLASSES:
+        chunks = [[(base, dg[i : i + rc - 1])
+                   for base, dg in runs for i in range(0, len(dg), rc - 1)]
+                  for runs in tiles]
+        counts = [len(t) for t in chunks]
+        chunks = [c for t in chunks for c in t]
+        n_chunks = -(-len(chunks) // 16) * 16
+        meta = np.zeros((n_chunks, 2, rc), np.int32)
+        meta[:, 1, :] = g_max
+        for c, (base, dg) in enumerate(chunks):
+            meta[c, 1, : dg.size] = dg
+            meta[c, 1, rc - 1] = base + g_max  # the base_g stash
+        c1 = np.cumsum(counts).astype(np.int32)
+        c0 = (c1 - counts).astype(np.int32)
+        words = rng.integers(-(1 << 31), 1 << 31, size=(n_chunks * rc, 8),
+                             dtype=np.int64).astype(np.int32)
+        max_chunks = 1 << (max(max(counts), 1) - 1).bit_length()
+        if lane:
+            cnts = (np.full((n_chunks * rc, 32), -1, np.int32)
+                    if name == "max_counts" else rng.integers(
+                        0, 256, size=(n_chunks * rc, 128), dtype=np.uint8)
+                    .view(np.int32))
+            out.append((c0, c1, meta, words, cnts, max_chunks, tile, rc,
+                        g_max))
+            continue
+        meta[:, 0, :] = (1 << 20 if name == "max_counts" else
+                         rng.integers(1, 3001, size=(n_chunks, rc)))
+        out.append((c0, c1, meta, words, max_chunks, tile, rc, g_max))
+    return out, window_len
+
+
+def _code_edge_cases(dev):
+    """Each edge case through flat_classic and tiled_classic (classic form)
+    and flat_lc (lane form) against the twins, exactly, both rc classes
+    summed as call_staged sums them. Returns {kernel: max abs err}."""
+    from wgbs_tools_tpu_torch.ops import pileup_v3 as pv3
+
+    errs = {"flat_classic": 0, "tiled_classic": 0, "flat_lc": 0}
+    for name in CODE_EDGE:
+        for form in ("classic", "lane"):
+            staged, wl = code_edge_batch(name, form)
+            sts = pv3.staged_from_numpy(staged, dev)
+            for kernel in ((pv3.flat_classic, pv3.tiled_classic)
+                           if form == "classic" else (pv3.flat_lc,)):
+                kname = kernel.__name__
+                plain = getattr(pv3, kname + "_plain")
+                err, _ = _kernel_vs_twin(kname, kernel, plain, sts, wl)
+                errs[kname] = max(errs[kname], err)
+    log(f"phase 3: code-word edge cases {', '.join(CODE_EDGE)}: "
+        f"flat_classic, tiled_classic and flat_lc (rc classes "
+        f"{CODE_CLASSES}) == twins, max_abs_err {errs}")
+    return errs
+
+
 # H100 SXM data-sheet peaks: device memory bytes/s, and the non-tensor
 # 32-bit rate, for the kernels' integer adds
 HBM_BYTES_PER_S = 3.35e12
@@ -634,10 +806,12 @@ PHASE3 = {
 }
 
 
-def phase_kernels(big, deep):
+def phase_kernels(big, deep, regs):
     """Each kernel vs its twin on the first streamed slab of its pats,
-    staged as its path stages it, and on each slab with a hole. Returns
-    (per-kernel results, the big pat's first slab)."""
+    staged as its path stages it, and on each slab with a hole; the code-
+    word kernels also timed per rc-class launch, beside their ptxas
+    registers (`regs`). Returns (per-kernel results, the big pat's first
+    slab)."""
     import numpy as np
     import torch
 
@@ -660,7 +834,8 @@ def phase_kernels(big, deep):
                                    f"{[st.form for st in sts]}, not "
                                    f"{form!r}")
             err, _ = _kernel_vs_twin(name, kernel, plain, sts, span)
-            ms = _time_ms(lambda: [kernel(st, span) for st in sts], 20)
+            ms = _device_ms(lambda: [kernel(st, span) for st in sts], 20)
+            call_ms = _time_ms(lambda: [kernel(st, span) for st in sts], 20)
             plain_ms = _time_ms(lambda: [plain(st, span) for st in sts], 5)
             holed_frags, n_out = _holed(sel, lo, span)
             holed = _stage(holed_frags, lo, span, dev, path)
@@ -678,10 +853,12 @@ def phase_kernels(big, deep):
                 f"over {span:,} sites, {sum(st.meta.shape[0] for st in sts):,}"
                 f" chunks [{'; '.join(map(_geometry, sts))}], and on it with "
                 f"{n_out:,} frags taken out ({empty} tiles of zeros); "
-                f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms per slab "
+                f"kernel {ms:.4f} ms on the card ({call_ms:.4f} ms per call "
+                f"with the host's), twin {plain_ms:.4f} ms per slab "
                 f"({len(sts)} launch(es))")
             key = "" if pat == names[0] else pat + "_"
-            res.update({key + "ms": ms, key + "plain_ms": plain_ms,
+            res.update({key + "ms": ms, key + "call_ms": call_ms,
+                        key + "plain_ms": plain_ms,
                         key + "bytes": n_bytes, key + "ops": ops,
                         key + "bound_ms": bound_ms, key + "bound_by": bound_by,
                         key + "slab_frags": sel.nr_frags,
@@ -694,10 +871,22 @@ def phase_kernels(big, deep):
                 f" bound {bound_ms:.4f} ms ({bound_by}), the kernel at "
                 f"{100 * bound_ms / ms:.1f} % of it; library call "
                 f"{res['library_ms'] if not key else None} ms")
+            if form in ("classic", "lane"):
+                # one launch per rc class: each writes (or zeroes and adds
+                # into) the whole window
+                res[key + "class_ms"] = {
+                    str(st.rc): _device_ms(lambda st=st: kernel(st, span),
+                                           20)
+                    for st in sts}
+                log(f"phase 3: {name} on {pat} per rc-class launch: "
+                    + ", ".join(f"rc {rc} {v:.4f} ms" for rc, v in
+                                res[key + "class_ms"].items())
+                    + f" ({ms:.4f} ms per slab); ptxas {regs.get(name)} "
+                    "registers")
             if name == "tiled_classic":
                 # the JAX package's grid A/B: the flat kernel on the same
                 # batches, in the same process
-                res[key + "flat_ms"] = _time_ms(
+                res[key + "flat_ms"] = _device_ms(
                     lambda: [pv3.flat_classic(st, span) for st in sts], 20)
                 log(f"phase 3: tiled_classic vs flat_classic on the same "
                     f"batches of {pat}: {ms:.4f} against "
@@ -717,7 +906,8 @@ def phase_kernels(big, deep):
             raise RuntimeError("flat_vals_add: the holed slab has no empty "
                                "tile")
         total = total0.clone()
-        ms = _time_ms(lambda: pv3.flat_vals_add(total, st, span), 20)
+        ms = _device_ms(lambda: pv3.flat_vals_add(total, st, span), 20)
+        call_ms = _time_ms(lambda: pv3.flat_vals_add(total, st, span), 20)
         plain_ms = _time_ms(lambda: pv3.flat_vals_add_plain(total, st, span),
                             5)
         # the pileup's bytes, with the total read and written where a tile
@@ -727,14 +917,14 @@ def phase_kernels(big, deep):
         n_bytes += 16 * covered - 8 * span
         bound_ms, bound_by = _bound(n_bytes, ops)
         res[st.form] = {"max_abs_err": max(err, herr), "ms": ms,
-                        "plain_ms": plain_ms, "empty_tiles": empty,
+                        "call_ms": call_ms, "plain_ms": plain_ms, "empty_tiles": empty,
                         "bytes": n_bytes, "ops": ops, "bound_ms": bound_ms,
                         "bound_by": bound_by}
         log(f"phase 3: flat_vals_add ({st.form}): kernel == twin (max_abs_err "
             f"{max(err, herr)}) from a nonzero total on the big pat's first "
             f"slab and on it with a hole ({empty} empty tiles, their rows "
-            f"unchanged); kernel {ms:.4f} ms, twin {plain_ms:.4f} ms per "
-            f"slab; {n_bytes:,} bytes: bound {bound_ms:.4f} ms ({bound_by}), "
+            f"unchanged); kernel {ms:.4f} ms on the card ({call_ms:.4f} ms "
+            f"per call), twin {plain_ms:.4f} ms per slab; {n_bytes:,} bytes: bound {bound_ms:.4f} ms ({bound_by}), "
             f"the kernel at {100 * bound_ms / ms:.1f} % of it")
     fused, split = res["vals"], res["vals_split"]
     out["flat_vals_add"] = {
@@ -742,12 +932,14 @@ def phase_kernels(big, deep):
                                     split["max_abs_err"]),
         # the same index_add_ as the pileup's (the add is not in it)
         "library_ms": out["flat_vals_fused"]["library_ms"],
-        "split_ms": split["ms"], "split_plain_ms": split["plain_ms"],
+        "split_ms": split["ms"], "split_call_ms": split["call_ms"],
+        "split_plain_ms": split["plain_ms"],
         "split_bound_ms": split["bound_ms"],
         "split_library_ms": out["flat_vals"]["library_ms"],
         "slab_frags": sel.nr_frags, "slab_sites": span}
 
-    for name, err in _vals_edge_cases(dev).items():
+    edges = {**_vals_edge_cases(dev), **_code_edge_cases(dev)}
+    for name, err in edges.items():
         out[name]["edge_max_abs_err"] = err
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
     return out, slabs["big"]
@@ -1004,7 +1196,7 @@ def main():
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=op.join(REPO, "build"))
     try:
         big, deep = phase_data(work, args.frags)
-        kernels, slab = phase_kernels(big, deep)
+        kernels, slab = phase_kernels(big, deep, regs)
         single, e2e = phase_pat2beta(work, big, deep, args.frags)
         sharded, split, e2e_sharded = phase_sharded(work, big, deep,
                                                     args.frags, slab)

@@ -86,6 +86,16 @@ def test_chip_smoke_imports_nothing_of_the_jax_package():
     assert not bad, bad
 
 
+def test_kernel_ab_imports_nothing_of_the_jax_package():
+    """kernel_ab.py, the A/B of two trees' code-word kernels on the card,
+    imports the port and chip_smoke.py only, never jax nor wgbs_tools_tpu."""
+    names = _imported_modules(op.join(REPO, "kernel_ab.py"))
+    assert "chip_smoke" in names and "wgbs_tools_tpu_torch.ops" in names
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib",
+                                                   "wgbs_tools_tpu")]
+    assert not bad, bad
+
+
 def test_kernel_wrappers_refuse_other_devices():
     """Only CPU tensors take the plain twin; tensors on any other device go
     to the kernel launcher, which accepts CUDA alone and raises."""

@@ -334,6 +334,126 @@ def test_vals_edge_twins_equal_numpy(name, fused):
         assert empty.any() and want.max() > 255 * 256
 
 
+def _numpy_code_pileup(staged, wl):
+    """The code-word pileup of one staged tuple (classic: 8 fields, lane: 9)
+    by a plain loop over chunks and rows: site l of a real row has code
+    (word[l % 8] >> 2 (l // 8)) & 3 and count meta[c, 0, r] (classic) or
+    (cnts[row, l % 32] >> 8 (l // 32)) & 255 (lane); cov += count where the
+    code is not 3, meth += count where it is 1 or 2; int32 sums (wrapping)."""
+    if len(staged) == 9:
+        c0, c1, meta, words, cnts, _mc, tile, rc, g_max = staged
+    else:
+        (c0, c1, meta, words, _mc, tile, rc, g_max), cnts = staged, None
+    tile_sb = tile // 128
+    lane = np.arange(128)
+    acc = np.zeros((len(c0) * tile_sb, 256), np.int64)
+    for t in range(len(c0)):
+        for c in range(c0[t], c1[t]):
+            dg = meta[c, 1].astype(np.int64)
+            base = dg[rc - 1] - g_max - t * tile_sb
+            for r in range(rc):
+                sb = base + dg[r]
+                if not (0 <= dg[r] < g_max and 0 <= sb < tile_sb):
+                    continue
+                row = c * rc + r
+                code = (words[row, lane % 8].astype(np.int64)
+                        >> (2 * (lane // 8))) & 3
+                n = (np.int64(meta[c, 0, r]) if cnts is None else
+                     (cnts[row, lane % 32].astype(np.int64)
+                      >> (8 * (lane // 32))) & 255)
+                acc[t * tile_sb + sb, :128] += np.where(
+                    (code == 1) | (code == 2), n, 0)
+                acc[t * tile_sb + sb, 128:] += np.where(code != 3, n, 0)
+    out = np.stack([acc[:, :128].reshape(-1), acc[:, 128:].reshape(-1)],
+                   axis=1)[:wl]
+    return ((out + 2**31) % 2**32 - 2**31).astype(np.int32)
+
+
+@pytest.mark.parametrize("form", ["classic", "lane"])
+@pytest.mark.parametrize("name", chip_smoke.CODE_EDGE)
+def test_code_edge_twins_equal_numpy(name, form):
+    """The twins of the code-word kernels on the edge cases that the card
+    tests and chip_smoke.py hold the kernels to (shuffled rows, padding
+    between rows, padding-only chunks, many chunks in a tile, rows outside
+    their tile, a ragged window, every count at its form's most), in both
+    rc classes: equal to a plain numpy loop, on the flat grid and (classic
+    form) the tiled one."""
+    staged, wl = chip_smoke.code_edge_batch(name, form)
+    sts = pileup_v3.staged_from_numpy(staged, "cpu")
+    assert [st.form for st in sts] == [form] * 2
+    assert [st.rc for st in sts] == list(chip_smoke.CODE_CLASSES)
+    want = sum(_numpy_code_pileup(st, wl).astype(np.int64) for st in staged)
+    got = pileup_v3.call_staged(sts, wl)
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    if form == "classic":
+        assert np.array_equal(pileup_v3.call_staged(sts, wl,
+                                                    grid="tiled").numpy(),
+                              want)
+    if name == "max_counts":
+        assert not want[2048:].any() and want[:, 1].max() > 2**16
+    if name == "padding_chunk":
+        assert not want[1024:2048].any() and want[:1024].any()
+
+
+def _jax_exact(staged):
+    """Whether the JAX code-word kernels' f32 one-hot dots are exact on a
+    staged tuple: each chunk's per-sub-block sum of a site's counts must
+    stay below 2^24 (pileup_tpu3.py:145-151, :320-322)."""
+    meta, rc, g_max = staged[2], staged[-2], staged[-1]
+    cnt = (np.full(meta[:, 0].shape, 255, np.int64) if len(staged) == 9
+           else meta[:, 0].astype(np.int64))
+    dg = meta[:, 1]
+    sums = [np.where(dg == g, cnt, 0).sum(axis=1).max() for g in range(g_max)]
+    return max(sums) < 2**24
+
+
+@pytest.mark.parametrize("form", ["classic", "lane"])
+@pytest.mark.parametrize("name", chip_smoke.CODE_EDGE)
+def test_code_edge_twins_equal_jax(name, form):
+    """The code-word twins == the JAX package's call_staged (Pallas,
+    interpret mode) on each edge case, per rc class, flat and (classic)
+    tiled grid, tolerance 0; skipped only for the one tuple where the JAX
+    kernel's f32 dot is not exact (the classic max_counts case's rc-128
+    class: 127 rows of count 2^20 in one chunk's sub-block), where the
+    numpy test above holds the twin."""
+    staged, wl = chip_smoke.code_edge_batch(name, form)
+    exact = [_jax_exact(st) for st in staged]
+    assert exact == ([True, False] if (name, form) == ("max_counts",
+                                                       "classic")
+                     else [True, True])
+    for one, ok in zip(staged, exact):
+        if not ok:
+            continue
+        st = pileup_v3.staged_from_numpy(one, "cpu")
+        want = _jax_pileup(one, wl)
+        assert np.array_equal(pileup_v3.call_staged(st, wl).numpy(), want)
+        if form == "classic":
+            assert np.array_equal(_jax_pileup(one, wl, grid="tiled"), want)
+            assert np.array_equal(
+                pileup_v3.tiled_classic_plain(st, wl).numpy(), want)
+
+
+def test_staged_from_numpy_rejects_overlapping_ranges():
+    """The tiled kernel finds a chunk's tile by a search of c1: tiles' chunk
+    ranges that overlap or descend are refused on the host; and a batch
+    whose rows the kernels could not index with int32 is refused before
+    any launch."""
+    staged, wl = chip_smoke.code_edge_batch("many_chunks")
+    bad = list(staged[1])
+    bad[0], bad[1] = bad[0].copy(), bad[1].copy()
+    bad[0][2] -= 1  # tile 2 starts inside tile 1's range
+    with pytest.raises(ValueError, match="overlap or descend"):
+        pileup_v3.staged_from_numpy(tuple(bad), "cpu")
+    st = pileup_v3.staged_from_numpy(staged[1], "cpu")
+    n_chunks = 2**31 // st.rc
+    huge = pileup_v3.Staged(
+        "classic", st.c0, st.c1, st.meta[:1].expand(n_chunks, 2, st.rc),
+        st.rows[:1].expand(n_chunks * st.rc, 8), st.tile, st.rc, st.g_max)
+    for grid in ("flat", "tiled"):
+        with pytest.raises(ValueError, match="int32"):
+            pileup_v3.call_staged(huge, wl, grid=grid)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -439,6 +559,29 @@ def test_cuda_vals_edge_cases(cuda_device, name):
             keep = torch.ones(wl + 2, dtype=torch.bool, device=cuda_device)
             keep[off : off + wl] = False
             assert torch.equal(table[keep], base[keep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", chip_smoke.CODE_EDGE)
+def test_cuda_code_edge_cases(cuda_device, name):
+    """The code-word kernels on the card == their twins, tolerance 0, on
+    each edge case in both rc classes: flat_classic and tiled_classic on
+    the classic form (tiled into an output that starts dirty), flat_lc on
+    the lane form."""
+    for form, kernels in (("classic", (pileup_v3.flat_classic,
+                                       pileup_v3.tiled_classic)),
+                          ("lane", (pileup_v3.flat_lc,))):
+        staged, wl = chip_smoke.code_edge_batch(name, form)
+        for st in pileup_v3.staged_from_numpy(staged, cuda_device):
+            for kernel in kernels:
+                plain = getattr(pileup_v3, kernel.__name__ + "_plain")
+                torch.full((wl, 2), 7, dtype=torch.int32,
+                           device=cuda_device)  # dirty the allocator
+                before = kernel.launches
+                got = kernel(st, wl)
+                torch.cuda.synchronize()
+                assert kernel.launches == before + 1
+                assert torch.equal(got, plain(st, wl))
 
 
 @pytest.mark.cuda

@@ -104,7 +104,7 @@ def _bind(lib):
     # (<n_ptr device pointers>, <n_int int64 scalars>, stream)
     for name, n_ptr, n_int in (
             # v3: (c0, c1, meta, <planes>, out), (num_tiles, window_len,
-            # tile_sb, rc, g_max[, max_chunks])
+            # tile_sb, rc, g_max[, n_chunks])
             ("pileup_flat_vals_fused", 5, 5),
             ("pileup_flat_classic", 5, 5),
             ("pileup_flat_vals", 6, 5),

@@ -24,7 +24,7 @@ them is taken (the JAX package's gates, pileup_tpu3.py:834-843):
   (rows, 8) plus one int32 count per row, in rc classes (16, 128).
   Kernels: `flat_classic` on the flat grid (one CTA per tile), or
   `tiled_classic` on the tiled grid (`call_staged(grid="tiled")`, one CTA
-  per chunk of a tile). The classes' outputs sum.
+  per staged chunk). The classes' outputs sum.
 
 `flat_vals_add` piles up a batch of either value-plane form and adds it
 in place into a given int32 total, in one launch (the sharded path's
@@ -358,8 +358,9 @@ class Staged:
     = int32 (n_chunks*rc, 32) per-lane 8-bit counts. c0/c1 = int32
     (num_tiles,) chunk range of each output tile; meta = int32 (n_chunks,
     2, rc). cv is None except in the "vals_split" form, cnts except in the
-    "lane" form. max_chunks (the tiled grid's chunk steps, >= the most
-    chunks of any tile) is None when not given."""
+    "lane" form. max_chunks (the JAX tiled grid's chunk steps, >= the most
+    chunks of any tile; no kernel of the port reads it) is None when not
+    given."""
 
     form: str
     c0: torch.Tensor
@@ -389,8 +390,10 @@ def staged_from_numpy(staged, device):
     Every form the JAX package stages is accepted: the value planes, fused
     or split (10 fields, tagged "vals"), the lane-count form (9 fields) and
     the classic form (8 fields); any other tuple raises. The chunk ranges
-    and max_chunks are checked here, on the host, because the kernels index
-    chunks with them and the tiled grid launches max_chunks steps."""
+    are checked here, on the host, because the kernels index chunks with
+    them (the tiled kernel finds a chunk's tile by a search of c1, so the
+    tiles' ranges must ascend and not overlap), and max_chunks for layout
+    identity with the JAX package's tuple."""
     if isinstance(staged, list):
         return [staged_from_numpy(st, device) for st in staged]
     cvp = cnts = None
@@ -414,6 +417,9 @@ def staged_from_numpy(staged, device):
     n_chunks = np.asarray(meta).shape[0]
     if ((c0 < 0) | (c0 > c1) | (c1 > n_chunks)).any():
         raise ValueError("staged chunk ranges c0/c1 out of bounds")
+    if (c0[1:] < c1[:-1]).any():
+        raise ValueError("staged chunk ranges c0/c1 overlap or descend: the "
+                         "tiles' ranges must ascend, one after another")
     if int(max_chunks) < max(int((c1 - c0).max(initial=0)), 1):
         raise ValueError(f"max_chunks={max_chunks} is below the chunks of a "
                          "tile")
@@ -435,11 +441,12 @@ _ROWS = {"vals": (2 * SB, torch.uint8), "vals_split": (SB, torch.uint8),
 def _smem_bytes(st):
     """Dynamic shared memory of the staged form's kernel (csrc/pileup_v3.cu):
     the value-plane body keeps a padded tile_sb x 272 int32 accumulator and
-    a 1024-row dg window (vals_smem_bytes), the code-word forms a tile_sb x
-    256 int32 accumulator."""
+    a 1024-row dg window (vals_smem_bytes), the code-word body a padded
+    tile_sb x 264 int32 accumulator and a 512-row list of three int32 each
+    (codes_smem_bytes)."""
     if st.form in ("vals", "vals_split"):
         return (st.tile_sb * (2 * SB + 16) + 1024) * 4
-    return st.tile_sb * 2 * SB * 4
+    return (st.tile_sb * (2 * SB + 8) + 3 * 512) * 4
 
 
 def _check(st, forms, window_len):
@@ -461,6 +468,9 @@ def _check(st, forms, window_len):
                          f"{MAX_SMEM_BYTES} bytes of shared memory")
     num_tiles = (window_len + st.tile - 1) // st.tile
     n_chunks = st.meta.shape[0]
+    if n_chunks * st.rc >= 2**31:
+        raise ValueError(f"{n_chunks} chunks of rc={st.rc} rows: the kernels "
+                         "index rows with int32")
     width, dtype = _ROWS[st.form]
     want = {"c0": ((num_tiles,), torch.int32),
             "c1": ((num_tiles,), torch.int32),
@@ -615,21 +625,18 @@ flat_lc.launches = 0
 
 def tiled_classic(st, window_len):
     """Pileup of a "classic" staged batch on the tiled grid -> int32
-    (window_len, 2): one CTA per (tile, chunk step), max_chunks steps per
-    tile, each adding its chunk into the zeroed output with atomics.
+    (window_len, 2): one CTA per staged chunk, each adding its chunk into
+    the zeroed output with atomics.
 
     Replaces pileup_tpu3.py::_kernel (the JAX package's
     WGBS_TPU_PILEUP_V3_GRID=tiled). CUDA tensors launch the kernel; CPU
     tensors take tiled_classic_plain."""
     num_tiles = _check(st, ("classic",), window_len)
-    if st.max_chunks is None or st.max_chunks < 1:
-        raise ValueError(f"max_chunks={st.max_chunks}: the tiled grid needs "
-                         "the staged max_chunks (>= 1)")
     if st.device.type == "cpu":
         return tiled_classic_plain(st, window_len)
     out = _launch("pileup_tiled_classic", st, window_len, num_tiles,
                   (st.rows.data_ptr(),), _new_out(st, window_len),
-                  st.max_chunks)
+                  st.meta.shape[0])
     tiled_classic.launches += 1
     return out
 
@@ -749,7 +756,7 @@ def call_staged(staged, window_len, grid="flat"):
     (window_len, 2) [meth, cov] on the staged device.
 
     grid "flat" (one CTA per tile) serves every form; "tiled" (one CTA per
-    chunk step of a tile, the JAX package's WGBS_TPU_PILEUP_V3_GRID=tiled)
+    staged chunk, the JAX package's WGBS_TPU_PILEUP_V3_GRID=tiled)
     has a kernel for the classic form only, and raises for the others as
     the JAX package does."""
     if grid not in GRIDS:
