@@ -29,7 +29,11 @@ result line:
      8-byte-aligned total), and the code-word kernels on theirs (CODE_EDGE,
      in both rc classes: shuffled rows, padding between rows, padding-only
      chunks, a tile of many chunks, rows outside their tile, a ragged
-     window, every count at its form's most). Exactly equal (tolerance 0,
+     window, every count at its form's most), and tiles_v2 on its
+     (FRAG_EDGE: fragments that start or end on tile edges, empty tiles
+     with crossers, a tile of 6 chunks with crossers in each, padding rows
+     and base_g rows with counts, w_cols 2 / 4 / 8, a ragged window, counts
+     of 3000 ~900 deep, shuffled rows). Exactly equal (tolerance 0,
      the counts are integers); kernel and twin times (CUDA events) on the
      unaltered slabs: the kernel's on the card (_device_ms: its launches
      queued behind a spinning kernel, so no host time between them; the
@@ -233,17 +237,24 @@ def phase_card():
 
 
 def _ptxas_registers(build_log):
-    """{kernel name: registers per thread} from nvcc's `-Xptxas -v` log."""
-    regs, entry = {}, None
+    """({kernel name: registers per thread}, {kernel name: spill bytes})
+    from nvcc's `-Xptxas -v` log; a kernel built in several template
+    instances (w_cols, plane form) reports the most any of them uses."""
+    regs, spills, entry = {}, {}, None
     with open(build_log) as f:
         for line in f:
             if "Compiling entry function" in line:
                 entry = next((k for k in KERNELS if k + "_kernel" in line),
                              None)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m and entry is not None:
+                spills[entry] = max(spills.get(entry, 0), int(m.group(1))
+                                    + int(m.group(2)))
             m = re.search(r"Used (\d+) registers", line)
             if m and entry is not None:
-                regs[entry] = int(m.group(1))
-    return regs
+                regs[entry] = max(regs.get(entry, 0), int(m.group(1)))
+    return regs, spills
 
 
 def phase_build():
@@ -253,9 +264,10 @@ def phase_build():
     _kernels.build(force=True)
     _kernels.load()
     build_s = time.perf_counter() - t0
-    regs = _ptxas_registers(_kernels.BUILD_LOG)
+    regs, spills = _ptxas_registers(_kernels.BUILD_LOG)
     log(f"phase 2: nvcc built {', '.join(map(op.basename, _kernels.sources()))}"
-        f" for sm_90a in {build_s:.3f} s; ptxas registers {regs}")
+        f" for sm_90a in {build_s:.3f} s; ptxas registers {regs}, spill "
+        f"bytes {spills}")
     t0 = time.perf_counter()
     native.build(force=True)
     native.get_lib()
@@ -721,6 +733,208 @@ def _code_edge_cases(dev):
     return errs
 
 
+# ---------------------------------------------------------------------------
+# edge cases of the v2 fragment-row kernel (csrc/pileup_v2.cu::tiles_v2), as
+# v2 staged tuples at the default geometry (tile 1024, fc 256, g_max 8), made
+# by stage_v2 or, where staging cannot make the case, by hand;
+# tests/test_torch_pileup_v2.py holds the twin to numpy and to the JAX
+# package's Pallas kernel, and, on the card, the kernel to the twin on them
+# ---------------------------------------------------------------------------
+
+FRAG_EDGE = ("start_last_site", "end_last_site", "start_first_site",
+             "empty_tile", "many_chunks", "padding_stash", "w_cols_2",
+             "w_cols_4", "w_cols_8", "ragged_window", "counts_3000",
+             "shuffled")
+
+
+def _frags(rng, n, lo, hi, max_len):
+    """n random fragments starting at window sites [lo, hi) (0-based), with
+    counts up to 3000 and random codes in every column, past each
+    fragment's length too."""
+    import numpy as np
+
+    return (rng.integers(lo, hi, size=n), rng.integers(1, max_len + 1, size=n),
+            rng.integers(1, 3001, size=n),
+            rng.integers(0, 4, size=(n, max_len)).astype(np.uint8))
+
+
+def _v2_staged(window_len, *batches):
+    """stage_v2 of the fragment batches together over window sites [0,
+    window_len) (1-based window start 1)."""
+    import numpy as np
+
+    from wgbs_tools_tpu_torch.ops import pileup_v2 as pv2
+
+    width = max(b[3].shape[1] for b in batches)
+    start = np.concatenate([b[0] for b in batches]) + 1
+    length = np.concatenate([b[1] for b in batches]).astype(np.int32)
+    count = np.concatenate([b[2] for b in batches]).astype(np.int32)
+    codes = np.concatenate([np.pad(b[3], ((0, 0), (0, width - b[3].shape[1])))
+                            for b in batches])
+    return pv2.stage_v2(start, length, count, codes, 1, window_len)
+
+
+def _fixed(starts, lengths):
+    """Fragments at the given 0-based starts and lengths, count 3000, codes
+    C, T, C, '.' repeated over 128 columns."""
+    import numpy as np
+
+    n = len(starts)
+    codes = np.tile(np.array([1, 0, 1, 3], np.uint8), 32)
+    return (np.asarray(starts), np.asarray(lengths), np.full(n, 3000),
+            np.broadcast_to(codes, (n, 128)).copy())
+
+
+def _v2_by_hand(rng, tiles, window_len, w_cols, stash_count=0):
+    """A v2 tuple made row by row, as stage_v2 lays it out where it can: a
+    tile is a list of chunks, a chunk a list of (start, length, count) rows
+    (dg -1 or g_max: a padding row) whose sub-blocks span at most g_max from
+    the chunk's lowest (its base_g, stashed in row fc - 1's start slot).
+    Rows past the given ones are padding; every row carries random words
+    (codes past its length too), and every padding row a start in the
+    chunk's tile and a count, which the kernel must skip by dg; the base_g
+    row's count is stash_count. Chunks are padded to a multiple of 16, as
+    staging pads them, with chunks in no tile's range."""
+    import numpy as np
+
+    from wgbs_tools_tpu_torch.ops import pileup_v2 as pv2
+
+    fc, g_max, tile = pv2.FRAG_CHUNK, pv2.G_MAX, pv2.TILE
+    chunks = [(t, rows) for t, tile_chunks in enumerate(tiles)
+              for rows in tile_chunks]
+    n_chunks = -(-len(chunks) // 16) * 16
+    meta = np.zeros((n_chunks, 3, fc), np.int32)
+    meta[:, 1, :] = g_max << 16
+    words = rng.integers(-(1 << 31), 1 << 31, size=(n_chunks * fc, w_cols),
+                         dtype=np.int64).astype(np.int32)
+    for c, (t, rows) in enumerate(chunks):
+        meta[c, 0, :] = rng.integers(t * tile, (t + 1) * tile, fc)
+        meta[c, 1, :] |= rng.integers(1, 129, fc)
+        meta[c, 2, :] = rng.integers(1, 3001, fc)
+        real = [(s, ln, n) for s, ln, n, *pad in rows if not pad]
+        base_g = min(s // 128 for s, _, _ in real) if real else 8 * t
+        for r, (s, ln, n, *pad) in enumerate(rows):
+            dg = pad[0] if pad else s // 128 - base_g
+            if not (pad or 0 <= dg < g_max):
+                raise ValueError(f"row {r} of chunk {c}: dg {dg}")
+            meta[c, :, r] = (s, ln | (dg << 16), n)
+        meta[c, :, fc - 1] = (base_g, g_max << 16, stash_count)
+    counts = [len(tile_chunks) for tile_chunks in tiles]
+    c1 = np.cumsum(counts).astype(np.int32)
+    c0 = (c1 - counts).astype(np.int32)
+    max_chunks = 1 << (max(max(counts), 1) - 1).bit_length()
+    return (c0, c1, meta, words, max_chunks), window_len
+
+
+def _rows(rng, n, lo, hi, max_len):
+    """n (start, length, count) rows starting in [lo, hi)."""
+    return list(zip(rng.integers(lo, hi, n).tolist(),
+                    rng.integers(1, max_len + 1, n).tolist(),
+                    rng.integers(1, 3001, n).tolist()))
+
+
+def frag_edge_batch(name):
+    """(stage_v2's 5-field tuple, window_len) for one edge case of tiles_v2
+    at the default geometry:
+      start_last_site   128-site fragments starting on a tile's last site
+                        (sites 1023, 2047, and 3071, the window's last)
+      end_last_site     fragments ending exactly on a tile's last site
+      start_first_site  fragments starting exactly on a tile's first site
+      empty_tile        tiles 1 and 3 with no chunk (c0 == c1) that take
+                        crossers from tiles 0 and 2
+      many_chunks       (by hand) tile 1 of 6 chunks whose rows spread over
+                        the whole tile, so every chunk has crossers
+      padding_stash     (by hand) padding rows (dg g_max and -1) between real
+                        rows, at starts in reach of the next tile, with
+                        counts and words; each chunk's base_g row carries a
+                        count, and tile 0's base_g (7) is a site of the tile
+      w_cols_2/4/8      (by hand) random words, lengths past 16 * w_cols
+      ragged_window     window_len = 2 tiles + 517 sites (odd), fragments
+                        clipped at its end
+      counts_3000       every count 3000, ~900 fragments deep across the
+                        edge of tiles 0 and 1 (a 16-bit sum would carry)
+      shuffled          a staged batch with the rows of each chunk (but the
+                        base_g row) in random order"""
+    import numpy as np
+
+    from wgbs_tools_tpu_torch.ops import pileup_v2 as pv2
+
+    rng = np.random.default_rng(FRAG_EDGE.index(name) + 71)
+    tile, fc = pv2.TILE, pv2.FRAG_CHUNK
+    wl = 3 * tile
+    if name == "start_last_site":
+        return _v2_staged(wl, _frags(rng, 400, 0, wl, 128),
+                          _fixed([1023, 1023, 2047, 3071], [128, 5, 128,
+                                                            128])), wl
+    if name == "end_last_site":
+        return _v2_staged(wl, _frags(rng, 400, 0, wl, 128),
+                          _fixed([896, 1000, 1023, 1920, 2040],
+                                 [128, 24, 1, 128, 8])), wl
+    if name == "start_first_site":
+        return _v2_staged(wl, _frags(rng, 400, 0, wl, 128),
+                          _fixed([1024, 1024, 2048, 0], [128, 1, 20, 128])), wl
+    if name == "empty_tile":
+        wl = 4 * tile
+        return _v2_staged(wl, _frags(rng, 300, 0, 1024, 128),
+                          _frags(rng, 300, 2048, 3072, 128),
+                          _fixed([1023, 3000], [128, 128])), wl
+    if name == "many_chunks":
+        return _v2_by_hand(rng, [[_rows(rng, 100, 0, 1024, 128)],
+                                 [_rows(rng, 255, 1024, 2048, 128)
+                                  for _ in range(6)],
+                                 [_rows(rng, 50, 2048, 3072, 128)]], wl, 8)
+    if name == "padding_stash":
+        tiles = []
+        for t, lo in enumerate((896, 1024, 2560)):  # base_g 7, 8, 20
+            rows = _rows(rng, 200, lo, (t + 1) * tile, 64)
+            for i in range(0, 200, 3):
+                s, ln, n = rows[i]
+                rows[i] = (max(s, (t + 1) * tile - 30), ln, n,
+                           pv2.G_MAX if i % 2 else -1)
+            tiles.append([rows])
+        return _v2_by_hand(rng, tiles, wl, 4, stash_count=3000)
+    if name.startswith("w_cols_"):
+        w = int(name[len("w_cols_"):])
+        tiles = [[_rows(rng, 255, 1024 * t, 1024 * (t + 1), 16 * w + 40)
+                  for _ in range(2)] for t in range(3)]
+        return _v2_by_hand(rng, tiles, wl, w)
+    if name == "ragged_window":
+        wl = 2 * tile + 517
+        return _v2_staged(wl, _frags(rng, 600, 0, wl, 128),
+                          _fixed([wl - 1, wl - 60, 2047], [128, 100, 128])), wl
+    if name == "counts_3000":
+        f = _frags(rng, 900, 900, 1100, 128)
+        return _v2_staged(wl, (f[0], np.full(900, 128), np.full(900, 3000),
+                               np.ones((900, 128), np.uint8))), wl
+    if name == "shuffled":
+        c0, c1, meta, words, mc = _v2_staged(wl, _frags(rng, 2000, 0, wl,
+                                                        64))
+        meta, words = meta.copy(), words.reshape(-1, fc, words.shape[1])
+        for c in range(meta.shape[0]):
+            p = rng.permutation(fc - 1)
+            meta[c, :, : fc - 1] = meta[c, :, p].T
+            words[c, : fc - 1] = words[c, p]
+        return (c0, c1, meta, words.reshape(-1, words.shape[2]), mc), wl
+    raise ValueError(f"no fragment-row edge case {name!r}")
+
+
+def _frag_edge_cases(dev):
+    """Each edge case through tiles_v2 against its twin, exactly. Returns
+    {"tiles_v2": max abs err}."""
+    from wgbs_tools_tpu_torch.ops import pileup_v2 as pv2
+
+    err = 0
+    for name in FRAG_EDGE:
+        staged, wl = frag_edge_batch(name)
+        st = pv2.staged_v2_from_numpy(staged, dev)
+        e, _ = _kernel_vs_twin("tiles_v2", pv2.tiles_v2, pv2.tiles_v2_plain,
+                               [st], wl)
+        err = max(err, e)
+    log(f"phase 3: fragment-row edge cases {', '.join(FRAG_EDGE)}: tiles_v2 "
+        f"== twin, max_abs_err {err}")
+    return {"tiles_v2": err}
+
+
 # H100 SXM data-sheet peaks: device memory bytes/s, and the non-tensor
 # 32-bit rate, for the kernels' integer adds
 HBM_BYTES_PER_S = 3.35e12
@@ -938,7 +1152,8 @@ def phase_kernels(big, deep, regs):
         "split_library_ms": out["flat_vals"]["library_ms"],
         "slab_frags": sel.nr_frags, "slab_sites": span}
 
-    edges = {**_vals_edge_cases(dev), **_code_edge_cases(dev)}
+    edges = {**_vals_edge_cases(dev), **_code_edge_cases(dev),
+             **_frag_edge_cases(dev)}
     for name, err in edges.items():
         out[name]["edge_max_abs_err"] = err
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)

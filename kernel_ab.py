@@ -1,21 +1,22 @@
 #!/usr/bin/env python3
 """A/B of the code-word pileup kernels (flat_classic, flat_lc,
-tiled_classic) of two source trees, on one GPU, on the slabs that
-chip_smoke.py's phase 3 gives them.
+tiled_classic) and the v2 fragment-row kernel (tiles_v2) of two source
+trees, on one GPU, on the slabs that chip_smoke.py's phase 3 gives them.
 
     python3 kernel_ab.py OTHER_TREE [--frags N] [--reps R] [--rounds K]
 
 OTHER_TREE is another checkout of this repo (for the parent commit:
 `git archive HEAD~1 | tar -x -C build/parent`; build/ is ignored by git).
-Each tree's wgbs_tools_tpu_torch/csrc/pileup_v3.cu is compiled by nvcc
-with the port's flags into a library of its own, and both are called
-through ctypes on the same staged tensors (staged by this tree; the layout
-is the same in both), in turns other, this, this, other (K rounds). Every
-output must equal the kernel's plain twin. Times are the card's
-(chip_smoke._device_ms: launches queued behind a spinning kernel), per slab
-(both rc-class launches) and per rc-class launch. Prints the card's name
-and power limit, one line per kernel, slab and run, and last one JSON
-object with every run's times and each tree's ptxas registers.
+Each tree's wgbs_tools_tpu_torch/csrc/pileup_v3.cu and pileup_v2.cu are
+compiled by nvcc with the port's flags into a library of its own, and both
+are called through ctypes on the same staged tensors (staged by this tree;
+the layout is the same in both), in turns other, this, this, other (K
+rounds). Every output must equal the kernel's plain twin. Times are the
+card's (chip_smoke._device_ms: launches queued behind a spinning kernel),
+per slab (for the code-word kernels both rc-class launches) and per
+rc-class launch. Prints the card's name and power limit, one line per
+kernel, slab and run, and last one JSON object with every run's times and
+each tree's ptxas registers (the most any template instance uses).
 """
 
 import argparse
@@ -35,26 +36,31 @@ sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
 
-SRC = "wgbs_tools_tpu_torch/csrc/pileup_v3.cu"
+SRCS = ("wgbs_tools_tpu_torch/csrc/pileup_v3.cu",
+        "wgbs_tools_tpu_torch/csrc/pileup_v2.cu")
 # kernel -> (its pats, the staging path of chip_smoke.PHASE3)
 KERNELS = {name: chip_smoke.PHASE3[name][:2]
-           for name in ("flat_classic", "flat_lc", "tiled_classic")}
+           for name in ("flat_classic", "flat_lc", "tiled_classic",
+                        "tiles_v2")}
+# C entry -> (device pointers, int64 scalars) before the stream
+ENTRIES = {"pileup_flat_classic": (5, 5), "pileup_flat_lc": (6, 5),
+           "pileup_tiled_classic": (5, 6), "pileup_tiles_v2": (5, 6)}
 
 
 def build(tree, out_dir):
-    """nvcc the tree's pileup_v3.cu into out_dir/lib.so; returns (the loaded
-    library, {kernel: registers}, whether its tiled entry takes max_chunks
-    (the first tiled grid) rather than n_chunks)."""
+    """nvcc the tree's pileup_v3.cu and pileup_v2.cu into out_dir/lib.so;
+    returns (the loaded library, {kernel: registers}, whether its tiled
+    entry takes max_chunks (the first tiled grid) rather than n_chunks)."""
     from wgbs_tools_tpu_torch import _kernels
 
     os.makedirs(out_dir, exist_ok=True)
-    src = op.join(tree, SRC)
+    srcs = [op.join(tree, src) for src in SRCS]
     so = op.join(out_dir, "lib.so")
     proc = subprocess.run([_kernels._nvcc()] + _kernels.NVCC_FLAGS
-                          + ["-shared", "-o", so, src],
+                          + ["-shared", "-o", so] + srcs,
                           capture_output=True, text=True)
     if proc.returncode:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}"
+        raise RuntimeError(f"nvcc failed on {srcs}:\n{proc.stdout}"
                            f"{proc.stderr}")
     regs, entry = {}, None
     for line in (proc.stdout + proc.stderr).splitlines():
@@ -62,16 +68,14 @@ def build(tree, out_dir):
             entry = next((k for k in KERNELS if k + "_kernel" in line), None)
         m = re.search(r"Used (\d+) registers", line)
         if m and entry is not None:
-            regs[entry] = int(m.group(1))
+            regs[entry] = max(regs.get(entry, 0), int(m.group(1)))
     lib = ctypes.CDLL(so)
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
-    for name, n_ptr, n_int in (("pileup_flat_classic", 5, 5),
-                               ("pileup_flat_lc", 6, 5),
-                               ("pileup_tiled_classic", 5, 6)):
+    for name, (n_ptr, n_int) in ENTRIES.items():
         fn = getattr(lib, name)
         fn.argtypes = [vp] * n_ptr + [i64] * n_int + [vp]
         fn.restype = ctypes.c_int
-    with open(src) as f:
+    with open(srcs[0]) as f:
         max_chunks = "int64_t max_chunks" in f.read()
     return lib, regs, max_chunks
 
@@ -84,13 +88,17 @@ def launcher(tree_lib, name, st, span):
     lib, _, max_chunks = tree_lib
     out = torch.zeros((span, 2), dtype=torch.int32, device=st.device)
     num_tiles = -(-span // st.tile)
-    planes = [st.rows.data_ptr()] + (
-        [st.cnts.data_ptr()] if name == "flat_lc" else [])
-    extra = ([st.max_chunks if max_chunks else st.meta.shape[0]]
-             if name == "tiled_classic" else [])
-    args = ([st.c0.data_ptr(), st.c1.data_ptr(), st.meta.data_ptr()] + planes
-            + [out.data_ptr(), num_tiles, span, st.tile_sb, st.rc, st.g_max]
-            + extra)
+    head = [st.c0.data_ptr(), st.c1.data_ptr(), st.meta.data_ptr()]
+    if name == "tiles_v2":
+        args = head + [st.words.data_ptr(), out.data_ptr(), num_tiles, span,
+                       st.tile, st.fc, st.g_max, st.w_cols]
+    else:
+        planes = [st.rows.data_ptr()] + (
+            [st.cnts.data_ptr()] if name == "flat_lc" else [])
+        extra = ([st.max_chunks if max_chunks else st.meta.shape[0]]
+                 if name == "tiled_classic" else [])
+        args = (head + planes + [out.data_ptr(), num_tiles, span, st.tile_sb,
+                                 st.rc, st.g_max] + extra)
     fn = getattr(lib, "pileup_" + name)
 
     def launch():
@@ -111,6 +119,7 @@ def main():
 
     import torch
 
+    from wgbs_tools_tpu_torch.ops import pileup_v2 as pv2
     from wgbs_tools_tpu_torch.ops import pileup_v3 as pv3
 
     smi = chip_smoke.phase_card()
@@ -125,7 +134,8 @@ def main():
         dev = torch.device("cuda")
         runs = []
         for name, (pats, path) in KERNELS.items():
-            plain = getattr(pv3, name + "_plain")
+            plain = getattr(pv2 if name == "tiles_v2" else pv3,
+                            name + "_plain")
             for pat in pats:
                 sel, lo, span = slabs[pat]
                 sts = chip_smoke._stage(sel, lo, span, dev, path)
@@ -147,7 +157,8 @@ def main():
                         lambda: [launch() for launch, _ in cl], args.reps)
                     per_class = {
                         str(st.rc): chip_smoke._device_ms(launch, args.reps)
-                        for st, (launch, _) in zip(sts, cl)}
+                        for st, (launch, _) in zip(sts, cl)
+                        if hasattr(st, "rc")}
                     runs.append({"kernel": name, "slab": pat, "tree": tree,
                                  "turn": i, "ms": ms, "class_ms": per_class})
                     chip_smoke.log(f"A/B {name} on {pat} turn {i} {tree}: "

@@ -7,6 +7,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import chip_smoke  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from synth import random_frags  # noqa: E402
 from wgbs_tools_tpu.formats.pat import CODE_C, PatFrags  # noqa: E402
@@ -132,6 +133,91 @@ def test_staged_v2_checks():
         pileup_v2.tiles_v2(st, wl + 5000)
 
 
+def _numpy_v2_pileup(staged, wl, tile=pileup_v2.TILE,
+                     g_max=pileup_v2.G_MAX):
+    """The v2 pileup of a staged tuple by a plain loop over tiles and
+    chunks: a real row (dg in [0, g_max)) of a chunk in tile t's range adds
+    count at site start + j, j < min(len, 16 * w_cols), where the code
+    (word[j % w] >> 2 (j // w)) & 3 is not 3 (cov) and is 1 or 2 (meth),
+    for sites in tiles t and t + 1 and in the window; int32 sums."""
+    c0, c1, meta, words, _mc = staged
+    fc, w = meta.shape[2], words.shape[1]
+    acc = np.zeros((wl + 1, 2), np.int64)
+    j = np.arange(16 * w)
+    for t in range(len(c0)):
+        for c in range(c0[t], c1[t]):
+            rel = meta[c, 0].astype(np.int64)[:, None]
+            lw = meta[c, 1].astype(np.int64)
+            dg = lw >> 16
+            code = (words[c * fc : (c + 1) * fc, j % w].view(np.uint32)
+                    .astype(np.int64) >> (2 * (j // w))) & 3
+            site = rel + j
+            ok = (((dg >= 0) & (dg < g_max))[:, None]
+                  & (j < np.minimum(lw & 0xFFFF, 16 * w)[:, None])
+                  & (code != 3) & (site >= t * tile)
+                  & (site < (t + 2) * tile) & (site < wl))
+            n = np.broadcast_to(meta[c, 2].astype(np.int64)[:, None],
+                                site.shape)
+            np.add.at(acc[:, 1], np.where(ok, site, wl), np.where(ok, n, 0))
+            np.add.at(acc[:, 0], np.where(ok & (code != 0), site, wl),
+                      np.where(ok, n, 0))
+    return ((acc[:wl] + 2**31) % 2**32 - 2**31).astype(np.int32)
+
+
+def _reaches_next_tile(staged, t, tile=pileup_v2.TILE):
+    """Chunks of tile t with a real row that reaches tile t + 1."""
+    c0, c1, meta, words, _mc = staged
+    lw = meta[:, 1].astype(np.int64)
+    ln = np.minimum(lw & 0xFFFF, 16 * words.shape[1])
+    real = ((lw >> 16) >= 0) & ((lw >> 16) < pileup_v2.G_MAX)
+    cross = real & (meta[:, 0] + ln > (t + 1) * tile)
+    return [c for c in range(c0[t], c1[t]) if cross[c].any()]
+
+
+@pytest.mark.parametrize("name", chip_smoke.FRAG_EDGE)
+def test_frag_edge_twin_equals_jax_and_numpy(name):
+    """The twin of tiles_v2 on the edge cases that the card tests and
+    chip_smoke.py hold the kernel to (starts and ends on tile edges, empty
+    tiles with crossers, a tile of 6 chunks with crossers in each, padding
+    rows and the base_g row with counts, w_cols 2 / 4 / 8, a ragged window,
+    counts of 3000 ~900 deep, shuffled rows): equal to a plain numpy loop
+    and to the JAX package's Pallas kernel in interpret mode, tolerance 0.
+    Every case keeps the JAX kernel's f32 strip sums below 2^24 (at most
+    fc - 1 rows of count <= 3000 in a chunk), where its one-hot dot is
+    exact."""
+    staged, wl = chip_smoke.frag_edge_batch(name)
+    c0, c1, meta, words, _mc = staged
+    real = ((meta[:, 1] >> 16) >= 0) & ((meta[:, 1] >> 16) < pileup_v2.G_MAX)
+    assert (np.where(real, meta[:, 2], 0).sum(axis=1) < 2**24).all()
+    want = _numpy_v2_pileup(staged, wl)
+    got = pileup_v2.tiles_v2_plain(pileup_v2.staged_v2_from_numpy(staged,
+                                                                  "cpu"), wl)
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    assert np.array_equal(_jax_kernel(staged, wl), want)
+    tile = pileup_v2.TILE
+    cov = np.zeros(len(c0) * tile, np.int64)
+    cov[:wl] = want[:, 1]
+    covered = cov.reshape(len(c0), tile).any(axis=1)
+    if name.startswith("w_cols_"):
+        assert words.shape[1] == int(name[len("w_cols_"):])
+    if name == "empty_tile":
+        empty = np.nonzero(c1 == c0)[0]
+        assert list(empty) == [1, 3] and covered[empty].all()
+    if name == "many_chunks":
+        assert (c1 - c0)[1] == 6 and len(_reaches_next_tile(staged, 1)) == 6
+    if name == "padding_stash":
+        pad = ~real[:, : pileup_v2.FRAG_CHUNK - 1] & (meta[:, 2, :-1] > 0)
+        assert pad[: c1[-1]].any(axis=1).all()
+        assert list(meta[: c1[-1], 0, -1]) == [7, 8, 20]
+    if name == "ragged_window":
+        assert wl % tile and want[-1, 1] > 0
+    if name == "counts_3000":
+        assert want[:, 1].max() > 2**16 and (meta[:, 2][real] == 3000).all()
+    if name == "shuffled":
+        assert any((np.diff(meta[c, 0, real[c]]) < 0).any()
+                   for c in range(c1[-1]))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -152,3 +238,36 @@ def test_cuda_kernel_equals_twin(cuda_device, name):
     assert torch.equal(got, pileup_v2.tiles_v2_plain(st, wl))
     assert np.array_equal(got.cpu().numpy(), pileup_xla(
         f.start, f.length, f.count, f.codes, ws, wl))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", chip_smoke.FRAG_EDGE)
+def test_cuda_frag_edge_cases(cuda_device, name):
+    """tiles_v2 on the card == its twin, tolerance 0, on each edge case,
+    into an output the allocator has dirtied (the kernel writes every
+    site)."""
+    staged, wl = chip_smoke.frag_edge_batch(name)
+    st = pileup_v2.staged_v2_from_numpy(staged, cuda_device)
+    torch.full((wl, 2), 7, dtype=torch.int32, device=cuda_device)
+    before = pileup_v2.tiles_v2.launches
+    got = pileup_v2.tiles_v2(st, wl)
+    torch.cuda.synchronize()
+    assert pileup_v2.tiles_v2.launches == before + 1
+    assert torch.equal(got, pileup_v2.tiles_v2_plain(st, wl))
+
+
+@pytest.mark.cuda
+def test_cuda_rejects_misaligned_words(cuda_device):
+    """The kernel loads a row's words as one vector: words that are not
+    aligned to it are refused before any launch."""
+    staged, wl = chip_smoke.frag_edge_batch("w_cols_4")
+    st = pileup_v2.staged_v2_from_numpy(staged, cuda_device)
+    flat = torch.empty(st.words.numel() + 1, dtype=torch.int32,
+                       device=cuda_device)
+    words = flat[1:].view(st.words.shape)
+    words.copy_(st.words)
+    bad = pileup_v2.StagedV2(st.c0, st.c1, st.meta, words)
+    before = pileup_v2.tiles_v2.launches
+    with pytest.raises(ValueError, match="aligned"):
+        pileup_v2.tiles_v2(bad, wl)
+    assert pileup_v2.tiles_v2.launches == before

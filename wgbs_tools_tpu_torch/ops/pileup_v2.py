@@ -209,6 +209,10 @@ def tiles_v2(st, window_len):
     num_tiles = _check(st, window_len)
     if st.device.type == "cpu":
         return tiles_v2_plain(st, window_len)
+    align = min(4 * st.w_cols, 16)  # the kernel loads a row's words as vectors
+    if st.words.data_ptr() % align:
+        raise ValueError(f"staged words must be {align}-byte aligned for the "
+                         "kernel's vector loads")
     out = torch.empty((window_len, 2), dtype=torch.int32, device=st.device)
     _kernels.launch("pileup_tiles_v2", st.device, st.c0.data_ptr(),
                     st.c1.data_ptr(), st.meta.data_ptr(), st.words.data_ptr(),
