@@ -18,7 +18,11 @@ result line:
      that path at the default geometry -- the big pat's for the value-
      plane kernels (fused and split planes) and for flat_lc (vals=False),
      the deep pat's for flat_classic, both pats' for tiled_classic
-     (lane_counts=False), tiles_v2 (stage_v2) and tiles_v1 (v1's prep);
+     (lane_counts=False), tiles_v2 (stage_v2) and tiles_v1 (v1's prep),
+     and for tiles_v1 also a long slab made from a seed (long_slab: 300,000
+     fragments of median 150 sites, up to 2048, over 8,000,000 sites, ~10x
+     deep: max_len 2048, the warp-per-row form; an unverified stand-in for
+     long reads);
      then on each slab with the middle third of its span emptied, so the
      window has empty tiles, where zeros must come back. flat_vals_add, in
      both plane forms, starts from a seeded nonzero total, and the rows of
@@ -33,7 +37,12 @@ result line:
      (FRAG_EDGE: fragments that start or end on tile edges, empty tiles
      with crossers, a tile of 6 chunks with crossers in each, padding rows
      and base_g rows with counts, w_cols 2 / 4 / 8, a ragged window, counts
-     of 3000 ~900 deep, shuffled rows). Exactly equal (tolerance 0,
+     of 3000 ~900 deep, shuffled rows), and tiles_v1 on its (FRAG_EDGE_V1:
+     rows of up to 4096 sites spanning whole tiles, tiles covered only by
+     rows from far back, rows on tile edges, w16 16 / 24 / 40 / 128 / 192 /
+     256, a mixed batch of short rows and one long one, padding rows with
+     counts and words, negative starts, a ragged window, counts of 3000
+     ~900 deep, shuffled rows). Exactly equal (tolerance 0,
      the counts are integers); kernel and twin times (CUDA events) on the
      unaltered slabs: the kernel's on the card (_device_ms: its launches
      queued behind a spinning kernel, so no host time between them; the
@@ -362,6 +371,42 @@ def phase_data(work, n_frags):
         f"({op.getsize(deep) / 1e6:.1f} MB) in "
         f"{time.perf_counter() - t0:.3f} s")
     return big, deep
+
+
+# the long slab of phase 3 (tiles_v1 only), made from a seed, not read from
+# a pat: an unverified stand-in for long-read (nanopore) traffic. No public
+# read-length or depth distribution stands behind these numbers; they give
+# the listed form of tiles_v1 (w16 128) a batch at a realistic size to be
+# held exact and timed on, and no design choice rests on its times.
+LONG_FRAGS = 300_000
+LONG_SITES = 8_000_000
+LONG_MEDIAN = 150  # sites; log-normal lengths, sigma 1 (~10x depth)
+LONG_CAP = 2048    # the widest fragment: max_len 2048, w16 128
+
+
+def long_slab(n=LONG_FRAGS, n_sites=LONG_SITES, cap=LONG_CAP, seed=8):
+    """(fragments, window start 1, window length n_sites): n fragments of
+    log-normal lengths (median LONG_MEDIAN sites, at most cap, at least one
+    of cap), counts 1-3, in start order over the window; codes as make_slab
+    draws them ('.' past each length)."""
+    import numpy as np
+
+    from wgbs_tools_tpu_torch.formats.pat import PatFrags
+
+    rng = np.random.default_rng(seed)
+    lengths = np.clip(rng.lognormal(np.log(LONG_MEDIAN), 1.0, n), 1,
+                      cap).astype(np.int32)
+    lengths[rng.integers(n)] = cap
+    starts = np.sort(rng.integers(1, n_sites - cap + 2, size=n)).astype(
+        np.int32)
+    counts = rng.integers(1, 4, size=n).astype(np.int32)
+    draw = rng.integers(0, 100, size=(n, cap), dtype=np.uint8)
+    codes = (draw < 70).astype(np.uint8)
+    codes[draw >= 98] = 3
+    del draw
+    codes[np.arange(cap, dtype=np.int32)[None, :] >= lengths[:, None]] = 3
+    return (PatFrags(starts, lengths, counts, codes, np.zeros(n, np.int16),
+                     ["chr1"]), 1, n_sites)
 
 
 def _first_slab(pat):
@@ -758,12 +803,11 @@ def _frags(rng, n, lo, hi, max_len):
             rng.integers(0, 4, size=(n, max_len)).astype(np.uint8))
 
 
-def _v2_staged(window_len, *batches):
-    """stage_v2 of the fragment batches together over window sites [0,
-    window_len) (1-based window start 1)."""
+def _stage_batches(stage, window_len, *batches, window_start=1):
+    """stage (stage_v2 or stage_v1) of the fragment batches together, at
+    0-based window sites, over [window_start, window_start + window_len);
+    the codes are padded to the widest batch's columns."""
     import numpy as np
-
-    from wgbs_tools_tpu_torch.ops import pileup_v2 as pv2
 
     width = max(b[3].shape[1] for b in batches)
     start = np.concatenate([b[0] for b in batches]) + 1
@@ -771,7 +815,13 @@ def _v2_staged(window_len, *batches):
     count = np.concatenate([b[2] for b in batches]).astype(np.int32)
     codes = np.concatenate([np.pad(b[3], ((0, 0), (0, width - b[3].shape[1])))
                             for b in batches])
-    return pv2.stage_v2(start, length, count, codes, 1, window_len)
+    return stage(start, length, count, codes, window_start, window_len)
+
+
+def _v2_staged(window_len, *batches):
+    from wgbs_tools_tpu_torch.ops import pileup_v2 as pv2
+
+    return _stage_batches(pv2.stage_v2, window_len, *batches)
 
 
 def _fixed(starts, lengths):
@@ -918,9 +968,146 @@ def frag_edge_batch(name):
     raise ValueError(f"no fragment-row edge case {name!r}")
 
 
+# ---------------------------------------------------------------------------
+# edge cases of the v1 fragment-row kernel (csrc/pileup_v1.cu::tiles_v1), as
+# v1 staged tuples at the default geometry (tile 1024, fc 256), made by
+# stage_v1 or, where staging cannot make the case, altered by hand;
+# tests/test_torch_pileup_v1.py holds the twin to numpy and (rows in start
+# order) to the JAX package's Pallas kernel, and, on the card, the kernel
+# to the twin on them
+# ---------------------------------------------------------------------------
+
+FRAG_EDGE_V1 = ("max_len_4096", "far_crossers", "tile_edges", "w16_24",
+                "w16_40", "mixed", "padding_rows", "negative_start",
+                "ragged_window", "counts_3000", "shuffled", "shuffled_long")
+# the cases whose rows are not in start order inside [lo, hi): held to the
+# twin's rule (numpy), not to the JAX kernel, which walks whole chunks
+FRAG_EDGE_V1_UNORDERED = ("shuffled", "shuffled_long")
+
+
+def _long_rows(rng, starts, lengths, width):
+    """Fragments at the given 0-based starts and lengths, counts up to 3000,
+    random codes in all `width` columns."""
+    import numpy as np
+
+    n = len(starts)
+    return (np.asarray(starts), np.asarray(lengths),
+            rng.integers(1, 3001, size=n),
+            rng.integers(0, 4, size=(n, width)).astype(np.uint8))
+
+
+def _v1_staged(window_len, *batches, window_start=1):
+    """stage_v1 of the batches (_stage_batches): max_len follows the widest
+    batch's code columns."""
+    from wgbs_tools_tpu_torch.ops import pileup_v1 as pv1
+
+    return _stage_batches(pv1.stage_v1, window_len, *batches,
+                          window_start=window_start)
+
+
+def _shuffled_v1(rng, staged):
+    """The staged rows of each chunk in random order, padding rows too."""
+    lo, hi, meta, words, max_chunks, max_len = staged
+    fc = meta.shape[2]
+    meta, words = meta.copy(), words.reshape(-1, fc, words.shape[1]).copy()
+    for c in range(meta.shape[0]):
+        p = rng.permutation(fc)
+        meta[c] = meta[c][:, p]
+        words[c] = words[c, p]
+    return lo, hi, meta, words.reshape(-1, words.shape[2]), max_chunks, max_len
+
+
+def frag_edge_v1_batch(name):
+    """(stage_v1's 6-field tuple, window_len) for one edge case of tiles_v1
+    at the default geometry (rows of the thread-per-row form where w16 is 8
+    or 16, of the warp-per-row form otherwise):
+      max_len_4096   w16 256: 4096-site rows that span three whole tiles,
+                     each tile's look-back over four tiles
+      far_crossers   w16 192: tiles 1-3 with no row starting in them,
+                     covered only by 2048-3072-site rows from tile 0
+      tile_edges     w16 16: 256-site rows (max_len exactly) starting on a
+                     tile's first site and ending on a tile's last site
+      w16_24/40      max_len 384 / 640 (w16 not a power of two)
+      mixed          w16 128: 3000 rows of <= 24 sites and one 2000-site row:
+                     every look-back is wide, few of its rows reach
+      padding_rows   (by hand) the padding rows carry counts, random words
+                     and, half of them, a length; tiles have rows in
+                     [lo_adj, lo) from the chunk rounding
+      negative_start w16 8: window start 600, rows from site 1 (negative
+                     relative starts)
+      ragged_window  w16 24: window_len = 2 tiles + 517 sites (odd), rows
+                     past its end
+      counts_3000    w16 24: every count 3000, ~900 rows deep across the
+                     edge of tiles 0 and 1 (a 16-bit sum would carry)
+      shuffled       (by hand) w16 8, rows of each chunk in random order
+      shuffled_long  (by hand) w16 24, the same"""
+    import numpy as np
+
+    rng = np.random.default_rng(FRAG_EDGE_V1.index(name) + 171)
+    tile = 1024
+    wl = 3 * tile
+    if name == "max_len_4096":
+        wl = 6 * tile
+        return _v1_staged(wl, _frags(rng, 300, 0, wl, 200),
+                          _long_rows(rng, [0, 1000, 1024, 2047, 2048],
+                                     [4096, 4096, 3000, 4096, 2500],
+                                     4096)), wl
+    if name == "far_crossers":
+        wl = 5 * tile
+        return _v1_staged(wl, _frags(rng, 100, 0, tile, 64),
+                          _frags(rng, 100, 4 * tile, wl, 64),
+                          _long_rows(rng, [10, 500, 900, 1000, 1020, 1023],
+                                     [3000, 2900, 2500, 2048, 3072, 3072],
+                                     3072)), wl
+    if name == "tile_edges":
+        wl = 4 * tile
+        return _v1_staged(wl, _frags(rng, 300, 0, wl, 256),
+                          _long_rows(rng, [0, 1024, 2048, 3072, 768, 1792,
+                                           3840], [256] * 7, 256)), wl
+    if name in ("w16_24", "w16_40"):
+        width = 16 * int(name[len("w16_"):])
+        return _v1_staged(wl, _frags(rng, 400, 0, wl, width)), wl
+    if name == "mixed":
+        wl = 4 * tile
+        return _v1_staged(wl, _frags(rng, 3000, 0, wl, 24),
+                          _long_rows(rng, [100], [2000], 2000)), wl
+    if name == "padding_rows":
+        lo, hi, meta, words, mc, max_len = _v1_staged(
+            wl, _frags(rng, 300, 0, wl, 128))
+        meta, words = meta.copy(), words.copy()
+        pad = meta[:, 0] == 1 << 30
+        meta[:, 2][pad] = 3000
+        meta[:, 1][pad & (np.arange(meta.shape[2]) % 2 == 0)] = 128
+        flat = pad.reshape(-1)
+        words[flat] = rng.integers(-(1 << 31), 1 << 31, size=(
+            int(flat.sum()), words.shape[1]), dtype=np.int64).astype(np.int32)
+        return (lo, hi, meta, words, mc, max_len), wl
+    if name == "negative_start":
+        return _v1_staged(wl, _frags(rng, 600, 0, wl + 599, 128),
+                          window_start=600), wl
+    if name == "ragged_window":
+        wl = 2 * tile + 517
+        return _v1_staged(wl, _frags(rng, 600, 0, wl, 384),
+                          _long_rows(rng, [wl - 1, wl - 300, 2047],
+                                     [384, 384, 384], 384)), wl
+    if name == "counts_3000":
+        f = _frags(rng, 900, 700, 1100, 384)
+        return _v1_staged(wl, (f[0], np.maximum(f[1], 330),
+                               np.full(900, 3000), f[3])), wl
+    if name == "shuffled":
+        return _shuffled_v1(rng, _v1_staged(wl, _frags(rng, 2000, 0, wl,
+                                                       128))), wl
+    if name == "shuffled_long":
+        return _shuffled_v1(rng, _v1_staged(wl, _frags(rng, 800, 0, wl,
+                                                       384))), wl
+    raise ValueError(f"no v1 fragment-row edge case {name!r}")
+
+
 def _frag_edge_cases(dev):
-    """Each edge case through tiles_v2 against its twin, exactly. Returns
-    {"tiles_v2": max abs err}."""
+    """Each edge case through tiles_v2 (FRAG_EDGE) and tiles_v1
+    (FRAG_EDGE_V1) against its twin, exactly. Returns {kernel: max abs
+    err}."""
+    from wgbs_tools_tpu_torch.ops import pileup_v1 as pv1
     from wgbs_tools_tpu_torch.ops import pileup_v2 as pv2
 
     err = 0
@@ -932,7 +1119,16 @@ def _frag_edge_cases(dev):
         err = max(err, e)
     log(f"phase 3: fragment-row edge cases {', '.join(FRAG_EDGE)}: tiles_v2 "
         f"== twin, max_abs_err {err}")
-    return {"tiles_v2": err}
+    err1 = 0
+    for name in FRAG_EDGE_V1:
+        staged, wl = frag_edge_v1_batch(name)
+        st = pv1.staged_v1_from_numpy(staged, dev)
+        e, _ = _kernel_vs_twin("tiles_v1", pv1.tiles_v1, pv1.tiles_v1_plain,
+                               [st], wl)
+        err1 = max(err1, e)
+    log(f"phase 3: v1 fragment-row edge cases {', '.join(FRAG_EDGE_V1)}: "
+        f"tiles_v1 == twin, max_abs_err {err1}")
+    return {"tiles_v2": err, "tiles_v1": err1}
 
 
 # H100 SXM data-sheet peaks: device memory bytes/s, and the non-tensor
@@ -944,8 +1140,9 @@ OPS_PER_S = 67e12
 def _work(sts, span):
     """(bytes, ops) a pileup of these staged batches must move and do,
     counted as a roofline bound counts them: each input read once (only
-    the rows that land in the window: real rows; the dg words of every
-    chunk a tile visits; the per-tile ranges), the (span, 2) int32
+    the rows that land in the window: real rows, of a v1 row only the
+    min(length, w16) words its codes occupy; the dg words of every chunk a
+    tile visits; the per-tile ranges), the (span, 2) int32
     output written once; ops = one integer add per plane byte of a real row
     (value planes), per lane of a real code-word row, or two per site of a
     real fragment (v1, v2)."""
@@ -971,12 +1168,14 @@ def _work(sts, span):
             dg = meta[:, 1, :] >> 16
             real = (dg >= 0) & (dg < st.g_max)
             lens = meta[:, 1, :] & 0xFFFF
+            words = int(real.sum()) * st.words.shape[1]
             ranges = st.c0.numel() * 8
-        else:  # v1: start 2^30 on padding rows
+        else:  # v1: start 2^30 on padding rows; the words its codes occupy
             real = meta[:, 0, :] != (1 << 30)
             lens = meta[:, 1, :]
+            words = int(lens[real].clamp(0, st.words.shape[1]).sum())
             ranges = st.lo.numel() * 8
-        n_bytes += int(real.sum()) * (12 + 4 * st.words.shape[1]) + ranges
+        n_bytes += int(real.sum()) * 12 + 4 * words + ranges
         ops += 2 * int(lens[real].sum())
     return n_bytes, ops
 
@@ -1016,7 +1215,7 @@ PHASE3 = {
     "flat_lc": (("big",), dict(vals=False), "lane"),
     "tiled_classic": (("big", "deep"), dict(lane_counts=False), "classic"),
     "tiles_v2": (("big", "deep"), "v2", None),
-    "tiles_v1": (("big", "deep"), "v1", None),
+    "tiles_v1": (("big", "deep", "long"), "v1", None),
 }
 
 
@@ -1034,6 +1233,12 @@ def phase_kernels(big, deep, regs):
     dev = torch.device("cuda")
     pats = {"big": big, "deep": deep}
     slabs = {name: _first_slab(pat) for name, pat in pats.items()}
+    t0 = time.perf_counter()
+    slabs["long"] = long_slab()
+    log(f"phase 3: made the long slab ({LONG_FRAGS:,} frags of median "
+        f"{LONG_MEDIAN} sites, at most {LONG_CAP}, over {LONG_SITES:,} sites, "
+        f"mean depth {slabs['long'][0].length.sum() / LONG_SITES:.2f}) in "
+        f"{time.perf_counter() - t0:.3f} s")
     out, kept = {}, {}  # kept: form -> (staged slab, staged holed slab)
     for name, (names, path, form) in PHASE3.items():
         kernel = _wrapper(name)

@@ -1,22 +1,29 @@
 #!/usr/bin/env python3
 """A/B of the code-word pileup kernels (flat_classic, flat_lc,
-tiled_classic) and the v2 fragment-row kernel (tiles_v2) of two source
-trees, on one GPU, on the slabs that chip_smoke.py's phase 3 gives them.
+tiled_classic) and the fragment-row kernels (tiles_v2, tiles_v1) of two
+source trees, on one GPU, on the slabs that chip_smoke.py's phase 3 gives
+them (tiles_v1 also on its long slab).
 
     python3 kernel_ab.py OTHER_TREE [--frags N] [--reps R] [--rounds K]
+                         [--listed B[,B...]]
 
 OTHER_TREE is another checkout of this repo (for the parent commit:
 `git archive HEAD~1 | tar -x -C build/parent`; build/ is ignored by git).
-Each tree's wgbs_tools_tpu_torch/csrc/pileup_v3.cu and pileup_v2.cu are
-compiled by nvcc with the port's flags into a library of its own, and both
+Each tree's wgbs_tools_tpu_torch/csrc/pileup_v3.cu, pileup_v2.cu and
+pileup_v1.cu are compiled by nvcc with the port's flags into a library of its own, and both
 are called through ctypes on the same staged tensors (staged by this tree;
 the layout is the same in both), in turns other, this, this, other (K
-rounds). Every output must equal the kernel's plain twin. Times are the
+rounds). --listed also times this tree's tiles_v1 in its listed
+(warp-per-row) form at every w16, B CTAs per SM, in the same turns: a
+probe source that includes pileup_v1.cu and calls its launch_tiles<0, B>
+takes pileup_v1.cu's place in a third build. Every output must equal the
+kernel's plain twin. Times are the
 card's (chip_smoke._device_ms: launches queued behind a spinning kernel),
 per slab (for the code-word kernels both rc-class launches) and per
 rc-class launch. Prints the card's name and power limit, one line per
 kernel, slab and run, and last one JSON object with every run's times and
-each tree's ptxas registers (the most any template instance uses).
+each tree's ptxas registers (the most any template instance uses, and each
+instance's).
 """
 
 import argparse
@@ -37,24 +44,47 @@ sys.path.insert(0, REPO)
 import chip_smoke  # noqa: E402
 
 SRCS = ("wgbs_tools_tpu_torch/csrc/pileup_v3.cu",
-        "wgbs_tools_tpu_torch/csrc/pileup_v2.cu")
+        "wgbs_tools_tpu_torch/csrc/pileup_v2.cu",
+        "wgbs_tools_tpu_torch/csrc/pileup_v1.cu")
 # kernel -> (its pats, the staging path of chip_smoke.PHASE3)
 KERNELS = {name: chip_smoke.PHASE3[name][:2]
            for name in ("flat_classic", "flat_lc", "tiled_classic",
-                        "tiles_v2")}
+                        "tiles_v2", "tiles_v1")}
 # C entry -> (device pointers, int64 scalars) before the stream
 ENTRIES = {"pileup_flat_classic": (5, 5), "pileup_flat_lc": (6, 5),
-           "pileup_tiled_classic": (5, 6), "pileup_tiles_v2": (5, 6)}
+           "pileup_tiled_classic": (5, 6), "pileup_tiles_v2": (5, 6),
+           "pileup_tiles_v1": (5, 5)}
 
 
-def build(tree, out_dir):
-    """nvcc the tree's pileup_v3.cu and pileup_v2.cu into out_dir/lib.so;
+PROBE = """#include "{src}"
+"""
+PROBE_ENTRY = """extern "C" int pileup_tiles_v1_listed_b{b}(
+    const void* lo, const void* hi, const void* meta, const void* words,
+    void* out, int64_t num_tiles, int64_t window_len, int64_t tile,
+    int64_t fc, int64_t w16, void* stream) {{
+    return launch_tiles<0, {b}>(lo, hi, meta, words, out, num_tiles,
+                                window_len, tile, fc, w16, stream);
+}}
+"""
+
+
+def build(tree, out_dir, listed=()):
+    """nvcc the tree's pileup_v3.cu, pileup_v2.cu and pileup_v1.cu into
+    out_dir/lib.so (with `listed`, a probe in place of pileup_v1.cu that
+    adds an entry pileup_tiles_v1_listed_bB for each B);
     returns (the loaded library, {kernel: registers}, whether its tiled
-    entry takes max_chunks (the first tiled grid) rather than n_chunks)."""
+    entry takes max_chunks (the first tiled grid) rather than n_chunks,
+    {template instance: registers})."""
     from wgbs_tools_tpu_torch import _kernels
 
     os.makedirs(out_dir, exist_ok=True)
     srcs = [op.join(tree, src) for src in SRCS]
+    if listed:
+        probe = op.join(out_dir, "probe_v1.cu")
+        with open(probe, "w") as f:
+            f.write(PROBE.format(src=srcs[-1]) + "".join(
+                PROBE_ENTRY.format(b=b) for b in listed))
+        srcs[-1] = probe
     so = op.join(out_dir, "lib.so")
     proc = subprocess.run([_kernels._nvcc()] + _kernels.NVCC_FLAGS
                           + ["-shared", "-o", so] + srcs,
@@ -62,44 +92,55 @@ def build(tree, out_dir):
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {srcs}:\n{proc.stdout}"
                            f"{proc.stderr}")
-    regs, entry = {}, None
+    regs, inst, entry = {}, {}, None
     for line in (proc.stdout + proc.stderr).splitlines():
         if "Compiling entry function" in line:
             entry = next((k for k in KERNELS if k + "_kernel" in line), None)
+            m = re.search(r"_kernel(I\w*?E)Ev", line)
+            key = entry and entry + (m.group(1) if m else "")
         m = re.search(r"Used (\d+) registers", line)
         if m and entry is not None:
             regs[entry] = max(regs.get(entry, 0), int(m.group(1)))
+            inst[key] = int(m.group(1))
     lib = ctypes.CDLL(so)
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
-    for name, (n_ptr, n_int) in ENTRIES.items():
+    entries = dict(ENTRIES, **{f"pileup_tiles_v1_listed_b{b}":
+                               ENTRIES["pileup_tiles_v1"] for b in listed})
+    for name, (n_ptr, n_int) in entries.items():
         fn = getattr(lib, name)
         fn.argtypes = [vp] * n_ptr + [i64] * n_int + [vp]
         fn.restype = ctypes.c_int
     with open(srcs[0]) as f:
         max_chunks = "int64_t max_chunks" in f.read()
-    return lib, regs, max_chunks
+    return lib, regs, max_chunks, inst
 
 
-def launcher(tree_lib, name, st, span):
-    """A function that launches kernel `name` of a built tree on one
-    staged batch into its own output, and the output."""
+def launcher(tree_lib, name, st, span, entry=None):
+    """A function that launches kernel `name` of a built tree (through its
+    C entry `entry`, pileup_<name> by default) on one staged batch into its
+    own output, and the output."""
     import torch
 
-    lib, _, max_chunks = tree_lib
+    lib, _, max_chunks, _ = tree_lib
     out = torch.zeros((span, 2), dtype=torch.int32, device=st.device)
     num_tiles = -(-span // st.tile)
-    head = [st.c0.data_ptr(), st.c1.data_ptr(), st.meta.data_ptr()]
-    if name == "tiles_v2":
-        args = head + [st.words.data_ptr(), out.data_ptr(), num_tiles, span,
-                       st.tile, st.fc, st.g_max, st.w_cols]
+    if name == "tiles_v1":
+        args = [st.lo.data_ptr(), st.hi.data_ptr(), st.meta.data_ptr(),
+                st.words.data_ptr(), out.data_ptr(), num_tiles, span,
+                st.tile, st.fc, st.w16]
+    elif name == "tiles_v2":
+        args = [st.c0.data_ptr(), st.c1.data_ptr(), st.meta.data_ptr(),
+                st.words.data_ptr(), out.data_ptr(), num_tiles, span,
+                st.tile, st.fc, st.g_max, st.w_cols]
     else:
         planes = [st.rows.data_ptr()] + (
             [st.cnts.data_ptr()] if name == "flat_lc" else [])
         extra = ([st.max_chunks if max_chunks else st.meta.shape[0]]
                  if name == "tiled_classic" else [])
-        args = (head + planes + [out.data_ptr(), num_tiles, span, st.tile_sb,
-                                 st.rc, st.g_max] + extra)
-    fn = getattr(lib, "pileup_" + name)
+        args = ([st.c0.data_ptr(), st.c1.data_ptr(), st.meta.data_ptr()]
+                + planes + [out.data_ptr(), num_tiles, span, st.tile_sb,
+                            st.rc, st.g_max] + extra)
+    fn = getattr(lib, entry or "pileup_" + name)
 
     def launch():
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
@@ -115,12 +156,15 @@ def main():
     p.add_argument("--frags", type=int, default=20_000_000)
     p.add_argument("--reps", type=int, default=20)
     p.add_argument("--rounds", type=int, default=2)
+    p.add_argument("--listed", default="",
+                   help="CTAs per SM (comma-separated) at which to time this "
+                        "tree's tiles_v1 also in its listed form")
     args = p.parse_args()
+    listed = [int(b) for b in args.listed.split(",") if b]
 
     import torch
 
-    from wgbs_tools_tpu_torch.ops import pileup_v2 as pv2
-    from wgbs_tools_tpu_torch.ops import pileup_v3 as pv3
+    from wgbs_tools_tpu_torch.ops import pileup_v1, pileup_v2, pileup_v3
 
     smi = chip_smoke.phase_card()
     os.makedirs(op.join(REPO, "build"), exist_ok=True)
@@ -128,21 +172,32 @@ def main():
     try:
         trees = {"other": build(op.abspath(args.other), op.join(work, "o")),
                  "this": build(REPO, op.join(work, "t"))}
+        if listed:
+            probe = build(REPO, op.join(work, "p"), listed)
+        # the tiles_v1 variants beyond the two trees: (tree, C entry)
+        forms = {f"listed b{b}": (probe, f"pileup_tiles_v1_listed_b{b}")
+                 for b in listed}
         big, deep = chip_smoke.phase_data(work, args.frags)
         slabs = {"big": chip_smoke._first_slab(big),
                  "deep": chip_smoke._first_slab(deep)}
+        slabs["long"] = chip_smoke.long_slab()
         dev = torch.device("cuda")
         runs = []
         for name, (pats, path) in KERNELS.items():
-            plain = getattr(pv2 if name == "tiles_v2" else pv3,
-                            name + "_plain")
+            module = {"tiles_v1": pileup_v1,
+                      "tiles_v2": pileup_v2}.get(name, pileup_v3)
+            plain = getattr(module, name + "_plain")
             for pat in pats:
                 sel, lo, span = slabs[pat]
                 sts = chip_smoke._stage(sel, lo, span, dev, path)
                 want = sum(plain(st, span) for st in sts)
+                variants = {tree: (tl, None) for tree, tl in trees.items()}
+                if name == "tiles_v1":
+                    variants.update(forms)
                 calls = {}
-                for tree, tl in trees.items():
-                    calls[tree] = [launcher(tl, name, st, span) for st in sts]
+                for tree, (tl, entry) in variants.items():
+                    calls[tree] = [launcher(tl, name, st, span, entry)
+                                   for st in sts]
                     for launch, _ in calls[tree]:
                         launch()
                     torch.cuda.synchronize()
@@ -150,7 +205,7 @@ def main():
                     if not torch.equal(got, want):
                         raise RuntimeError(f"{tree} {name} on {pat}: kernel "
                                            "!= twin")
-                order = ["other", "this", "this", "other"] * args.rounds
+                order = (list(calls) + list(calls)[::-1]) * args.rounds
                 for i, tree in enumerate(order):
                     cl = calls[tree]
                     ms = chip_smoke._device_ms(
@@ -171,17 +226,20 @@ def main():
                 med = {tree: statistics.median(
                     r["ms"] for r in runs if r["kernel"] == name
                     and r["slab"] == pat and r["tree"] == tree)
-                    for tree in trees}
+                    for tree in dict.fromkeys(
+                        r["tree"] for r in runs if r["kernel"] == name)}
                 summary[f"{name} {pat}"] = med
-                chip_smoke.log(f"A/B {name} on {pat}: median other "
-                               f"{med['other']:.4f} ms, this "
-                               f"{med['this']:.4f} ms "
-                               f"({med['other'] / med['this']:.2f}x)")
+                chip_smoke.log(f"A/B {name} on {pat}: median " + ", ".join(
+                    f"{tree} {v:.4f} ms ({med['other'] / v:.2f}x)"
+                    for tree, v in med.items()))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(smi, flush=True)
     print(json.dumps({"card": smi, "reps": args.reps, "median_ms": summary,
                       "registers": {t: tl[1] for t, tl in trees.items()},
+                      "instances": {t: tl[3] for t, tl in dict(
+                          trees, **({"probe": probe} if listed else {})
+                      ).items()},
                       "runs": runs}), flush=True)
     return 0
 

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 from synth import random_frags
+from test_torch_oracle_lib import oracle_lib
 from wgbs_tools_tpu import native as jnat
 from wgbs_tools_tpu.formats import bgzf as jbgzf
 from wgbs_tools_tpu.formats import pat as jpat
@@ -26,7 +27,7 @@ from wgbs_tools_tpu_torch.formats import pat as ppat
 from wgbs_tools_tpu_torch.formats.beta import trim_to_uint
 from wgbs_tools_tpu_torch.genome.refdir import Genome
 
-pytestmark = pytest.mark.skipif(jnat.get_lib() is None,
+pytestmark = pytest.mark.skipif(oracle_lib() is None,
                                 reason="the JAX package's native library "
                                        "(the reference) is unavailable")
 

@@ -14,8 +14,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from synth import random_frags  # noqa: E402
+from test_torch_oracle_lib import oracle_lib  # noqa: E402
 from wgbs_tools_tpu.formats.pat import write_pat  # noqa: E402
-from wgbs_tools_tpu.native import get_lib  # noqa: E402
 from wgbs_tools_tpu.pipeline.pat2beta import (  # noqa: E402
     pat2beta as jax_pat2beta,
 )
@@ -24,7 +24,7 @@ from wgbs_tools_tpu_torch.parallel.multihost import (  # noqa: E402
     run_pat2beta_multiprocess,
 )
 
-pytestmark = pytest.mark.skipif(get_lib() is None,
+pytestmark = pytest.mark.skipif(oracle_lib() is None,
                                 reason="native library unavailable")
 
 REPO = op.dirname(op.dirname(op.abspath(__file__)))

@@ -7,8 +7,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from synth import random_frags  # noqa: E402
+from test_torch_oracle_lib import oracle_lib  # noqa: E402
 from wgbs_tools_tpu.formats.pat import write_pat  # noqa: E402
-from wgbs_tools_tpu.native import get_lib  # noqa: E402
 from wgbs_tools_tpu.pipeline.pat2beta import (  # noqa: E402
     pat2beta as jax_pat2beta,
     pat2beta_counts as jax_pat2beta_counts,
@@ -18,7 +18,7 @@ from wgbs_tools_tpu_torch.pipeline.pat2beta import (  # noqa: E402
     pat2beta_counts,
 )
 
-pytestmark = pytest.mark.skipif(get_lib() is None,
+pytestmark = pytest.mark.skipif(oracle_lib() is None,
                                 reason="native library unavailable")
 
 N_SITES = 9000

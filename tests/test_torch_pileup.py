@@ -8,8 +8,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from synth import random_frags  # noqa: E402
+from test_torch_oracle_lib import oracle_lib  # noqa: E402
 from wgbs_tools_tpu.formats.beta import trim_to_uint  # noqa: E402
-from wgbs_tools_tpu.native import get_lib  # noqa: E402
 from wgbs_tools_tpu.ops import pileup as jax_pileup  # noqa: E402
 from wgbs_tools_tpu_torch.ops import pileup  # noqa: E402
 
@@ -44,7 +44,7 @@ def test_accumulator_equals_jax(backend):
     forms = FORMS.get(backend, {})
     if backend in FORMS:
         backend = "cuda"
-    if backend == "native" and get_lib() is None:
+    if backend == "native" and oracle_lib() is None:
         pytest.skip("native library unavailable")
     rng = np.random.default_rng(17)
     f = random_frags(rng, 12_000, 40_000, max_len=20, max_count=9)
@@ -96,7 +96,7 @@ def test_pileup_frags_equals_jax(monkeypatch, backend, jax_backend, forms):
     """The port's pileup_frags == the JAX package's, backend for backend,
     on a batch with fragments on both sides of the window; the JAX v3
     forms are picked with its switches, the port's with keywords."""
-    if backend.startswith("cuda") and get_lib() is None:
+    if backend.startswith("cuda") and oracle_lib() is None:
         pytest.skip("native library unavailable")
     if forms.get("vals") is False:
         monkeypatch.setenv("WGBS_TPU_V3_VALS", "0")

@@ -12,12 +12,12 @@ torch = pytest.importorskip("torch")
 import chip_smoke  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from synth import random_frags  # noqa: E402
-from wgbs_tools_tpu.native import get_lib  # noqa: E402
+from test_torch_oracle_lib import oracle_lib  # noqa: E402
 from wgbs_tools_tpu.ops import pileup_tpu3 as jax_v3  # noqa: E402
 from wgbs_tools_tpu.ops.pileup import pileup_xla  # noqa: E402
 from wgbs_tools_tpu_torch.ops import pileup_v3  # noqa: E402
 
-pytestmark = pytest.mark.skipif(get_lib() is None,
+pytestmark = pytest.mark.skipif(oracle_lib() is None,
                                 reason="native packer unavailable")
 
 SMALL = dict(tile=512, rc=64, g_max=4)

@@ -9,7 +9,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from synth import random_frags  # noqa: E402
-from wgbs_tools_tpu.native import get_lib  # noqa: E402
+from test_torch_oracle_lib import oracle_lib  # noqa: E402
 from wgbs_tools_tpu.parallel.mesh import make_mesh  # noqa: E402
 from wgbs_tools_tpu.parallel.sharded import (  # noqa: E402
     ShardedPileupV3 as JaxShardedPileupV3,
@@ -20,7 +20,7 @@ from wgbs_tools_tpu_torch.parallel.mesh import shard_devices  # noqa: E402
 from wgbs_tools_tpu_torch.parallel.sharded import ShardedPileupV3  # noqa: E402
 from wgbs_tools_tpu_torch.pipeline import pat2beta as port_pat2beta  # noqa: E402
 
-pytestmark = pytest.mark.skipif(get_lib() is None,
+pytestmark = pytest.mark.skipif(oracle_lib() is None,
                                 reason="native packer unavailable")
 
 # (n_sites, random_frags kwargs, batch bounds); fragments sorted + collapsed

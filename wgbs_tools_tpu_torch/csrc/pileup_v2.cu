@@ -67,7 +67,8 @@
 //   16 bits (a deep site sums thousands of counts of up to 3000).
 // - The epilogue scans d in rounds of 2 x 256 sites (two per thread, warp
 //   shuffles, one partial sum per warp in shared memory) and writes each
-//   pair of sites as one 16-B (meth, cov, meth, cov) store.
+//   pair of sites as one 16-B (meth, cov, meth, cov) store. The tile, the
+//   decode and the epilogue are frag_tile.cuh's, shared with pileup_v1.cu.
 // Balance: 256 threads and (3 x tile + 4) x 4 B = 12 KB of shared memory per
 // CTA; the launch bound asks for 6 CTAs per SM (at most 40 registers), and U
 // is 3 chunks for w_cols 2 (2 and 1 for 4 and 8), which ptxas fits with no
@@ -79,34 +80,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "frag_tile.cuh"
 #include "launch.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int BLOCKS = 6;  // CTAs per SM the launch bound asks for
-
-// Row `row`'s W words, as one 8-B (W = 2) or one or two 16-B loads; the
-// wrapper checks that `words` is aligned to min(4 * W, 16) bytes.
-template <int W>
-__device__ __forceinline__ void load_words(const uint32_t* __restrict__ words,
-                                           int64_t row, uint32_t (&w)[W]) {
-    if constexpr (W == 2) {
-        const uint2 v = __ldg(reinterpret_cast<const uint2*>(words) + row);
-        w[0] = v.x;
-        w[1] = v.y;
-    } else {
-        const uint4* p = reinterpret_cast<const uint4*>(words) + row * (W / 4);
-#pragma unroll
-        for (int q = 0; q < W / 4; ++q) {
-            const uint4 v = __ldg(p + q);
-            w[4 * q] = v.x;
-            w[4 * q + 1] = v.y;
-            w[4 * q + 2] = v.z;
-            w[4 * q + 3] = v.w;
-        }
-    }
-}
 
 // Starts of row r of tile t - 1's chunks [c, c + U); INT32_MIN, which no
 // reach test passes, for chunks at or past prev1.
@@ -121,17 +101,12 @@ __device__ __forceinline__ void load_starts(const int* __restrict__ meta,
 }
 
 // Adds a row's sites in tile t (site0 = t * tile) into the accumulators, if
-// the row is real: site rel + j, j < min(len, 16 * W), with code j = field
-// j >> log2(W) of word j & (W - 1). pm: [0, tile) T counts, then [tile,
-// 2 * tile) '.' counts (pc); d: the difference array (tile + 1 entries).
+// the row is real: site rel + j, j < min(len, 16 * W).
 template <int W>
 __device__ __forceinline__ void add_row(uint32_t* pm, uint32_t* d, int tile,
                                         int64_t site0, int rel, int lw,
                                         int n, const uint32_t (&w)[W],
                                         int g_max) {
-    constexpr int H = W / 2;                           // merged masks
-    constexpr int SH = W == 2 ? 0 : (W == 4 ? 1 : 2);  // log2(H)
-    constexpr uint32_t EVEN = 0x55555555u;  // low bit of every 2-bit field
     const int dg = lw >> 16;
     if (dg < 0 || dg >= g_max) return;  // padding, the base_g row among them
     const int64_t len = min(lw & 0xFFFF, 16 * W);
@@ -140,29 +115,8 @@ __device__ __forceinline__ void add_row(uint32_t* pm, uint32_t* d, int tile,
     // now off is in (-16 * W, tile), and the row's sites j in [j0, j1) are
     // tile sites o + j
     const int o = (int)off;
-    const int j0 = max(0, -o);
-    const int j1 = min((int)len, tile - o);
-    atomicAdd(d + o + j0, (uint32_t)n);
-    atomicAdd(d + o + j1, 0u - (uint32_t)n);
-#pragma unroll
-    for (int c = 0; c < H; ++c) {
-        // bit p of the merged masks: field p / 2 of word c + H * (p % 2),
-        // site j = (p << SH) + c
-        const uint32_t alo = w[c] & EVEN, ahi = (w[c] >> 1) & EVEN;
-        const uint32_t blo = w[c + H] & EVEN, bhi = (w[c + H] >> 1) & EVEN;
-        const uint32_t dot = (alo & ahi) | ((blo & bhi) << 1);
-        const uint32_t tee = (~(alo | ahi) & EVEN) | ((~(blo | bhi) & EVEN) << 1);
-        // bits of the sites in [j0, j1): [ceil((j0 - c) / H), ceil((j1 - c) / H))
-        const int lo_p = (j0 - c + H - 1) >> SH;
-        const int hi_p = (j1 - c + H - 1) >> SH;  // <= 32
-        uint32_t m = (dot | tee) & (uint32_t)((1ull << hi_p) - (1ull << lo_p));
-        uint32_t* at = pm + o + c;
-        while (m) {
-            const int p = __ffs(m) - 1;
-            m &= m - 1;
-            atomicAdd(at + (p << SH) + ((dot >> p) & 1u) * tile, (uint32_t)n);
-        }
-    }
+    wgbs::add_sites<W>(pm, d, tile, o, max(0, -o), min((int)len, tile - o),
+                       (uint32_t)n, w);
 }
 
 // CTA t: tile t of the pileup. U: chunks whose row loads a thread issues
@@ -182,8 +136,7 @@ tiles_v2_kernel(const int* __restrict__ c0, const int* __restrict__ c1,
     const int own0 = __ldg(c0 + t), own1 = __ldg(c1 + t);
     const int prev0 = t > 0 ? __ldg(c0 + t - 1) : 0;
     const int prev1 = t > 0 ? __ldg(c1 + t - 1) : 0;
-    for (int i = threadIdx.x; i < (3 * tile + 4) / 4; i += THREADS)
-        smem4[i] = make_int4(0, 0, 0, 0);
+    wgbs::zero_tile(smem4, tile);
     __syncthreads();
 
     const int64_t reach = site0 - 16 * W;
@@ -205,7 +158,7 @@ tiles_v2_kernel(const int* __restrict__ c0, const int* __restrict__ c1,
                     rel[k] = __ldg(m);
                     lw[k] = __ldg(m + fc);
                     n[k] = __ldg(m + 2 * fc);
-                    load_words<W>(words, (int64_t)(c + k) * fc + r, w[k]);
+                    wgbs::load_words<W>(words, (int64_t)(c + k) * fc + r, w[k]);
                 }
             }
 #pragma unroll
@@ -229,7 +182,7 @@ tiles_v2_kernel(const int* __restrict__ c0, const int* __restrict__ c1,
                     const int* m = meta + (int64_t)(c + k) * 3 * fc + r;
                     lw[k] = __ldg(m + fc);
                     n[k] = __ldg(m + 2 * fc);
-                    load_words<W>(words, (int64_t)(c + k) * fc + r, w[k]);
+                    wgbs::load_words<W>(words, (int64_t)(c + k) * fc + r, w[k]);
                 }
             }
 #pragma unroll
@@ -240,46 +193,7 @@ tiles_v2_kernel(const int* __restrict__ c0, const int* __restrict__ c1,
     }
     __syncthreads();
 
-    // cov = prefix(d) - pc, meth = cov - pm, in rounds of 2 x THREADS sites:
-    // two per thread, scanned within the warp by shuffles and across warps
-    // through s_warp; each pair written as one 16-B (meth, cov, meth, cov)
-    // store where the output is 16-B aligned, clipped to the window
-    const bool wide = ((uintptr_t)out & 15u) == 0;  // uniform over the CTA
-    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-    uint32_t carry = 0u;  // prefix of d before the round
-    for (int i0 = 0; i0 < tile; i0 += 2 * THREADS) {
-        const int i = i0 + 2 * threadIdx.x;  // tile is even
-        const uint32_t d0 = i < tile ? d[i] : 0u;
-        const uint32_t d1 = i < tile ? d[i + 1] : 0u;
-        uint32_t x = d0 + d1;
-#pragma unroll
-        for (int s = 1; s < 32; s <<= 1) {
-            const uint32_t y = __shfl_up_sync(~0u, x, s);
-            if (lane >= s) x += y;
-        }
-        if (lane == 31) s_warp[warp] = x;
-        __syncthreads();
-        uint32_t pre = carry;
-#pragma unroll
-        for (int k = 0; k < THREADS / 32; ++k) {
-            const uint32_t v = s_warp[k];
-            pre += k < warp ? v : 0u;
-            carry += v;
-        }
-        __syncthreads();  // s_warp is read; the next round may write it
-        const int64_t site = site0 + i;
-        if (i >= tile || site >= window_len) continue;
-        const uint32_t cov1 = pre + x - pm[tile + i + 1];
-        const uint32_t cov0 = pre + x - d1 - pm[tile + i];
-        const int4 v = make_int4((int)(cov0 - pm[i]), (int)cov0,
-                                 (int)(cov1 - pm[i + 1]), (int)cov1);
-        if (wide && site + 1 < window_len) {
-            *reinterpret_cast<int4*>(out + site) = v;
-            continue;
-        }
-        out[site] = make_int2(v.x, v.y);
-        if (site + 1 < window_len) out[site + 1] = make_int2(v.z, v.w);
-    }
+    wgbs::store_tile<THREADS>(pm, d, s_warp, tile, site0, window_len, out);
 }
 
 template <int W>
@@ -290,7 +204,8 @@ int launch_tiles(const void* c0, const void* c1, const void* meta,
     // a big slab's tile holds ~3 chunks; at most 40 registers with no spills
     constexpr int U = W == 2 ? 3 : (W == 4 ? 2 : 1);
     return wgbs::launch(tiles_v2_kernel<W, U>, dim3((unsigned)num_tiles),
-                        THREADS, (size_t)(3 * tile + 4) * sizeof(int), stream,
+                        THREADS, (size_t)wgbs::tile_smem_words((int)tile) * sizeof(int),
+                        stream,
                         (const int*)c0, (const int*)c1, (const int*)meta,
                         (const uint32_t*)words, (int2*)out, window_len,
                         (int)tile, (int)fc, (int)g_max);

@@ -22,7 +22,8 @@ slab at max_len 128), and the codes are taken directly rather than through
 JAX's packed() -> unpack_codes round trip (pileup.py:288-293), which pads
 with '.' too.
 
-The kernel (csrc/pileup_v1.cu::tiles_v1_kernel) replaces
+The kernel (csrc/pileup_v1.cu::tiles_v1_kernel: a thread per row for w16
+8 and 16, a warp per row for any other w16) replaces
 pileup_tpu.py::_pileup_kernel. A wrapper sends CUDA tensors to the kernel
 and CPU tensors to the twin; any other device raises. `tiles_v1.launches`
 counts its launches.
@@ -157,9 +158,10 @@ def _check(st, window_len):
     """Validate a v1 staged batch; returns num_tiles."""
     if window_len < 1:
         raise ValueError(f"window_len={window_len} must be >= 1")
-    if st.tile < 1 or st.fc < 1 or st.w16 < 1:
-        raise ValueError(f"tile={st.tile}, fc={st.fc}, w16={st.w16} must be "
-                         ">= 1")
+    if st.tile < 2 or st.tile % 2 or st.fc < 1 or st.w16 < 1:
+        raise ValueError(f"tile={st.tile}, fc={st.fc}, w16={st.w16}: want an "
+                         "even tile (the kernel writes sites in pairs), fc "
+                         "and w16 >= 1")
     num_tiles = (window_len + st.tile - 1) // st.tile
     n_chunks = st.meta.shape[0]
     want = {"lo": (num_tiles,), "hi": (num_tiles,),
@@ -184,6 +186,11 @@ def tiles_v1(st, window_len):
     num_tiles = _check(st, window_len)
     if st.device.type == "cpu":
         return tiles_v1_plain(st, window_len)
+    # w16 8 and 16 take the thread-per-row form, which loads a row's words
+    # as 16-B vectors
+    if st.w16 in (8, 16) and st.words.data_ptr() % 16:
+        raise ValueError("staged words must be 16-byte aligned for the "
+                         "kernel's vector loads")
     out = torch.empty((window_len, 2), dtype=torch.int32, device=st.device)
     _kernels.launch("pileup_tiles_v1", st.device, st.lo.data_ptr(),
                     st.hi.data_ptr(), st.meta.data_ptr(), st.words.data_ptr(),
