@@ -6,10 +6,11 @@
 Phases, each printed as it runs; any failure exits nonzero and prints no
 result line:
   1. the card: `nvidia-smi` name and power limit; fails without CUDA.
-  2. build: nvcc compiles the three sources csrc/*.cu for sm_90a, in
+  2. build: nvcc compiles the four sources csrc/*.cu for sm_90a, in
      parallel (seconds and ptxas register counts printed), and g++ the
-     port's host library (host/wgbsio.cpp) that decoding, staging and the
-     oracle run; both must load.
+     port's host library (host/wgbsio.cpp and host/segment_exact.cpp) that
+     decoding, staging, exact segmentation and the oracle run; both must
+     load.
   3. data, then kernels vs twins: a 20M-fragment pat.gz (<= 24 sites each)
      over hg19's 28,217,448 CpG sites and a small pat with counts up to
      3000 are written. Each of the 8 CUDA kernels is held against its plain
@@ -72,8 +73,26 @@ result line:
      grid="tiled" (tiled_classic), backend="cuda_v2" (tiles_v2) and
      backend="cuda_v1" (tiles_v1) writes phase 4's oracle bytes, each with
      its kernel's launch counter >= 1, and the wall of each configuration.
+  8. segment at hg19 size (bench_segment4.py's shape): 3 betas over
+     28,217,448 sites made from a seed (Poisson(10) coverage each, 300-site
+     blocks of methylation 0.15 / 0.85) on a genome of that many sites with
+     loci cumsum(integers(5, 60)) + 100, and the CLI defaults (max_cpg
+     1000, max_bp 2000, 60,000-site chunks: 471). `segment --mode exact`
+     through the CLI on the host cores, then `segment --mode fast --device
+     cuda` with the launch counters set to 0 just before and read just
+     after (maxplus_closure must launch): both walls, the fast run's stage
+     seconds, each bed checked to tile [1, N + 1), and the share of exact
+     borders that fast mode finds (fails under 0.95). maxplus_closure is
+     held to its twin with tolerance 0 on the main path's batch (8 real
+     chunks: 3,752 matrices of 129 x 129) and on hand-made edges (all -inf
+     off the diagonal; W 64 < B; a ragged last block), and timed beside
+     its bound (pairs x 2 instructions over 132 SMs x 128 FP32 lanes x
+     clocks.max.sm; pairs: the (p, r, q) whose two terms are finite on
+     this run's data, per squaring); the fast DP's T on the card equals the CPU's (the
+     twin's closures) on one real chunk fed the same cost tensor.
 Then a summary (the card line again, build, end to end), one
-{"kernels": [...]} line, and last {"ok": true, "device": ...}.
+{"kernels": [...]} line (the 8 pileup kernels and maxplus_closure), and
+last {"ok": true, "device": ...}.
 
 Scratch data goes to build/ (ignored by git) and is deleted at the end.
 """
@@ -115,6 +134,9 @@ KERNELS = {
                  "wgbs_tools_tpu/ops/pileup_tpu2.py:62"),
     "tiles_v1": ("pileup_v1", _CSRC + "pileup_v1.cu",
                  "wgbs_tools_tpu/ops/pileup_tpu.py:54"),
+    # not a Pallas kernel: the XLA max-plus closure of fast segmentation
+    "maxplus_closure": ("maxplus", _CSRC + "maxplus.cu",
+                        "wgbs_tools_tpu/models/segment.py:313"),
 }
 BGZF_EOF = bytes.fromhex("1f8b08040000000000ff0600424302001b0003000000000000"
                          "000000")
@@ -1602,6 +1624,245 @@ def phase_forms(work, big, deep, n_frags):
     return launches, "; ".join(walls)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: segment at hg19 size, bench_segment4.py's shape
+# ---------------------------------------------------------------------------
+
+SEG_K = 3          # betas
+SEG_COV = 10.0     # Poisson coverage of each beta (~30x in all)
+SEG_BLOCK = 300    # sites per methylation block (p 0.15 / 0.85)
+SEG_GENOME = "hg19seg"
+SEG_ARGS = dict(max_cpg=1000, max_bp=2000, pcount=15.0)  # the CLI defaults
+SEG_BATCH = 8      # windows per launch of segment_windows_fast
+
+
+def write_seg_data(work, refs):
+    """bench_segment4.py:66-85's data at N_SITES sites: one chromosome with
+    loci cumsum(integers(5, 60)) + 100 (reference SEG_GENOME), and SEG_K
+    betas of Poisson(SEG_COV) coverage over SEG_BLOCK-site blocks of
+    methylation 0.15 / 0.85 (+ N(0, 0.05), clipped to [0.01, 0.99]), from
+    its seed. Returns (beta paths, loci)."""
+    import numpy as np
+
+    from wgbs_tools_tpu_torch.formats.beta import save_beta
+
+    rng = np.random.default_rng(20260821)
+    loci = np.cumsum(rng.integers(5, 60, size=N_SITES, dtype=np.int64)) + 100
+    gdir = op.join(refs, SEG_GENOME)
+    os.makedirs(gdir)
+    np.savez(op.join(gdir, "cpg_index.npz"), loci=loci.astype(np.int32),
+             chrom_offsets=np.array([0, N_SITES], np.int64),
+             chrom_sizes=np.array([int(loci[-1]) + 100], np.int64))
+    with open(op.join(gdir, "cpg_index.json"), "w") as f:
+        json.dump({"name": SEG_GENOME, "chroms": ["chr1"],
+                   "nr_sites": N_SITES}, f)
+    betas = []
+    for k in range(SEG_K):
+        cov = rng.poisson(SEG_COV, size=N_SITES).astype(np.int64)
+        p = np.clip(0.15 + 0.7 * ((np.arange(N_SITES) // SEG_BLOCK) % 2)
+                    + rng.normal(0, 0.05, size=N_SITES), 0.01, 0.99)
+        meth = rng.binomial(cov, p)
+        betas.append(save_beta(op.join(work, f"seg{k}.beta"),
+                               np.stack([meth, cov], axis=1)))
+        del cov, meth, p
+    return betas, loci.astype(np.int32)
+
+
+def _blocks_of(path):
+    """(startCpG, endCpG) of a blocks bed, checked to tile [1, N_SITES + 1)."""
+    import numpy as np
+
+    cols = np.loadtxt(path, dtype=np.int64, usecols=(3, 4), ndmin=2)
+    s, e = cols[:, 0], cols[:, 1]
+    if not (s[0] == 1 and e[-1] == N_SITES + 1 and (s[1:] == e[:-1]).all()
+            and (e > s).all()):
+        raise RuntimeError(f"{path}: the blocks do not tile [1, "
+                           f"{N_SITES + 1})")
+    return s, e
+
+
+def _sm_clock_mhz():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    return float(out)
+
+
+def _seg_closures(betas, loci, chunks, W, dev):
+    """The in-block edge matrices S0 of real chunks, as the main path's
+    batch gives them to maxplus_closure: (cost tensor, S0)."""
+    import numpy as np
+
+    from wgbs_tools_tpu_torch.formats.beta import load_beta
+    from wgbs_tools_tpu_torch.models import segment as seg
+
+    pms, pts = zip(*(seg._prefix_sums(np.stack([load_beta(b, sites=c)
+                                                 for b in betas]))
+                     for c in chunks))
+    Crev = seg._cost_fast(seg._int32(np.stack(pms), dev),
+                          seg._int32(np.stack(pts), dev),
+                          seg._int32(np.stack([loci[s - 1:e - 1]
+                                               for s, e in chunks]), dev),
+                          W, SEG_ARGS["max_bp"], SEG_ARGS["pcount"])
+    return Crev, seg._closure_inputs(Crev, W)[1]
+
+
+def _maxplus_pairs(S0, steps):
+    """The (add, max) pairs that the closure of S0 needs on this data: per
+    squaring, the triples (p, r, q) with S[p, r] and S[r, q] both finite
+    (a -inf term never wins the max), summed over the squarings. The
+    squarings between are the twin's. On the main path S0 = I (+) A with A
+    strictly upper triangular and banded (max_bp), so this is at most the
+    triangle p <= r <= q, (n + 2)(n + 1)n / 6 per matrix and squaring."""
+    import torch
+
+    from wgbs_tools_tpu_torch.ops import maxplus as mp
+
+    pairs, S = 0, S0
+    for i in range(steps):
+        fin = torch.isfinite(S)
+        pairs += int((fin.sum(1, dtype=torch.int64)
+                      * fin.sum(2, dtype=torch.int64)).sum())
+        if i + 1 < steps:
+            S = mp.maxplus_closure_plain(S, 1)
+    return pairs
+
+
+def phase_segment(work):
+    """segment at hg19 size through the port's CLI: exact mode on the host
+    cores, fast mode on the card (launch counters set to 0 just before and
+    read just after), their border agreement, the max-plus kernel against
+    its twin on real and hand-made closures and timed beside its bound, and
+    the fast DP's T on the card against the CPU's on one real chunk.
+    Returns (kernel results, launches, summary line)."""
+    import numpy as np
+    import torch
+
+    from wgbs_tools_tpu_torch.cli import cmd_segment
+    from wgbs_tools_tpu_torch.cli.main import main as cli_main
+    from wgbs_tools_tpu_torch.models import segment as seg
+    from wgbs_tools_tpu_torch.ops import maxplus as mp
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    betas, loci = write_seg_data(work, os.environ["WGBS_TPU_REFDIR"])
+    log(f"phase 8: wrote {SEG_K} betas over {N_SITES:,} sites (Poisson "
+        f"{SEG_COV} coverage each, {SEG_BLOCK}-site blocks) and genome "
+        f"{SEG_GENOME} in {time.perf_counter() - t0:.3f} s")
+    flags = ["--max_cpg", str(SEG_ARGS["max_cpg"]), "--max_bp",
+             str(SEG_ARGS["max_bp"]), "-p", str(SEG_ARGS["pcount"])]
+    base = ["--betas"] + betas + ["--genome", SEG_GENOME] + flags
+
+    exact_bed = op.join(work, "exact.bed")
+    t0 = time.perf_counter()
+    if cli_main(["segment"] + base + ["-o", exact_bed]):
+        raise RuntimeError("segment --mode exact CLI failed")
+    exact_wall = time.perf_counter() - t0
+    es, ee = _blocks_of(exact_bed)
+    log(f"phase 8: CLI segment --mode exact on the host ({os.cpu_count()} "
+        f"threads): {exact_wall:.3f} s, {len(es):,} blocks tiling "
+        f"[1, {N_SITES + 1:,})")
+
+    fast_bed = op.join(work, "fast.bed")
+    timings = {}
+    _zero_launches()
+    t0 = time.perf_counter()
+    if cmd_segment.main(base + ["--mode", "fast", "--device", "cuda", "-o",
+                                fast_bed], timings=timings):
+        raise RuntimeError("segment --mode fast CLI failed")
+    fast_wall = time.perf_counter() - t0
+    launches = _read_launches()
+    _require_launches("phase 8", launches, ("maxplus_closure",))
+    fs, fe = _blocks_of(fast_bed)
+    exact_b = np.union1d(es, ee)
+    share = np.intersect1d(exact_b, np.union1d(fs, fe)).size / exact_b.size
+    stages = ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
+    log(f"phase 8: CLI segment --mode fast --device cuda: {fast_wall:.3f} s "
+        f"({stages}; each device stage synchronized), {len(fs):,} blocks "
+        f"tiling [1, {N_SITES + 1:,}); kernel launches {launches}")
+    log(f"phase 8: fast mode finds {share:.4%} of exact mode's "
+        f"{exact_b.size:,} borders")
+    if share < 0.95:
+        raise RuntimeError(f"fast mode found {share:.4%} of the exact "
+                           "borders, under 0.95")
+
+    # the kernel against its twin: the main path's batch of SEG_BATCH real
+    # chunks (60,000 sites, W = 1000: 469 blocks each), then hand-made
+    # edges: all -inf off the diagonal; W < B; a ragged last block
+    W = SEG_ARGS["max_cpg"]
+    chunk = seg.DEF_CHUNK
+    chunks = [(1 + i * chunk, 1 + (i + 1) * chunk) for i in range(SEG_BATCH)]
+    Crev, S0 = _seg_closures(betas, loci, chunks, W, dev)
+    steps = int(np.ceil(np.log2(seg.BLOCK)))
+    n = seg.BLOCK + 1
+    edge = torch.full((4, n, n), float("-inf"), device=dev)
+    edge[:, torch.arange(n), torch.arange(n)] = 0.0
+    cases = {"batch": S0, "all -inf off the diagonal": edge,
+             "W 64 < B": _seg_closures(betas, loci, chunks[:1], 64, dev)[1],
+             "ragged (1,000 sites)": seg._closure_inputs(
+                 Crev[:1, :1000].contiguous(), W)[1]}
+    for name, S in cases.items():
+        got = _launch_checked(mp.maxplus_closure, S, steps)
+        torch.cuda.synchronize()
+        want = mp.maxplus_closure_plain(S, steps)
+        if not torch.equal(got, want):
+            err = float((got - want).abs().nan_to_num(0.0).max())
+            raise RuntimeError(f"maxplus_closure != its twin on {name}: "
+                               f"max_abs_err {err}")
+        log(f"phase 8: maxplus_closure == twin (tolerance 0) on {name}: "
+            f"{S.shape[0]:,} matrices of {n} x {n}")
+    nb = S0.shape[0]
+    ms = _device_ms(lambda: mp.maxplus_closure(S0, steps), 5)
+    call_ms = _time_ms(lambda: mp.maxplus_closure(S0, steps), 5)
+    plain_ms = _time_ms(lambda: mp.maxplus_closure_plain(S0, steps), 1)
+    pairs = _maxplus_pairs(S0, steps)
+    tri = nb * steps * (n + 2) * (n + 1) * n // 6
+    clock = _sm_clock_mhz()
+    ops = 2 * pairs
+    t_ops = ops / (132 * 128 * clock * 1e6)
+    n_bytes = 2 * nb * n * n * 4
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    bound_ms = 1e3 * max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"phase 8: maxplus_closure on the batch ({nb:,} matrices, {steps} "
+        f"squarings): kernel {ms:.4f} ms on the card ({call_ms:.4f} ms per "
+        f"call), twin {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
+        f"({bound_by}) = {pairs:,} (add, max) pairs with both terms finite "
+        f"x 2 instructions / (132 SMs x 128 FP32 lanes x {clock:.0f} MHz "
+        f"clocks.max.sm) [the triangle p <= r <= q: {tri:,} pairs; the "
+        f"dense square: {nb * steps * n ** 3:,}; what the kernel scans, "
+        f"{mp.NMAX} x {mp.NMAX} outputs x {n} r: "
+        f"{nb * steps * mp.NMAX ** 2 * n:,}; bytes {n_bytes:,} / 3.35 TB/s = "
+        f"{1e3 * t_bytes:.4f} ms]; the kernel at "
+        f"{100 * bound_ms / ms:.1f} % of it")
+
+    # the fast DP's T on the card against the CPU's (the twin's closures)
+    # on one real chunk, fed the same cost tensor
+    t_dev = seg._dp_fast_blocked(Crev[0], W).cpu()
+    t0 = time.perf_counter()
+    t_cpu = seg._dp_fast_blocked(Crev[0].cpu(), W)
+    cpu_s = time.perf_counter() - t0
+    if not torch.equal(t_dev, t_cpu):
+        raise RuntimeError("the fast DP's T on the card != the CPU's on "
+                           f"chunk {chunks[0]}")
+    log(f"phase 8: fast DP T on the card == on the CPU for chunk "
+        f"{chunks[0]} ({chunk:,} sites, W {W}; the CPU took {cpu_s:.3f} s)")
+    del Crev, S0, cases
+    torch.cuda.empty_cache()
+    res = {"max_abs_err": 0.0, "ms": ms, "call_ms": call_ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": None, "pairs": pairs, "triangle_pairs": tri,
+           "matrices": nb,
+           "squarings": steps, "sm_clock_mhz": clock, "bytes": n_bytes}
+    line = (f"segment at {N_SITES:,} sites, {SEG_K} betas: exact (host) "
+            f"{exact_wall:.3f} s, {len(es):,} blocks; fast (cuda) "
+            f"{fast_wall:.3f} s ({stages}), {len(fs):,} blocks; fast finds "
+            f"{share:.4%} of exact's borders; maxplus_closure launches "
+            f"{launches['maxplus_closure']}")
+    return res, launches, line
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--frags", type=int, default=20_000_000,
@@ -1623,23 +1884,29 @@ def main():
         del slab
         workers, e2e_procs = phase_procs(work, big, args.frags)
         forms, e2e_forms = phase_forms(work, big, deep, args.frags)
+        kernels["maxplus_closure"], seg_launches, e2e_seg = \
+            phase_segment(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if torch.cuda.current_device() != 0:
         raise RuntimeError("the current CUDA device moved off cuda:0")
     # each kernel's launches on its path: the single-device CLI (phase 4),
     # the sharded pat2beta (phase 5), the split-plane accumulator (phase
-    # 5), pat2beta through the other forms (phase 7)
+    # 5), pat2beta through the other forms (phase 7), segment --mode fast
+    # (phase 8)
     launches = {"flat_vals_fused": ("phase 4 CLI", single),
                 "flat_classic": ("phase 4 CLI", single),
                 "flat_vals_add": ("phase 5 sharded pat2beta", sharded),
-                "flat_vals": ("phase 5 split-plane slab", split), **forms}
+                "flat_vals": ("phase 5 split-plane slab", split), **forms,
+                "maxplus_closure": ("phase 8 segment --mode fast CLI",
+                                    seg_launches)}
     # a summary at the end, which a log that keeps only its tail still shows
     print(smi, flush=True)
     log("end to end: " + e2e)
     log("end to end: " + e2e_sharded)
     log("end to end: " + e2e_procs)
     log("end to end: " + e2e_forms)
+    log("end to end: " + e2e_seg)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name][1][name],

@@ -1,10 +1,12 @@
 """The port's own host layer (utils, native, formats, genome) equals the
 JAX package's originals exactly, on seeded numpy inputs: the pat parser
-and streams, the BGZF reader and inflater, beta saturation, the host
-pileup (the device kernels' oracle), the v3 row packer and placers, and
-the genome's site count."""
+and streams, the BGZF reader, writer, compressor and inflater, beta IO and
+saturation, the host pileup (the device kernels' oracle), the v3 row
+packer and placers, blocks beds and their .tbi, the genome's site count,
+CpG index and region parsing, and the CLI's file checks."""
 
 import gzip
+import io
 import os
 
 import numpy as np
@@ -303,3 +305,214 @@ def test_utils_equal_jax(tmp_path, capsys):
         putils.validate_single_file(str(tmp_path / "missing.pat.gz"))
     with pytest.raises(putils.IllegalArgumentError, match="must end with"):
         putils.validate_single_file(str(out), ".pat.gz")
+
+
+# ---------------------------------------------------------------------------
+# the host copies that segment reads: file checks, beta IO, BGZF writer and
+# compressor, blocks bed, .tbi, CpGIndex, GenomicRegion
+# ---------------------------------------------------------------------------
+
+
+def test_validate_file_list_equals_jax(tmp_path):
+    from wgbs_tools_tpu.utils import validate_file_list as jax_vfl
+
+    a, b = tmp_path / "a.beta", tmp_path / "b.beta"
+    a.write_bytes(b"xx")
+    b.write_bytes(b"xx")
+    (tmp_path / "c.lbeta").write_bytes(b"xx")
+    good = [str(a), str(b)]
+    assert putils.validate_file_list(good) is None
+    assert jax_vfl(good) is None
+    for bad in ([], ["a"], [str(a), str(tmp_path / "c.lbeta")],
+                [str(a), str(tmp_path / "missing.beta")]):
+        with pytest.raises(JaxIllegalArgument) as je:
+            jax_vfl(bad)
+        with pytest.raises(putils.IllegalArgumentError) as pe:
+            putils.validate_file_list(bad)
+        assert str(pe.value) == str(je.value)
+    with pytest.raises(putils.IllegalArgumentError, match="must end with"):
+        putils.validate_file_list(good, force_suff=".lbeta")
+
+
+@pytest.mark.parametrize("suffix", [".beta", ".lbeta", ".bin"])
+def test_beta_io_equals_jax(tmp_path, suffix):
+    from wgbs_tools_tpu.formats import beta as jbeta
+    from wgbs_tools_tpu_torch.formats import beta as pbeta
+
+    rng = np.random.default_rng(9)
+    cov = rng.integers(0, 70_000 if suffix == ".lbeta" else 400, size=5000)
+    data = np.stack([rng.integers(0, cov + 1), cov], axis=1)
+    pj, pp = str(tmp_path / ("j" + suffix)), str(tmp_path / ("p" + suffix))
+    jbeta.save_beta(pj, data)
+    pbeta.save_beta(pp, data)
+    assert open(pp, "rb").read() == open(pj, "rb").read()
+    assert pbeta.beta_dtype(pp) == jbeta.beta_dtype(pj)
+    for sites in (None, (1, 5001), (17, 18), (1234, 4321)):
+        got, want = pbeta.load_beta(pp, sites), jbeta.load_beta(pj, sites)
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert pbeta.beta_sanity_check(pp, 5000) and jbeta.beta_sanity_check(pj,
+                                                                         5000)
+    assert not pbeta.beta_sanity_check(pp, 4999)
+    with pytest.raises(putils.IllegalArgumentError, match="Invalid beta"):
+        pbeta.load_beta(str(tmp_path / "x.txt"))
+
+
+def test_bgzf_writer_and_compressor_equal_jax():
+    from wgbs_tools_tpu.formats.pat import _bgzf_block_table as jax_table
+
+    rng = np.random.default_rng(12)
+    text = b"".join(b"chr1\t%d\t%d\t%d\t%d\n" % tuple(rng.integers(0, 10**6, 4))
+                    for _ in range(30_000))
+    for data in (b"", b"x", text):
+        for level in (1, 6):
+            got = pnat.bgzf_compress_native(data, n_threads=3, level=level)
+            assert got == jnat.bgzf_compress_native(data, n_threads=3,
+                                                    level=level)
+            assert gzip.decompress(got) == data
+            wj, wp = io.BytesIO(), io.BytesIO()
+            with jbgzf.BgzfWriter(wj, level=level) as w:
+                w.write(data)
+            with pbgzf.BgzfWriter(wp, level=level) as w:
+                w.write(data)
+            assert wp.getvalue() == wj.getvalue()
+    comp = pnat.bgzf_compress_native(text)
+    for a, b in zip(ppat._bgzf_block_table(comp), jax_table(comp)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+@pytest.fixture
+def blocks_bed(tmp_path):
+    """A blocks bed over three chromosomes with a header, a comment, an NA
+    row and rows out of startCpG order."""
+    rows = ["#comment", "chr\tstart\tend\tstartCpG\tendCpG"]
+    rng = np.random.default_rng(13)
+    s = 1
+    for i in range(4000):
+        e = s + int(rng.integers(1, 9))
+        chrom = ("chr1", "chr2", "chrX")[i * 3 // 4000]
+        rows.append(f"{chrom}\t{10 * s}\t{10 * e}\t{s}\t{e}")
+        s = e
+    rows.insert(50, "chr1\t5\t7\tNA\tNA")
+    rows[100], rows[101] = rows[101], rows[100]
+    path = tmp_path / "b.bed"
+    path.write_text("\n".join(rows) + "\n")
+    return path
+
+
+def test_blocks_bed_io_equals_jax(tmp_path, blocks_bed):
+    from wgbs_tools_tpu.formats import blocks as jblocks
+    from wgbs_tools_tpu_torch.formats import blocks as pblocks
+
+    got = pblocks.load_blocks(str(blocks_bed))
+    want = jblocks.load_blocks(str(blocks_bed))
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype
+        assert np.array_equal(got[k], want[k]), k
+    assert (got["startCpG"] == -1).sum() == 1
+    small = {k: v[:40] for k, v in got.items()}
+    for name in ("w.bed", "w.bed.gz"):
+        a = pblocks.write_blocks(small, str(tmp_path / ("p" + name)))
+        b = jblocks.write_blocks(small, str(tmp_path / ("j" + name)))
+        assert open(a, "rb").read() == open(b, "rb").read()
+    assert pblocks.load_blocks(str(tmp_path / "pw.bed.gz"),
+                               nrows=7)["endCpG"].tolist() == \
+        small["endCpG"][:7].tolist()
+
+
+@pytest.mark.parametrize("form", ["plain", "gzip", "bgzf"])
+def test_index_bed_equals_jax(tmp_path, blocks_bed, form):
+    """bgzip + .tbi of a blocks bed (unsorted rows, comment, header, NA),
+    from plain text, plain gzip and BGZF input: the same bytes."""
+    from wgbs_tools_tpu.formats import blocks as jblocks
+    from wgbs_tools_tpu_torch.formats import blocks as pblocks
+
+    text = blocks_bed.read_bytes()
+    out = {}
+    for who, mod in (("j", jblocks), ("p", pblocks)):
+        d = tmp_path / who
+        d.mkdir()
+        path = d / ("b.bed" if form == "plain" else "b.bed.gz")
+        if form == "plain":
+            path.write_bytes(text)
+        elif form == "gzip":
+            path.write_bytes(gzip.compress(text))
+        else:
+            path.write_bytes(jnat.bgzf_compress_native(text))
+        out[who] = mod.index_bed(str(path))
+        assert out[who].endswith(".gz")
+        assert not (d / "b.bed").exists()
+    for suff in ("", ".tbi"):
+        assert (open(out["p"] + suff, "rb").read()
+                == open(out["j"] + suff, "rb").read()), suff
+
+
+def test_write_tbi_and_reg2bin_equal_jax(tmp_path):
+    from wgbs_tools_tpu.formats import csi as jcsi
+    from wgbs_tools_tpu_torch.formats import csi as pcsi
+
+    rng = np.random.default_rng(14)
+    beg = rng.integers(0, 3 << 26, size=5000)
+    end = beg + rng.integers(1, 1 << 18, size=5000)
+    assert np.array_equal(pcsi.reg2bin(beg, end), jcsi.reg2bin(beg, end))
+    n = 6000
+    cids = np.repeat([0, 1, 2], n // 3)
+    begs = np.sort(rng.integers(0, 5 << 20, size=n)) \
+        + (np.arange(n) % 7) * 100
+    ends = begs + rng.integers(2, 90_000, size=n)
+    voffs = np.cumsum(rng.integers(20, 3000, size=n + 1)).astype(np.uint64)
+    args = (["chr1", "chr2", "chrX"], cids, begs, ends, voffs[:-1], voffs[1:])
+    a = pcsi.write_tbi(str(tmp_path / "p.tbi"), *args)
+    b = jcsi.write_tbi(str(tmp_path / "j.tbi"), *args)
+    assert open(a, "rb").read() == open(b, "rb").read()
+    assert jcsi.read_tbi(a)["names"] == ["chr1", "chr2", "chrX"]
+
+
+def test_cpg_index_and_region_equal_jax(mini_genome):
+    """Genome.index, CpGIndex's translations, sites_blocks and
+    GenomicRegion's parsing (-r, -s, whole genome, the errors)."""
+    from wgbs_tools_tpu.formats.blocks import sites_blocks as jax_sb
+    from wgbs_tools_tpu.genome.region import GenomicRegion as JaxRegion
+    from wgbs_tools_tpu_torch.formats.blocks import sites_blocks
+    from wgbs_tools_tpu_torch.genome.region import GenomicRegion
+
+    g, jg = Genome("mini"), JaxGenome("mini")
+    idx, jidx = g.index, jg.index
+    for k in ("loci", "chrom_offsets", "chrom_sizes"):
+        a, b = getattr(idx, k), getattr(jidx, k)
+        assert a.dtype == b.dtype and np.array_equal(a, b), k
+    assert idx.chrom_names == jidx.chrom_names and idx.name == jidx.name
+    assert g.get_chroms() == jg.get_chroms()
+    assert idx.nr_sites == g.get_nr_sites() == jidx.nr_sites
+    for c in idx.chrom_names:
+        assert idx.chrom_site_bounds(c) == jidx.chrom_site_bounds(c)
+        assert idx.chrom_nr_sites(c) == jidx.chrom_nr_sites(c)
+        assert idx.chrom_size(c) == jidx.chrom_size(c)
+        assert np.array_equal(idx.chrom_loci(c), jidx.chrom_loci(c))
+    sites = np.arange(1, idx.nr_sites + 1)
+    assert np.array_equal(idx.site2chrom_id(sites), jidx.site2chrom_id(sites))
+    for s in (1, 77, idx.nr_sites):
+        assert idx.site2locus(s) == jidx.site2locus(s)
+    assert idx.locus2site("chr2", 500) == jidx.locus2site("chr2", 500)
+    assert idx.region2sites("chr1", 100, 9000) == \
+        jidx.region2sites("chr1", 100, 9000)
+    pairs = np.array([[1, 5], [5, 5], [40, idx.nr_sites + 1]])
+    got, want = sites_blocks(idx, pairs), jax_sb(jidx, pairs)
+    for k in want:
+        assert np.array_equal(got[k], want[k]), k
+    for kw in ({}, {"region": "chr1:2,000-40,000"}, {"region": "chr2"},
+               {"region": f"chr1:{idx.loci[10]}"}, {"sites": "100-1500"},
+               {"sites": "42"}):
+        r, jr = GenomicRegion(genome=g, **kw), JaxRegion(genome=jg, **kw)
+        assert (r.sites, r.chrom, r.region_str, r.bp_tuple, r.is_whole(),
+                r.nr_sites) == (jr.sites, jr.chrom, jr.region_str,
+                                jr.bp_tuple, jr.is_whole(), jr.nr_sites)
+        assert str(r) == str(jr)
+    for kw in ({"region": "chr9:1-100"}, {"region": "chr1:500-100"},
+               {"region": "bad"}, {"sites": "0-5"},
+               {"sites": f"5-{idx.nr_sites + 2}"}):
+        with pytest.raises(JaxIllegalArgument) as je:
+            JaxRegion(genome=jg, **kw)
+        with pytest.raises(putils.IllegalArgumentError) as pe:
+            GenomicRegion(genome=g, **kw)
+        assert str(pe.value) == str(je.value)

@@ -47,7 +47,7 @@ def test_port_imports_without_jax():
     assert r.returncode == 0, r.stderr
     # every module of the port was imported, not an empty walk
     names = set(r.stdout.split())
-    assert len(names) >= 24
+    assert len(names) >= 32
     assert {"wgbs_tools_tpu_torch.parallel.mesh",
             "wgbs_tools_tpu_torch.parallel.sharded",
             "wgbs_tools_tpu_torch.parallel.multihost",
@@ -58,7 +58,14 @@ def test_port_imports_without_jax():
             "wgbs_tools_tpu_torch.formats.pat",
             "wgbs_tools_tpu_torch.formats.bgzf",
             "wgbs_tools_tpu_torch.formats.beta",
-            "wgbs_tools_tpu_torch.genome.refdir"} <= names
+            "wgbs_tools_tpu_torch.genome.refdir",
+            "wgbs_tools_tpu_torch.genome.cpg_index",
+            "wgbs_tools_tpu_torch.genome.region",
+            "wgbs_tools_tpu_torch.formats.blocks",
+            "wgbs_tools_tpu_torch.formats.csi",
+            "wgbs_tools_tpu_torch.models.segment",
+            "wgbs_tools_tpu_torch.ops.maxplus",
+            "wgbs_tools_tpu_torch.cli.cmd_segment"} <= names
 
 
 def _imported_modules(path):
@@ -127,6 +134,16 @@ def test_kernel_wrappers_refuse_other_devices():
             flat_vals_add(total, st, 200)
     assert flat_vals_fused.launches == 0 and flat_classic.launches == 0
     assert flat_vals.launches == 0 and flat_vals_add.launches == 0
+
+
+def test_maxplus_closure_refuses_other_devices():
+    """The max-plus closure's wrapper, like the pileup wrappers: a tensor
+    on a device other than the CPU goes to the launcher, which raises."""
+    from wgbs_tools_tpu_torch.ops.maxplus import maxplus_closure
+
+    with pytest.raises(ValueError, match="CUDA"):
+        maxplus_closure(torch.zeros((3, 129, 129), device="meta"), 7)
+    assert maxplus_closure.launches == 0
 
 
 def test_new_kernel_wrappers_refuse_other_devices():

@@ -116,7 +116,9 @@ def _bind(lib):
             ("pileup_tiles_v2", 5, 6),
             # v1: (lo, hi, meta, words, out), (num_tiles, window_len, tile,
             # fc, w16)
-            ("pileup_tiles_v1", 5, 5)):
+            ("pileup_tiles_v1", 5, 5),
+            # max-plus closure: (S0, out), (nb, n, steps)
+            ("maxplus_closure", 2, 3)):
         fn = getattr(lib, name)
         fn.argtypes = [vp] * n_ptr + [i64] * n_int + [vp]
         fn.restype = i32

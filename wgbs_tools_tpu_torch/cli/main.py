@@ -2,12 +2,16 @@
 
     python -m wgbs_tools_tpu_torch pat2beta x.pat.gz -o out/ [--device cpu]
         [--procs N]
+    python -m wgbs_tools_tpu_torch segment --betas a.beta ... [-o blocks.bed]
+        [--mode exact|fast] [--device cpu]
 
-Flags match wgbs_tools_tpu's pat2beta (cli/cmd_pat.py::main_pat2beta),
-plus --device. The device defaults to cuda and raises when CUDA is
-absent: the host path runs only when asked for. With more than one
-visible card the table is sharded over the cards; --procs N (N > 1) runs
-N worker processes, one site range each (parallel/multihost.py).
+Flags match wgbs_tools_tpu's pat2beta (cli/cmd_pat.py::main_pat2beta) and
+segment (cli/cmd_segment.py), plus --device. The device defaults to cuda
+and raises when CUDA is absent: the host path runs only when asked for.
+With more than one visible card pat2beta's table is sharded over the
+cards; --procs N (N > 1) runs N worker processes, one site range each
+(parallel/multihost.py). segment's exact mode is host code and takes no
+device (cli/cmd_segment.py).
 """
 
 import argparse
@@ -68,14 +72,32 @@ def main_pat2beta(argv):
     return 0
 
 
-COMMANDS = {"pat2beta": main_pat2beta}
+def main_segment(argv):
+    from .cmd_segment import main as run  # it imports add_gr_args from here
+
+    return run(argv)
+
+
+def add_gr_args(parser, bed_file=False):
+    """Shared region flags (ref: utils_wgbs.py:233-247), without
+    --array_id and --no_anno: no command of the port reads them yet."""
+    g = parser.add_mutually_exclusive_group()
+    g.add_argument("-s", "--sites", help='CpG index range, e.g. "450000-450050"')
+    g.add_argument("-r", "--region", help='genomic region, e.g. "chr1:10,000-10,500"')
+    if bed_file:
+        g.add_argument("-L", "--bed_file", help="bed file with CpG columns 4-5")
+    parser.add_argument("--genome", default=None, help="genome reference name")
+    return parser
+
+
+COMMANDS = {"pat2beta": main_pat2beta, "segment": main_segment}
 
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     parser = argparse.ArgumentParser(
         prog="wgbstools-torch",
-        description="wgbs_tools on PyTorch + CUDA (pat/beta formats)")
+        description="wgbs_tools on PyTorch + CUDA (pat2beta, segment)")
     parser.add_argument("command", nargs="?", help="|".join(COMMANDS))
     parser.add_argument("--version", action="store_true")
     args, _ = parser.parse_known_args(argv[:1])

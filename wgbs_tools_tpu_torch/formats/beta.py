@@ -1,9 +1,49 @@
-"""beta / lbeta saturation (ref: docs/beta_format.md): a raw binary
-(NR_SITES x 2) matrix of (#meth, #coverage) per CpG site, uint8 for .beta,
-uint16 for .lbeta. The port's copy of wgbs_tools_tpu/formats/beta.py's
-`trim_to_uint`."""
+"""beta / lbeta / bin file IO.
+
+Format (ref: docs/beta_format.md): a raw binary (NR_SITES x 2) matrix of
+(#meth, #coverage) per CpG site, uint8 for .beta/.bin, uint16 for .lbeta.
+Random access by seeking to (site-1)*2*itemsize (ref: utils_wgbs.py:307-330).
+The port's copy of wgbs_tools_tpu/formats/beta.py's `beta_dtype`,
+`load_beta`, `save_beta`, `trim_to_uint` and `beta_sanity_check`.
+"""
+
+import os.path as op
 
 import numpy as np
+
+from ..utils import IllegalArgumentError
+
+BETA_SUFFIXES = (".beta", ".lbeta", ".bin")
+
+
+def beta_dtype(path):
+    return np.uint16 if path.endswith(".lbeta") else np.uint8
+
+
+def load_beta(path, sites=None):
+    """Load a beta file (or a 1-based [start, end) site slice) as (n, 2)."""
+    suff = op.splitext(path)[1]
+    if not (op.isfile(path) and suff in BETA_SUFFIXES):
+        raise IllegalArgumentError(f"Invalid beta file:\n{path}")
+    dtype = beta_dtype(path)
+    if sites is None:
+        data = np.fromfile(path, dtype).reshape((-1, 2))
+    else:
+        start, end = sites
+        with open(path, "rb") as f:
+            f.seek((start - 1) * 2 * dtype().itemsize)
+            data = np.fromfile(f, dtype=dtype, count=(end - start) * 2).reshape((-1, 2))
+    if not data.size:
+        raise IllegalArgumentError(path + ": Data table is empty!")
+    return data
+
+
+def save_beta(path, data, lbeta=None):
+    """Saturate+write counts to .beta/.lbeta/.bin (uint8/uint16)."""
+    if lbeta is None:
+        lbeta = path.endswith(".lbeta")
+    trim_to_uint(np.asarray(data), lbeta).tofile(path)
+    return path
 
 
 def trim_to_uint(data, lbeta=False):
@@ -24,3 +64,10 @@ def trim_to_uint(data, lbeta=False):
         ).astype(np.int64)
         data[big, 1] = max_val
     return data.astype(dtype)
+
+
+def beta_sanity_check(path, nr_sites):
+    found = op.getsize(path) // 2
+    if path.endswith(".lbeta"):
+        found //= 2
+    return int(found) == int(nr_sites)

@@ -1,5 +1,6 @@
-"""BGZF (blocked gzip) reading: the port's copy of `is_gzip` and of
-`BgzfReader`'s seeking and line reads from wgbs_tools_tpu/formats/bgzf.py.
+"""BGZF (blocked gzip): the port's copy of `is_gzip`, `decompress_file`,
+`BgzfWriter` (with `_make_block`) and `BgzfReader`'s seeking and line
+reads from wgbs_tools_tpu/formats/bgzf.py.
 
 A BGZF file is a sequence of gzip members, each at most 64 KiB of
 uncompressed payload, whose FEXTRA field carries a "BC" subfield with the
@@ -7,8 +8,100 @@ total compressed block size. Virtual offsets are (compressed_block_offset
 << 16 | in-block offset), as in htslib.
 """
 
+import gzip
+import io
 import struct
 import zlib
+
+# 64 KiB minus header/footer margin, matching htslib's default payload cap.
+MAX_BLOCK_DATA = 65280
+
+_BGZF_EOF = bytes.fromhex(
+    "1f8b08040000000000ff0600424302001b0003000000000000000000"
+)
+
+
+def _make_block(data: bytes, level: int = 6) -> bytes:
+    """Compress one chunk (<= MAX_BLOCK_DATA bytes) into a BGZF block."""
+    co = zlib.compressobj(level, zlib.DEFLATED, -15)
+    payload = co.compress(data) + co.flush()
+    # header: 12 fixed bytes + 6 extra ("BC", len=2, BSIZE-1)
+    header = (
+        b"\x1f\x8b\x08\x04"  # magic, CM=deflate, FLG=FEXTRA
+        + b"\x00\x00\x00\x00"  # mtime
+        + b"\x00\xff"  # XFL, OS=unknown
+        + struct.pack("<H", 6)  # XLEN
+        + b"BC"
+        + struct.pack("<H", 2)
+        + struct.pack("<H", len(payload) + 25)  # BSIZE - 1 (total block size - 1)
+    )
+    footer = struct.pack("<II", zlib.crc32(data) & 0xFFFFFFFF, len(data) & 0xFFFFFFFF)
+    return header + payload + footer
+
+
+class BgzfWriter(io.RawIOBase):
+    """Streaming BGZF writer with virtual-offset tracking."""
+
+    def __init__(self, path_or_fileobj, level=6, append=False):
+        if hasattr(path_or_fileobj, "write"):
+            self._fh = path_or_fileobj
+            self._own = False
+        else:
+            self._fh = open(path_or_fileobj, "ab" if append else "wb")
+            self._own = True
+        self._level = level
+        self._buf = bytearray()
+        self._coffset = self._fh.tell() if self._fh.seekable() else 0
+        self._closed = False
+
+    def writable(self):
+        return True
+
+    @property
+    def virtual_offset(self) -> int:
+        """Virtual offset of the next byte to be written."""
+        return (self._coffset << 16) | len(self._buf)
+
+    def write(self, data) -> int:
+        if isinstance(data, str):
+            data = data.encode()
+        self._buf += data
+        while len(self._buf) >= MAX_BLOCK_DATA:
+            self._flush_block(MAX_BLOCK_DATA)
+        return len(data)
+
+    def flush_block(self):
+        """Force the current buffer out as a block (e.g. at record boundaries)."""
+        if self._buf:
+            self._flush_block(len(self._buf))
+
+    def _flush_block(self, n):
+        block = _make_block(bytes(self._buf[:n]), self._level)
+        self._fh.write(block)
+        self._coffset += len(block)
+        del self._buf[:n]
+
+    def close(self):
+        if self._closed:
+            return
+        self.flush_block()
+        self._fh.write(_BGZF_EOF)
+        self._fh.flush()
+        if self._own:
+            self._fh.close()
+        self._closed = True
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def decompress_file(path) -> bytes:
+    """Decompress a BGZF/gzip file fully (multi-member aware)."""
+    with gzip.open(path, "rb") as f:
+        return f.read()
 
 
 def is_gzip(path) -> bool:

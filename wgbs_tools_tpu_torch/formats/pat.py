@@ -270,3 +270,32 @@ def load_pat_index(path):
             return None
     z = np.load(idx_path)
     return z["sites"], z["voffsets"], int(z["max_len"])
+
+
+def _bgzf_block_table(comp: bytes):
+    """(compressed_offsets, uncompressed_offsets) of each BGZF block."""
+    import struct as _struct
+
+    coffs, uoffs = [], []
+    pos = 0
+    upos = 0
+    n = len(comp)
+    while pos + 18 <= n:
+        xlen = _struct.unpack_from("<H", comp, pos + 10)[0]
+        bsize = None
+        p = pos + 12
+        while p + 4 <= pos + 12 + xlen:
+            s1, s2 = comp[p], comp[p + 1]
+            slen = _struct.unpack_from("<H", comp, p + 2)[0]
+            if s1 == 0x42 and s2 == 0x43 and slen == 2:
+                bsize = _struct.unpack_from("<H", comp, p + 4)[0] + 1
+                break
+            p += 4 + slen
+        if bsize is None:
+            break
+        isize = _struct.unpack_from("<I", comp, pos + bsize - 4)[0]
+        coffs.append(pos)
+        uoffs.append(upos)
+        upos += isize
+        pos += bsize
+    return np.asarray(coffs, dtype=np.int64), np.asarray(uoffs, dtype=np.int64)

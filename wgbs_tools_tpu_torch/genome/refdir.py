@@ -1,11 +1,12 @@
 """Genome reference directories, read only.
 
-The port's copy of what pat2beta and the CLI need from
-wgbs_tools_tpu/genome/refdir.py and cpg_index.py: the `references/<name>/`
-layout with a `default` symlink (ref: src/python/utils_wgbs.py:53-115),
-rooted at $WGBS_TPU_REFDIR (default: <repo>/references), and the genome's
-number of CpG sites, read from the CpG index that `init_genome` writes
-(`cpg_index.npz` + `cpg_index.json`).
+The port's copy of what pat2beta, segment and the CLI need from
+wgbs_tools_tpu/genome/refdir.py: the `references/<name>/` layout with a
+`default` symlink (ref: src/python/utils_wgbs.py:53-115), rooted at
+$WGBS_TPU_REFDIR (default: <repo>/references); the genome's number of CpG
+sites, read from the CpG index that `init_genome` writes
+(`cpg_index.npz` + `cpg_index.json`); and the whole index
+(`genome/cpg_index.py::CpGIndex`), loaded at first use.
 """
 
 import os
@@ -15,9 +16,7 @@ from pathlib import Path
 import numpy as np
 
 from ..utils import IllegalArgumentError
-
-INDEX_BASENAME = "cpg_index.npz"
-META_BASENAME = "cpg_index.json"
+from .cpg_index import INDEX_BASENAME, META_BASENAME, CpGIndex
 
 
 def references_root():
@@ -51,13 +50,24 @@ def resolve_genome_name(name=None):
 
 
 class Genome:
-    """A genome of the reference directory: its name, its directory and
-    its number of CpG sites (loaded at the first get_nr_sites)."""
+    """A genome of the reference directory: its name, its directory, its
+    number of CpG sites (loaded at the first get_nr_sites, without the
+    rest of the index) and its CpGIndex (loaded at the first `index`)."""
 
     def __init__(self, name=None):
         self.name = resolve_genome_name(name)
         self.refdir = genome_dir(name)
         self._nr_sites = None
+        self._index = None
+
+    @property
+    def index(self) -> CpGIndex:
+        if self._index is None:
+            self._index = CpGIndex.load(self.refdir, name=self.name)
+        return self._index
+
+    def get_chroms(self):
+        return tuple(self.index.chrom_names)
 
     def get_nr_sites(self):
         if self._nr_sites is None:

@@ -1,13 +1,16 @@
 // Host library of the PyTorch port: pat text parsing, the BGZF block
-// inflater, the host pileup (the oracle of the device kernels) and the v3
-// row packer and placers that the pileup staging runs.
+// deflater (index_bed's bgzip) and inflater, the host pileup (the oracle
+// of the device kernels) and the v3 row packer and placers that the pileup
+// staging runs. segment_exact.cpp beside it holds the exact segmentation
+// DP; both go into one library.
 //
 // The port's own copy of the functions it calls from native/wgbsio.cpp,
 // unchanged, with the same C names, so that a reader finds each one's
 // counterpart there. wgbs_tools_tpu_torch/native.py builds this file with
 // g++ at first use and binds it with ctypes.
 //
-// Build: g++ -O3 -shared -fPIC -o libwgbs_host.so wgbsio.cpp -lz -lpthread
+// Build: g++ -O3 -shared -fPIC -o libwgbs_host.so wgbsio.cpp segment_exact.cpp \
+//            -lz -lpthread
 
 #include <algorithm>
 #include <cstdint>
@@ -165,6 +168,77 @@ int pat_parse(const char* buf, int64_t len, int64_t n_lines, int64_t max_len,
     }
     if (off < chrom_buf_cap) chrom_buf[off] = 0;
     return (int)chroms.size();
+}
+
+// ---------------------------------------------------------------------------
+// BGZF block deflater (multi-threaded)
+// ---------------------------------------------------------------------------
+
+static const int64_t BGZF_BLOCK = 65280;
+
+static int64_t compress_one_block(const uint8_t* data, int64_t n, int level,
+                                  uint8_t* out) {
+    // header (18B) + deflate payload + crc/isize (8B)
+    z_stream zs;
+    memset(&zs, 0, sizeof(zs));
+    deflateInit2(&zs, level, Z_DEFLATED, -15, 8, Z_DEFAULT_STRATEGY);
+    zs.next_in = (Bytef*)data;
+    zs.avail_in = (uInt)n;
+    zs.next_out = out + 18;
+    zs.avail_out = (uInt)(BGZF_BLOCK + 1024);
+    deflate(&zs, Z_FINISH);
+    int64_t payload = zs.total_out;
+    deflateEnd(&zs);
+
+    uint16_t bsize = (uint16_t)(payload + 25);
+    const uint8_t hdr[16] = {0x1f, 0x8b, 0x08, 0x04, 0, 0, 0, 0, 0, 0xff,
+                             6, 0, 'B', 'C', 2, 0};
+    memcpy(out, hdr, 16);
+    out[16] = bsize & 0xff;
+    out[17] = (bsize >> 8) & 0xff;
+    uint32_t crc = crc32(0, data, (uInt)n);
+    uint8_t* f = out + 18 + payload;
+    memcpy(f, &crc, 4);
+    uint32_t isize = (uint32_t)n;
+    memcpy(f + 4, &isize, 4);
+    return 18 + payload + 8;
+}
+
+// Compress `len` bytes into BGZF blocks using `n_threads` workers.
+// out must have capacity >= (len/BGZF_BLOCK + 2) * (BGZF_BLOCK + 1064).
+// Appends the 28-byte EOF marker. Returns bytes written.
+int64_t bgzf_compress_mt(const uint8_t* data, int64_t len, uint8_t* out,
+                         int n_threads, int level) {
+    int64_t n_blocks = (len + BGZF_BLOCK - 1) / BGZF_BLOCK;
+    if (n_blocks == 0) n_blocks = 0;
+    std::vector<int64_t> sizes(n_blocks, 0);
+    int64_t stride = BGZF_BLOCK + 1064;
+    std::vector<uint8_t> scratch((size_t)n_blocks * stride);
+
+    auto worker = [&](int tid) {
+        for (int64_t b = tid; b < n_blocks; b += n_threads) {
+            int64_t off = b * BGZF_BLOCK;
+            int64_t n = std::min(BGZF_BLOCK, len - off);
+            sizes[b] = compress_one_block(data + off, n, level,
+                                          scratch.data() + b * stride);
+        }
+    };
+    std::vector<std::thread> threads;
+    for (int t = 0; t < n_threads; t++) threads.emplace_back(worker, t);
+    for (auto& t : threads) t.join();
+
+    uint8_t* w = out;
+    for (int64_t b = 0; b < n_blocks; b++) {
+        memcpy(w, scratch.data() + b * stride, sizes[b]);
+        w += sizes[b];
+    }
+    static const uint8_t eof[28] = {
+        0x1f, 0x8b, 0x08, 0x04, 0, 0, 0, 0, 0, 0xff, 0x06, 0x00, 0x42,
+        0x43, 0x02, 0x00, 0x1b, 0x00, 0x03, 0x00, 0x00, 0x00, 0x00, 0x00,
+        0x00, 0x00, 0x00, 0x00};
+    memcpy(w, eof, 28);
+    w += 28;
+    return w - out;
 }
 
 // ---------------------------------------------------------------------------

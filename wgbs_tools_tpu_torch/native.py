@@ -1,13 +1,14 @@
-"""ctypes bindings of the port's host library (host/wgbsio.cpp).
+"""ctypes bindings of the port's host library (host/wgbsio.cpp and
+host/segment_exact.cpp).
 
 The port's own copy of the wrappers it calls from
 wgbs_tools_tpu/native/__init__.py, with the same names. g++ builds the
-library at first use (never at import) into `build/` beside this file,
-and again when the source is newer than the library. The port has no
-Python fallback: a library that cannot be built or loaded raises, with
-g++'s output. A wrapper returns None only where its input is refused (a
-malformed pat line, a buffer that is not BGZF, a count above 255), as the
-JAX package's do.
+library from both sources (SOURCE, SEGMENT_SOURCE) at first use (never at
+import) into `build/` beside this file, and again when either source is
+newer than the library. The port has no Python fallback: a library that
+cannot be built or loaded raises, with g++'s output. A wrapper returns
+None only where its input is refused (a malformed pat line, a buffer that
+is not BGZF, a count above 255), as the JAX package's do.
 """
 
 import ctypes
@@ -23,6 +24,7 @@ import numpy as np
 
 _PKG_DIR = op.dirname(op.abspath(__file__))
 SOURCE = op.join(_PKG_DIR, "host", "wgbsio.cpp")
+SEGMENT_SOURCE = op.join(_PKG_DIR, "host", "segment_exact.cpp")
 BUILD_DIR = op.join(_PKG_DIR, "build")
 _SO = op.join(BUILD_DIR, "libwgbs_host.so")
 
@@ -31,9 +33,11 @@ _LOCK = threading.Lock()
 
 
 def build(force=False):
-    """Compile host/wgbsio.cpp into the shared library if it is missing or
-    older than the source. Returns the library path; raises on failure."""
-    if not force and op.isfile(_SO) and op.getmtime(_SO) >= op.getmtime(SOURCE):
+    """Compile the host sources into the shared library if it is missing or
+    older than a source. Returns the library path; raises on failure."""
+    sources = [SOURCE, SEGMENT_SOURCE]
+    newest = max(op.getmtime(s) for s in sources)
+    if not force and op.isfile(_SO) and op.getmtime(_SO) >= newest:
         return _SO
     os.makedirs(BUILD_DIR, exist_ok=True)
     # built under a private name, then renamed: a concurrent loader never
@@ -41,8 +45,8 @@ def build(force=False):
     tmpdir = tempfile.mkdtemp(dir=BUILD_DIR)
     try:
         tmp_so = op.join(tmpdir, "lib.so")
-        cmd = ["g++", "-O3", "-shared", "-fPIC", "-o", tmp_so, SOURCE, "-lz",
-               "-lpthread"]
+        cmd = ["g++", "-O3", "-shared", "-fPIC", "-o", tmp_so] + sources \
+            + ["-lz", "-lpthread"]
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True)
         except OSError as e:
@@ -66,6 +70,9 @@ def _bind(lib):
         + [ctypes.c_char_p, i64, vp]
     lib.bgzf_scan_blocks.restype = i64
     lib.bgzf_scan_blocks.argtypes = [ctypes.c_char_p, i64, vp, vp, i64]
+    lib.bgzf_compress_mt.restype = i64
+    lib.bgzf_compress_mt.argtypes = [ctypes.c_char_p, i64, ctypes.c_char_p,
+                                     ctypes.c_int, ctypes.c_int]
     lib.bgzf_decompress_mt.restype = ctypes.c_int
     lib.bgzf_decompress_mt.argtypes = [ctypes.c_char_p, i64, vp, vp, i64,
                                        ctypes.c_char_p, ctypes.c_int]
@@ -79,6 +86,9 @@ def _bind(lib):
     lib.place_counts_rows.argtypes = [vp] * 4 + [i64, vp]
     lib.place_vals_rows.restype = i64
     lib.place_vals_rows.argtypes = [vp, i64, i64] + [vp] * 8
+    lib.segment_exact_dp.restype = i64
+    lib.segment_exact_dp.argtypes = [vp, i64, i64, vp, ctypes.c_int32,
+                                     ctypes.c_uint32, ctypes.c_float, vp]
 
 
 def get_lib():
@@ -92,8 +102,8 @@ def get_lib():
                 _bind(lib)
             except (RuntimeError, OSError, AttributeError) as e:
                 raise RuntimeError(
-                    f"the host library ({SOURCE}) could not be built or "
-                    f"loaded (needs g++ and zlib): {e}") from e
+                    f"the host library ({SOURCE}, {SEGMENT_SOURCE}) could "
+                    f"not be built or loaded (needs g++ and zlib): {e}") from e
             _LIB = lib
     return _LIB
 
@@ -226,6 +236,19 @@ def bgzf_decompress_native(data: bytes, n_threads=None):
     return out.raw[:total]
 
 
+def bgzf_compress_native(data: bytes, n_threads=None, level=6):
+    """BGZF-compress a buffer on n_threads threads: 65,280-byte blocks,
+    then the EOF block."""
+    lib = get_lib()
+    if n_threads is None:
+        n_threads = min(os.cpu_count() or 1, 16)
+    n_blocks = (len(data) + 65279) // 65280
+    cap = (n_blocks + 2) * (65280 + 1064) + 64
+    out = ctypes.create_string_buffer(cap)
+    w = lib.bgzf_compress_mt(data, len(data), out, max(n_threads, 1), level)
+    return out.raw[:w]
+
+
 def pack_rows_native(g, count, rr, ln):
     """First-fit 128-bit-mask interval packing for the v3 pileup staging.
 
@@ -330,3 +353,24 @@ def pileup_native(start, length, count, codes, window_start, n_sites,
                    int(window_start), int(n_sites), out.ctypes.data,
                    int(threads))
     return out
+
+
+def segment_exact_native(data, loci, max_cpg, max_bp, pseudo_count):
+    """Exact-parity segmentation DP traceback via the C++ kernel
+    (host/segment_exact.cpp; ref: src/segment_betas/segmentor.cpp:60-159).
+
+    data: (K, n, 2) integer counts; loci: (n,) basepair positions.
+    Returns the traceback array T (n+1,) int64; raises on arguments the
+    kernel refuses (n, K or max_cpg below 1)."""
+    lib = get_lib()
+    K, n, _ = data.shape
+    dataf = _c(data, np.float32)
+    dists = _c(loci, np.uint32)
+    T = np.empty(n + 1, dtype=np.int32)
+    rc = lib.segment_exact_dp(dataf.ctypes.data, K, n, dists.ctypes.data,
+                              int(max_cpg), int(max_bp) if max_bp else 0,
+                              float(pseudo_count), T.ctypes.data)
+    if rc != 0:
+        raise ValueError(f"segment_exact_dp refused its arguments (K={K}, "
+                         f"n={n}, max_cpg={max_cpg}): rc {rc}")
+    return T.astype(np.int64)

@@ -2,7 +2,8 @@
 
 The port's own copy of what it calls from wgbs_tools_tpu/utils/
 (`__init__.py`, `log.py`, `files.py`; ref: src/python/utils_wgbs.py),
-with the same names.
+with the same names: the CLI's input checks (`validate_single_file`,
+`validate_file_list`) among them.
 """
 
 import logging
@@ -62,3 +63,18 @@ def validate_single_file(fpath, suff=None):
     if suff is not None and not fpath.endswith(suff):
         raise IllegalArgumentError(f"file {fpath} must end with {suff}")
     return fpath
+
+
+def validate_file_list(files, force_suff=None, min_len=1):
+    if len(files) < min_len:
+        raise IllegalArgumentError(
+            f"Input error: at least {min_len} input files must be given"
+        )
+    first = files[0]
+    if len(first) == 1:
+        raise IllegalArgumentError(f"Input is not a list of files: {files}")
+    if force_suff is not None and not first.endswith(force_suff):
+        raise IllegalArgumentError(f"Input file {first} must end with {force_suff}")
+    suff = splitextgz(first)[1]
+    for fpath in files:
+        validate_single_file(fpath, suff)
