@@ -6,7 +6,7 @@
 Phases, each printed as it runs; any failure exits nonzero and prints no
 result line:
   1. the card: `nvidia-smi` name and power limit; fails without CUDA.
-  2. build: nvcc compiles the four sources csrc/*.cu for sm_90a, in
+  2. build: nvcc compiles the five sources csrc/*.cu for sm_90a, in
      parallel (seconds and ptxas register counts printed), and g++ the
      port's host library (host/wgbsio.cpp and host/segment_exact.cpp) that
      decoding, staging, exact segmentation and the oracle run; both must
@@ -77,9 +77,9 @@ result line:
      28,217,448 sites made from a seed (Poisson(10) coverage each, 300-site
      blocks of methylation 0.15 / 0.85) on a genome of that many sites with
      loci cumsum(integers(5, 60)) + 100, and the CLI defaults (max_cpg
-     1000, max_bp 2000, 60,000-site chunks: 471). `segment --mode exact`
-     through the CLI on the host cores, then `segment --mode fast --device
-     cuda` with the launch counters set to 0 just before and read just
+     1000, max_bp 2000, 60,000-site chunks: 471). `segment --mode exact
+     --device cpu` through the CLI on the host cores, then `segment --mode
+     fast --device cuda` with the launch counters set to 0 just before and read just
      after (maxplus_closure must launch): both walls, the fast run's stage
      seconds, each bed checked to tile [1, N + 1), and the share of exact
      borders that fast mode finds (fails under 0.95). maxplus_closure is
@@ -90,9 +90,27 @@ result line:
      clocks.max.sm; pairs: the (p, r, q) whose two terms are finite on
      this run's data, per squaring); the fast DP's T on the card equals the CPU's (the
      twin's closures) on one real chunk fed the same cost tensor.
+     Exact mode on the card: `segment` with its defaults (--mode exact,
+     --device cuda) through the CLI, counters set to 0 just before and read
+     just after (segment_exact_dp must launch, no window may go to the
+     host), its stage seconds, and its bed byte-identical to the host
+     run's. segment_exact_dp (csrc/segment_exact.cu) is held to its twin
+     with tolerance 0 on two main-path windows cut to 8,192 sites (the
+     twin timed there, and the kernel beside it), on the same prefix sums
+     shifted across 2^31 (ks unchanged), and on hand-made edges (ties from
+     1,000 sites of zero coverage, K 1, K 8, W 48, max_bp 0 with W 1000,
+     the ragged last window);
+     its T equals the host DP's on 16 main-path chunks (the ragged last
+     among them) and, through segment_exact_device_T, on a 32,768-site
+     window with max_bp 0 and W 30,000 (the ring in global memory). It is
+     timed on the main path's batch (the 470 full chunks in one launch, as
+     the CLI launches them) beside its bound: the larger of the valid band
+     cells x K float64 adds over 132 SMs x 64 FP64 lanes x clocks.max.sm
+     and the bytes (prefix sums, loci, table, ks) over 3.35 TB/s; and the
+     chain's ns per step.
 Then a summary (the card line again, build, end to end), one
-{"kernels": [...]} line (the 8 pileup kernels and maxplus_closure), and
-last {"ok": true, "device": ...}.
+{"kernels": [...]} line (the 8 pileup kernels, maxplus_closure and
+segment_exact_dp), and last {"ok": true, "device": ...}.
 
 Scratch data goes to build/ (ignored by git) and is deleted at the end.
 """
@@ -134,9 +152,12 @@ KERNELS = {
                  "wgbs_tools_tpu/ops/pileup_tpu2.py:62"),
     "tiles_v1": ("pileup_v1", _CSRC + "pileup_v1.cu",
                  "wgbs_tools_tpu/ops/pileup_tpu.py:54"),
-    # not a Pallas kernel: the XLA max-plus closure of fast segmentation
+    # not Pallas kernels: the XLA max-plus closure of fast segmentation,
+    # and exact segmentation's cost and ring DP (_exact_batch_ring_raw)
     "maxplus_closure": ("maxplus", _CSRC + "maxplus.cu",
                         "wgbs_tools_tpu/models/segment.py:313"),
+    "segment_exact_dp": ("segment_exact", _CSRC + "segment_exact.cu",
+                         "wgbs_tools_tpu/models/segment_exact_tpu.py:349"),
 }
 BGZF_EOF = bytes.fromhex("1f8b08040000000000ff0600424302001b0003000000000000"
                          "000000")
@@ -1728,20 +1749,291 @@ def _maxplus_pairs(S0, steps):
             S = mp.maxplus_closure_plain(S, 1)
     return pairs
 
+SEG_CUT = 8192              # sites of the two main-path windows the twin runs
+SEG_WIDE = (30_000, 32_768)  # (W, sites) of the wide case, max_bp 0
+SEG_SAMPLE = 16             # main-path chunks held to the host DP's T
+SEG_EDGE_SITES = 3000       # sites of a hand-made edge window
+
+
+def _seg_chunks():
+    """The CLI's chunks of the genome: 60,000 sites each, the last ragged."""
+    from wgbs_tools_tpu_torch.models import segment as seg
+
+    b = list(range(1, N_SITES + 1, seg.DEF_CHUNK)) + [N_SITES + 1]
+    return list(zip(b[:-1], b[1:]))
+
+
+def _exact_inputs(datas, locis, W, max_bp, dev):
+    """The kernel's inputs for equal-size windows as the route makes them
+    (plan_windows's table and Wb, the narrow upload, the wrapped prefix
+    sums on the card): (pm, pt, loci, tbl, Wb). Every window must be
+    eligible."""
+    import torch
+
+    import numpy as np
+
+    from wgbs_tools_tpu_torch.models import segment_exact_device as sed
+
+    locis = np.asarray(locis, dtype=np.int64)
+    elig, tbl, Wb = sed.plan_windows(datas, locis, W, max_bp,
+                                     SEG_ARGS["pcount"])
+    if len(elig) != len(datas):
+        raise RuntimeError(f"only windows {elig} of {len(datas)} are "
+                           "eligible for the device route")
+    counts, loci = sed._upload(datas, locis, dev)
+    pm, pt = sed._prefix_sums_wrapped(counts)
+    return pm, pt, loci, torch.from_numpy(tbl).to(dev), Wb
+
+
+def _exact_vs_twin(name, pm, pt, loci, tbl, Wb, max_bp):
+    """segment_exact_dp against its twin on the same card tensors, tolerance
+    0; returns (the kernel's ks, the twin's seconds)."""
+    import torch
+
+    from wgbs_tools_tpu_torch.ops import segment_exact as se
+
+    got = _launch_checked(se.segment_exact_dp, pm, pt, loci, tbl, Wb, max_bp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = se.segment_exact_dp_plain(pm, pt, loci, tbl, Wb, max_bp)
+    torch.cuda.synchronize()
+    twin_s = time.perf_counter() - t0
+    if not torch.equal(got, want):
+        bad = (got != want).nonzero()[:5].tolist()
+        raise RuntimeError(f"segment_exact_dp != its twin on {name}: first "
+                           f"differing (window, site) {bad}")
+    B, K, n1 = pm.shape
+    log(f"phase 8: segment_exact_dp == twin (tolerance 0) on {name}: {B} x "
+        f"{n1 - 1:,} sites, K {K}, Wb {Wb}, max_bp {max_bp}; twin "
+        f"{twin_s:.3f} s")
+    return got, twin_s
+
+
+def _band_cells(locis, Wb, max_bp):
+    """The valid band cells (k >= 0, i - k < Wb, loci[i] - loci[k] <=
+    max_bp) of the windows: the cells whose cost and sum the DP needs."""
+    import numpy as np
+
+    cells = 0
+    for loci in locis:
+        i = np.arange(loci.shape[0], dtype=np.int64)
+        lo = np.maximum(i - Wb + 1, 0)
+        if max_bp:
+            lo = np.maximum(lo, np.searchsorted(loci, loci - max_bp,
+                                                side="left"))
+        cells += int((i - lo + 1).sum())
+    return cells
+
+
+def _edge_windows(betas, loci, chunks):
+    """The hand-made edge cases: {name: (datas, locis, W, max_bp)}, from
+    the phase's betas and loci and from a seed."""
+    import numpy as np
+
+    from wgbs_tools_tpu_torch.models.segment import _load_windows
+
+    class _Idx:
+        pass
+
+    idx = _Idx()
+    idx.loci = loci
+    m = SEG_EDGE_SITES
+    wins = [(s, s + m) for s, _ in chunks[2:4]]
+    datas, locis = _load_windows(betas, wins, idx)
+    rng = np.random.default_rng(20261017)
+    zero = datas.copy()
+    zero[:, :, 500:1500] = 0
+    k8 = rng.poisson(SEG_COV, size=(2, 8, m)).astype(np.int64)
+    k8 = np.stack([rng.binomial(k8, 0.6), k8], axis=3)
+    sparse = rng.poisson(0.2, size=(2, SEG_K, m)).astype(np.int64)
+    sparse = np.stack([rng.binomial(sparse, 0.5), sparse], axis=3)
+    last, llast = _load_windows(betas, chunks[-1:], idx)
+    return {
+        "ties: 1,000 sites of zero coverage": (zero, locis, 1000, 2000),
+        "K 1": (datas[:, :1], locis, 1000, 2000),
+        "K 8": (k8, locis, 1000, 2000),
+        "W 48": (datas, locis, 48, 2000),
+        "max_bp 0, W 1000 (coverage Poisson(0.2))": (sparse, locis, 1000, 0),
+        f"the ragged last window ({chunks[-1][1] - chunks[-1][0]:,} sites)":
+            (last, llast, 1000, 2000),
+    }
+
+
+def _wide_case(loci):
+    """The wide case: max_bp 0 and W SEG_WIDE[0] over SEG_WIDE[1] sites, 2
+    datasets of Poisson(0.08) coverage (so that the in-band totals fit the
+    table), from a seed: (data, loci, W)."""
+    import numpy as np
+
+    W, n = SEG_WIDE
+    rng = np.random.default_rng(30000)
+    cov = rng.poisson(0.08, size=(2, n)).astype(np.int64)
+    data = np.stack([rng.binomial(cov, 0.5), cov], axis=2)
+    return data, loci[:n].astype(np.int64), W
+
+
+def _exact_device_checks(betas, loci, dev, launches):
+    """segment_exact_dp on the card: against its twin (tolerance 0) on two
+    main-path windows cut to SEG_CUT sites and on the edge cases; the
+    route's T against the host DP's on SEG_SAMPLE main-path chunks (the
+    ragged last one among them) and on the wide case; timed on the main
+    path's batch (every full chunk, one launch, as the CLI launched it)
+    beside its bound. Returns (kernels-line entry, summary)."""
+    import numpy as np
+    import torch
+
+    from wgbs_tools_tpu_torch import native
+    from wgbs_tools_tpu_torch.models import segment_exact_device as sed
+    from wgbs_tools_tpu_torch.models.segment import _load_windows
+    from wgbs_tools_tpu_torch.ops import segment_exact as se
+
+    class _Idx:
+        pass
+
+    idx = _Idx()
+    idx.loci = loci
+    W, max_bp, pc = SEG_ARGS["max_cpg"], SEG_ARGS["max_bp"], SEG_ARGS["pcount"]
+    chunks = _seg_chunks()
+    full = [c for c in chunks if c[1] - c[0] == chunks[0][1] - chunks[0][0]]
+    pool = ThreadPoolExecutor(max(1, (os.cpu_count() or 2) - 1))
+    # the host DP's T, in the background while the card works
+    wide_data, wide_loci, wide_W = _wide_case(loci)
+    wide_host = pool.submit(native.segment_exact_native, wide_data, wide_loci,
+                            wide_W, 0, pc)
+    sample = list(range(SEG_SAMPLE - 1)) + [len(chunks) - 1]
+    sample_data = {}
+    for c in sample:
+        d, lo = _load_windows(betas, [chunks[c]], idx)
+        sample_data[c] = (d[0], lo[0].astype(np.int64))
+    sample_host = {c: pool.submit(native.segment_exact_native, d, lo,
+                                  min(W, d.shape[1]), max_bp, pc)
+                   for c, (d, lo) in sample_data.items()}
+
+    # the main path's batch: every full chunk in one launch
+    t0 = time.perf_counter()
+    datas, locis = _load_windows(betas, full, idx)
+    pm, pt, tl, tbl, Wb = _exact_inputs(datas, locis, W, max_bp, dev)
+    prep_s = time.perf_counter() - t0
+    ks = _launch_checked(se.segment_exact_dp, pm, pt, tl, tbl, Wb, max_bp)
+    torch.cuda.synchronize()
+    ms = _device_ms(lambda: se.segment_exact_dp(pm, pt, tl, tbl, Wb, max_bp),
+                    3)
+    call_ms = _time_ms(lambda: se.segment_exact_dp(pm, pt, tl, tbl, Wb,
+                                                   max_bp), 2)
+    ks_host = ks.cpu().numpy()
+    B, K, n1 = pm.shape
+    n = n1 - 1
+    cells = _band_cells(locis.astype(np.int64), Wb, max_bp)
+    clock = _sm_clock_mhz()
+    adds = cells * K  # K - 1 across the datasets, 1 with M
+    t_ops = adds / (132 * 64 * clock * 1e6)
+    n_bytes = (pm.numel() + pt.numel() + tl.numel() + ks.numel()) * 4 \
+        + tbl.numel() * 4
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    bound_ms = 1e3 * max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"phase 8: segment_exact_dp on the main path's batch ({B} windows "
+        f"of {n:,} sites, K {K}, Wb {Wb}, table {tbl.numel():,} entries; "
+        f"loaded and staged in {prep_s:.3f} s): kernel {ms:.4f} ms on the "
+        f"card ({call_ms:.4f} ms per call); bound {bound_ms:.4f} ms "
+        f"({bound_by}) = max({cells:,} valid band cells x {K} float64 adds "
+        f"/ (132 SMs x 64 FP64 lanes x {clock:.0f} MHz clocks.max.sm) = "
+        f"{1e3 * t_ops:.4f} ms, {n_bytes:,} bytes / 3.35 TB/s = "
+        f"{1e3 * t_bytes:.4f} ms); the kernel at {100 * bound_ms / ms:.2f} % "
+        f"of it; the chain: {n:,} steps at {1e6 * ms / n:.1f} ns per step")
+    del pm, pt, tl, ks, datas
+
+    # kernel == twin: two main-path windows cut to SEG_CUT sites (timed on
+    # both), then the edge cases
+    cut = [(s, s + SEG_CUT) for s, _ in chunks[:2]]
+    cd, cl = _load_windows(betas, cut, idx)
+    cpm, cpt, ctl, ctbl, cWb = _exact_inputs(cd, cl, W, max_bp, dev)
+    cks, twin_s = _exact_vs_twin(f"2 main-path windows cut to {SEG_CUT:,} "
+                                 "sites", cpm, cpt, ctl, ctbl, cWb, max_bp)
+    cut_ms = _device_ms(lambda: se.segment_exact_dp(cpm, cpt, ctl, ctbl, cWb,
+                                                    max_bp), 3)
+    # the same prefix sums shifted by one constant so that dataset 0's
+    # total crosses 2^31 at site SEG_CUT / 2 of window 0: the differences,
+    # and so ks, do not change
+    shift = (1 << 31) - int(cpt[0, 0, SEG_CUT // 2])
+
+    def shifted(p):
+        x = p.to(torch.int64) + shift
+        return (((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+
+    spm, spt = shifted(cpm), shifted(cpt)
+    if not (int(spt[0, 0, 0]) > 0 > int(spt[0, 0, -1])):
+        raise RuntimeError("the shifted prefix sums do not cross 2^31")
+    sks, _ = _exact_vs_twin("the cut windows, prefix sums shifted across "
+                            "2^31", spm, spt, ctl, ctbl, cWb, max_bp)
+    if not torch.equal(sks, cks):
+        raise RuntimeError("shifting the prefix sums changed ks")
+    del cpm, cpt, spm, spt
+    last_T = None
+    for name, (d, lo, w, mbp) in _edge_windows(betas, loci, chunks).items():
+        epm, ept, etl, etbl, eWb = _exact_inputs(d, lo, min(w, d.shape[2]),
+                                                 mbp, dev)
+        eks, _ = _exact_vs_twin(name, epm, ept, etl, etbl, eWb, mbp)
+        if name.startswith("the ragged"):
+            last_T = np.concatenate([[0], eks[0].cpu().numpy()])
+
+    # the route's T against the host DP's: SEG_SAMPLE chunks (the ragged
+    # last one from its edge case) and the wide case (Wb above SMEM_RING)
+    for c in sample:
+        T = (np.concatenate([[0], ks_host[c]]) if c < len(full) else last_T)
+        if not np.array_equal(T[1:], sample_host[c].result()[1:]):
+            raise RuntimeError(f"segment_exact_dp's T != the host DP's on "
+                               f"chunk {chunks[c]}")
+    log(f"phase 8: segment_exact_dp's T == the host DP's on {len(sample)} "
+        f"main-path chunks (0-{SEG_SAMPLE - 2} and the ragged last)")
+    before = se.segment_exact_dp.launches
+    t0 = time.perf_counter()
+    wide_T = sed.segment_exact_device_T(wide_data, wide_loci, wide_W, 0, pc,
+                                        device=dev)
+    wide_s = time.perf_counter() - t0
+    if wide_T is None or se.segment_exact_dp.launches != before + 1:
+        raise RuntimeError("the wide case did not take the kernel")
+    want = wide_host.result()
+    pool.shutdown()
+    if not np.array_equal(wide_T[1:], want[1:]):
+        raise RuntimeError("segment_exact_dp's T != the host DP's on the "
+                           "wide case")
+    log(f"phase 8: segment_exact_device_T == the host DP's T on the wide "
+        f"case (max_bp 0, W {wide_W:,} over {SEG_WIDE[1]:,} sites, ring in "
+        f"global memory): {wide_s:.3f} s on the card")
+    res = {"max_abs_err": 0.0, "ms": ms, "call_ms": call_ms,
+           "plain_ms": 1e3 * twin_s,
+           "plain_on": f"2 windows x {SEG_CUT} sites",
+           "kernel_ms_on_plain_inputs": cut_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": None, "windows": B,
+           "sites": n, "K": K, "Wb": Wb, "band_cells": cells,
+           "float64_adds": adds, "bytes": n_bytes, "sm_clock_mhz": clock,
+           "ns_per_step": 1e6 * ms / n, "launches_per_job":
+           launches["segment_exact_dp"]}
+    line = (f"segment_exact_dp {ms:.4f} ms per launch on {B} windows "
+            f"({1e6 * ms / n:.1f} ns per step of {n:,}), bound {bound_ms:.4f}"
+            f" ms ({bound_by}), twin {1e3 * twin_s:.1f} ms on {SEG_CUT:,} x 2 "
+            f"sites (kernel {cut_ms:.4f} ms there)")
+    return res, line
+
+
 
 def phase_segment(work):
     """segment at hg19 size through the port's CLI: exact mode on the host
-    cores, fast mode on the card (launch counters set to 0 just before and
-    read just after), their border agreement, the max-plus kernel against
-    its twin on real and hand-made closures and timed beside its bound, and
-    the fast DP's T on the card against the CPU's on one real chunk.
-    Returns (kernel results, launches, summary line)."""
+    cores and on the card, fast mode on the card (launch counters set to 0
+    just before each device run and read just after), the two exact beds'
+    identity and the fast/exact border agreement, the max-plus kernel
+    against its twin on real and hand-made closures and timed beside its
+    bound, the fast DP's T on the card against the CPU's on one real chunk,
+    and the exact kernel's checks (_exact_device_checks). Returns ({kernel:
+    results}, {kernel: launches of its run}, summary line)."""
     import numpy as np
     import torch
 
     from wgbs_tools_tpu_torch.cli import cmd_segment
     from wgbs_tools_tpu_torch.cli.main import main as cli_main
     from wgbs_tools_tpu_torch.models import segment as seg
+    from wgbs_tools_tpu_torch.models import segment_exact_device as sed
     from wgbs_tools_tpu_torch.ops import maxplus as mp
 
     dev = torch.device("cuda")
@@ -1756,13 +2048,41 @@ def phase_segment(work):
 
     exact_bed = op.join(work, "exact.bed")
     t0 = time.perf_counter()
-    if cli_main(["segment"] + base + ["-o", exact_bed]):
+    if cli_main(["segment"] + base + ["--device", "cpu", "-o", exact_bed]):
         raise RuntimeError("segment --mode exact CLI failed")
     exact_wall = time.perf_counter() - t0
     es, ee = _blocks_of(exact_bed)
-    log(f"phase 8: CLI segment --mode exact on the host ({os.cpu_count()} "
+    log(f"phase 8: CLI segment --mode exact --device cpu on the host ({os.cpu_count()} "
         f"threads): {exact_wall:.3f} s, {len(es):,} blocks tiling "
         f"[1, {N_SITES + 1:,})")
+
+    # exact mode on the card (the CLI's defaults: --mode exact, --device
+    # cuda), the counters set to 0 just before and read just after: the host
+    # run's bytes
+    dev_bed = op.join(work, "exact_dev.bed")
+    ex_timings = {}
+    host0 = sed.segment_exact_device_batch.host_windows
+    _zero_launches()
+    t0 = time.perf_counter()
+    if cmd_segment.main(base + ["-o", dev_bed], timings=ex_timings):
+        raise RuntimeError("segment --mode exact on the card: CLI failed")
+    dev_wall = time.perf_counter() - t0
+    ex_launches = _read_launches()
+    _require_launches("phase 8 exact on the card", ex_launches,
+                      ("segment_exact_dp",))
+    host_windows = sed.segment_exact_device_batch.host_windows - host0
+    if host_windows:
+        raise RuntimeError(f"{host_windows} windows of the exact device run "
+                           "went to the host")
+    if not _same(dev_bed, exact_bed):
+        raise RuntimeError("segment --mode exact on the card: the bed "
+                           "differs from the host run's")
+    ex_stages = ", ".join(f"{k} {v:.3f}" for k, v in ex_timings.items())
+    log(f"phase 8: CLI segment --mode exact on the card "
+        f"(the defaults, --device cuda): {dev_wall:.3f} s "
+        f"({ex_stages}; each device stage synchronized), bed byte-identical "
+        f"to the host run's ({op.getsize(dev_bed):,} bytes); host windows "
+        f"{host_windows}; kernel launches {ex_launches}")
 
     fast_bed = op.join(work, "fast.bed")
     timings = {}
@@ -1850,17 +2170,22 @@ def phase_segment(work):
         f"{chunks[0]} ({chunk:,} sites, W {W}; the CPU took {cpu_s:.3f} s)")
     del Crev, S0, cases
     torch.cuda.empty_cache()
+    ex_res, ex_line = _exact_device_checks(betas, loci, dev, ex_launches)
+    torch.cuda.empty_cache()
     res = {"max_abs_err": 0.0, "ms": ms, "call_ms": call_ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": None, "pairs": pairs, "triangle_pairs": tri,
            "matrices": nb,
            "squarings": steps, "sm_clock_mhz": clock, "bytes": n_bytes}
     line = (f"segment at {N_SITES:,} sites, {SEG_K} betas: exact (host) "
-            f"{exact_wall:.3f} s, {len(es):,} blocks; fast (cuda) "
+            f"{exact_wall:.3f} s, {len(es):,} blocks; exact (cuda) "
+            f"{dev_wall:.3f} s ({ex_stages}), the same bytes; fast (cuda) "
             f"{fast_wall:.3f} s ({stages}), {len(fs):,} blocks; fast finds "
             f"{share:.4%} of exact's borders; maxplus_closure launches "
-            f"{launches['maxplus_closure']}")
-    return res, launches, line
+            f"{launches['maxplus_closure']}, segment_exact_dp launches "
+            f"{ex_launches['segment_exact_dp']}; {ex_line}")
+    return {"maxplus_closure": res, "segment_exact_dp": ex_res}, \
+        {"maxplus_closure": launches, "segment_exact_dp": ex_launches}, line
 
 
 def main():
@@ -1884,8 +2209,8 @@ def main():
         del slab
         workers, e2e_procs = phase_procs(work, big, args.frags)
         forms, e2e_forms = phase_forms(work, big, deep, args.frags)
-        kernels["maxplus_closure"], seg_launches, e2e_seg = \
-            phase_segment(work)
+        seg_kernels, seg_launches, e2e_seg = phase_segment(work)
+        kernels.update(seg_kernels)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if torch.cuda.current_device() != 0:
@@ -1893,13 +2218,16 @@ def main():
     # each kernel's launches on its path: the single-device CLI (phase 4),
     # the sharded pat2beta (phase 5), the split-plane accumulator (phase
     # 5), pat2beta through the other forms (phase 7), segment --mode fast
-    # (phase 8)
+    # and --mode exact on the card (phase 8)
     launches = {"flat_vals_fused": ("phase 4 CLI", single),
                 "flat_classic": ("phase 4 CLI", single),
                 "flat_vals_add": ("phase 5 sharded pat2beta", sharded),
                 "flat_vals": ("phase 5 split-plane slab", split), **forms,
                 "maxplus_closure": ("phase 8 segment --mode fast CLI",
-                                    seg_launches)}
+                                    seg_launches["maxplus_closure"]),
+                "segment_exact_dp": ("phase 8 segment --mode exact CLI "
+                                     "on cuda",
+                                     seg_launches["segment_exact_dp"])}
     # a summary at the end, which a log that keeps only its tail still shows
     print(smi, flush=True)
     log("end to end: " + e2e)

@@ -3,11 +3,15 @@ JAX package's originals exactly, on seeded numpy inputs: the pat parser
 and streams, the BGZF reader, writer, compressor and inflater, beta IO and
 saturation, the host pileup (the device kernels' oracle), the v3 row
 packer and placers, blocks beds and their .tbi, the genome's site count,
-CpG index and region parsing, and the CLI's file checks."""
+CpG index and region parsing, the CLI's file checks, and exact
+segmentation's host helpers (the ll table and the band sizes)."""
 
 import gzip
 import io
 import os
+import os.path as op
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -516,3 +520,52 @@ def test_cpg_index_and_region_equal_jax(mini_genome):
         with pytest.raises(putils.IllegalArgumentError) as pe:
             GenomicRegion(genome=g, **kw)
         assert str(pe.value) == str(je.value)
+
+
+# ---------------------------------------------------------------------------
+# exact segmentation's host helpers (models/segment_exact_device.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("pc", [0.5, 1.0, 15.0])
+def test_ll_table_equals_jax(pc):
+    """build_ll_table bit for bit (numpy's libm log2 on both sides), and
+    its one-table cache: a smaller cap reuses a larger cached table."""
+    from wgbs_tools_tpu.models import segment_exact_tpu as jsx
+    from wgbs_tools_tpu_torch.models import segment_exact_device as sed
+
+    for cap in (64, 1024):
+        jsx._TABLE_CACHE.clear()
+        sed._TABLE_CACHE.clear()
+        want, got = jsx.build_ll_table(pc, cap), sed.build_ll_table(pc, cap)
+        assert got.dtype == np.float32 and got.shape == want.shape
+        assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+        assert sed.build_ll_table(pc, cap // 2) is got
+    assert (got <= 0).all() and not np.signbit(got[got == 0]).any()
+
+
+def test_band_helpers_equal_jax():
+    """max_band_width, _round_width, max_band_total and LL_CAP."""
+    from wgbs_tools_tpu.models import segment_exact_tpu as jsx
+    from wgbs_tools_tpu_torch.models import segment_exact_device as sed
+
+    rng = np.random.default_rng(12)
+    for n, K, step in ((300, 2, 60), (1000, 3, 20), (50, 1, 400)):
+        data = rng.integers(0, 30, size=(K, n, 2))
+        loci = np.cumsum(rng.integers(2, step, size=n)) + 100
+        for W in (16, 128, 1000):
+            for max_bp in (0, 500, 2000):
+                assert sed.max_band_width(loci, W, max_bp) == \
+                    jsx.max_band_width(loci, W, max_bp)
+                assert sed.max_band_total(data, loci, W, max_bp) == \
+                    jsx.max_band_total(data, loci, W, max_bp)
+    for bw in (1, 127, 128, 129, 1000):
+        assert sed._round_width(bw) == jsx._round_width(bw)
+    assert sed.LL_CAP == jsx.LL_CAP
+    r = subprocess.run([sys.executable, "-c",
+                        "from wgbs_tools_tpu_torch.models import "
+                        "segment_exact_device as s; print(s.LL_CAP)"],
+                       env={**os.environ, "WGBS_TPU_LL_CAP": "512"},
+                       capture_output=True, text=True, timeout=120,
+                       cwd=op.dirname(op.dirname(op.abspath(__file__))))
+    assert r.returncode == 0 and r.stdout.split() == ["512"], r.stderr

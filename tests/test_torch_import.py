@@ -65,7 +65,9 @@ def test_port_imports_without_jax():
             "wgbs_tools_tpu_torch.formats.csi",
             "wgbs_tools_tpu_torch.models.segment",
             "wgbs_tools_tpu_torch.ops.maxplus",
-            "wgbs_tools_tpu_torch.cli.cmd_segment"} <= names
+            "wgbs_tools_tpu_torch.cli.cmd_segment",
+            "wgbs_tools_tpu_torch.models.segment_exact_device",
+            "wgbs_tools_tpu_torch.ops.segment_exact"} <= names
 
 
 def _imported_modules(path):
@@ -144,6 +146,26 @@ def test_maxplus_closure_refuses_other_devices():
     with pytest.raises(ValueError, match="CUDA"):
         maxplus_closure(torch.zeros((3, 129, 129), device="meta"), 7)
     assert maxplus_closure.launches == 0
+
+
+def test_segment_exact_dp_refuses_other_devices():
+    """The exact DP's wrapper, like the others: a tensor on a device other
+    than the CPU goes to the launcher, which raises; the route refuses such
+    a device before it reads anything."""
+    from wgbs_tools_tpu_torch.models.segment_exact_device import \
+        segment_exact_device_T
+    from wgbs_tools_tpu_torch.ops.segment_exact import segment_exact_dp
+
+    def z(*shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device="meta")
+
+    with pytest.raises(ValueError, match="CUDA"):
+        segment_exact_dp(z(2, 3, 101), z(2, 3, 101), z(2, 100),
+                         z(2080, dtype=torch.float32), 64, 2000)
+    assert segment_exact_dp.launches == 0
+    with pytest.raises(ValueError, match="unsupported device"):
+        segment_exact_device_T([[[1, 2]] * 10], list(range(10)), 8, 2000,
+                               15.0, device="meta")
 
 
 def test_new_kernel_wrappers_refuse_other_devices():

@@ -70,7 +70,8 @@ def test_exact_native_equals_jax(betas, K, max_cpg, max_bp, ps):
     want = jnat.segment_exact_native(datas[:K], loci, W, max_bp, ps)
     got = pnat.segment_exact_native(datas[:K], loci, W, max_bp, ps)
     assert got.dtype == np.int64 and np.array_equal(got, want)
-    b = pseg.segment_borders(datas[:K], loci, max_cpg, max_bp, ps, "exact")
+    b = pseg.segment_borders(datas[:K], loci, max_cpg, max_bp, ps, "exact",
+                             device="cpu")
     assert b.tolist() == jseg.segment_borders(datas[:K], loci, max_cpg,
                                               max_bp, ps, "exact").tolist()
     assert b[0] == 0 and b[-1] == N and len(b) > 10
@@ -102,7 +103,8 @@ def test_exact_native_meth_gt_cov_equals_jax():
     want = jnat.segment_exact_native(data, loci, 100, 2000, 15.0)
     got = pnat.segment_exact_native(data, loci, 100, 2000, 15.0)
     assert np.array_equal(got, want)
-    res = pseg.segment_borders(data, loci, 100, 2000, 15.0, "exact")
+    res = pseg.segment_borders(data, loci, 100, 2000, 15.0, "exact",
+                               device="cpu")
     assert res[0] == 0 and res[-1] == n and np.all(np.diff(res) > 0)
 
 
@@ -116,7 +118,7 @@ def test_exact_raises_without_host_library(betas, monkeypatch):
     monkeypatch.setattr(pnat, "get_lib", no_lib)
     with pytest.raises(RuntimeError, match="host library"):
         pseg.segment_borders(datas[:1, :100], loci[:100], 50, 2000, 15.0,
-                             "exact")
+                             "exact", device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -336,7 +338,8 @@ def test_segment_windows_fast_equals_jax(betas):
 def test_fast_close_to_exact(betas):
     """The JAX gate of test_fast_mode_close_to_exact, on the port."""
     datas, loci = betas
-    exact = pseg.segment_borders(datas, loci, 300, 2000, 15.0, "exact")
+    exact = pseg.segment_borders(datas, loci, 300, 2000, 15.0, "exact",
+                                 device="cpu")
     fast = pseg.segment_borders(datas, loci, 300, 2000, 15.0, "fast",
                                 device="cpu")
     assert len(np.intersect1d(exact, fast)) >= 0.95 * len(exact)
@@ -396,7 +399,7 @@ def test_cli_exact_bytes_equal_jax(tmp_path, genome_betas, form, out):
     paths, bed, _ = genome_betas
     argv = ["--betas"] + paths + (["-L", bed] if form == "bed"
                                   else FORMS[form])
-    j, t = _run_both(tmp_path, argv, out)
+    j, t = _run_both(tmp_path, argv, out, ("--device", "cpu"))
     files = [out] + ([out + ".tbi"] if out.endswith(".gz") else [])
     for name in files:
         want = (j / name).read_bytes()
@@ -411,12 +414,12 @@ def test_cli_exact_threads_equal_jax(tmp_path, genome_betas):
     bytes as the JAX CLI, over a chunked genome that stitches."""
     paths, _, _ = genome_betas
     argv = ["--betas"] + paths + ["-c", "300", "--threads", "1"]
-    j, t = _run_both(tmp_path, argv, "b1.bed")
+    j, t = _run_both(tmp_path, argv, "b1.bed", ("--device", "cpu"))
     from wgbs_tools_tpu_torch.cli.main import main as port_main
 
     assert port_main(["segment", "--betas"] + paths
-                     + ["-c", "300", "--threads", "4", "-o",
-                        str(t / "b4.bed")]) == 0
+                     + ["-c", "300", "--threads", "4", "--device", "cpu",
+                        "-o", str(t / "b4.bed")]) == 0
     want = (j / "b1.bed").read_bytes()
     assert (t / "b1.bed").read_bytes() == want
     assert (t / "b4.bed").read_bytes() == want
@@ -458,10 +461,13 @@ def test_cli_refuses_procs_and_asks_for_cuda(tmp_path, genome_betas,
         port_main(["segment"] + argv + ["--array_id", "cg00001755"])
     assert not (tmp_path / "x.bed").exists()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        port_main(["segment"] + argv + ["--mode", "fast"])
-    # exact mode is host code: it needs no card
-    assert port_main(["segment"] + argv + ["--procs", "1"]) == 0
+    for mode in ("fast", "exact"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            port_main(["segment"] + argv + ["--mode", mode])
+    assert not (tmp_path / "x.bed").exists()
+    # --device cpu: exact mode's host DP needs no card
+    assert port_main(["segment"] + argv + ["--procs", "1", "--device",
+                                           "cpu"]) == 0
     assert (tmp_path / "x.bed").stat().st_size > 0
 
 

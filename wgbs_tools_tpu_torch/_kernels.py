@@ -118,7 +118,10 @@ def _bind(lib):
             # fc, w16)
             ("pileup_tiles_v1", 5, 5),
             # max-plus closure: (S0, out), (nb, n, steps)
-            ("maxplus_closure", 2, 3)):
+            ("maxplus_closure", 2, 3),
+            # exact segmentation: (pm, pt, loci, tbl, ks, ring), (B, K, n,
+            # Wb, max_bp, tbl_size)
+            ("segment_exact_dp", 6, 6)):
         fn = getattr(lib, name)
         fn.argtypes = [vp] * n_ptr + [i64] * n_int + [vp]
         fn.restype = i32

@@ -5,11 +5,13 @@
 
 Flags match wgbs_tools_tpu's segment (cli/cmd_segment.py::main), plus
 --device, less --array_id: the JAX CLI accepts it and segments the whole
-genome; here it is refused as an unknown flag. Exact mode (the default) runs on the host and writes the JAX
-CLI's bytes. Fast mode runs on --device: cuda by default, which raises
-when CUDA is absent; cpu runs the plain PyTorch path, with the max-plus
-kernel's twin. --procs N above 1 (segmentation over worker processes) is
-not ported yet and raises.
+genome; here it is refused as an unknown flag. Both modes run on
+--device, cuda by default, which raises when CUDA is absent. Exact mode
+(the default) writes the JAX CLI's bytes: on cuda its DP runs in the
+kernel csrc/segment_exact.cu, on cpu in the host DP on a thread pool.
+Fast mode on cpu runs the plain PyTorch path, with the max-plus kernel's
+twin. --procs N above 1 (segmentation over worker processes) is not
+ported yet and raises.
 """
 
 import argparse
@@ -43,21 +45,23 @@ def main(argv, timings=None):
     p.add_argument("--max_cpg", type=int, default=1000)
     p.add_argument("--max_bp", type=int, default=2000)
     p.add_argument("-@", "--threads", type=int, default=None,
-                   help="exact mode: chunks run on this many host threads "
-                        "(default: all cores); fast mode batches chunks on "
-                        "the device instead")
+                   help="exact mode with --device cpu: chunks run on this "
+                        "many host threads (default: all cores); on cuda, "
+                        "and in fast mode, chunks are batched on the device "
+                        "instead")
     p.add_argument("--mode", choices=["exact", "fast"], default="exact",
                    help="'exact' matches the reference segmentor bit-for-bit "
-                        "(native C++ DP on the host, threaded over chunks); "
+                        "(a float64 DP kernel on cuda, the native C++ DP "
+                        "threaded over chunks on cpu); "
                         "'fast' runs the whole DP on --device in float32, "
                         "but some borders may differ at numerical ties")
     p.add_argument("-o", "--out_path", default=None)
     p.add_argument("--procs", type=int, default=None,
                    help="(not ported yet: a value above 1 raises)")
     p.add_argument("--device", default="cuda",
-                   help="fast mode's torch device: cuda (default; an error "
-                        "without CUDA) or cpu (the plain PyTorch path); "
-                        "exact mode runs on the host")
+                   help="torch device: cuda (default; an error without "
+                        "CUDA) or cpu (exact mode: the host DP; fast mode: "
+                        "the plain PyTorch path)")
     args = p.parse_args(argv)
     if args.procs and args.procs > 1:
         raise IllegalArgumentError(

@@ -10,8 +10,8 @@ segment (cli/cmd_segment.py), plus --device. The device defaults to cuda
 and raises when CUDA is absent: the host path runs only when asked for.
 With more than one visible card pat2beta's table is sharded over the
 cards; --procs N (N > 1) runs N worker processes, one site range each
-(parallel/multihost.py). segment's exact mode is host code and takes no
-device (cli/cmd_segment.py).
+(parallel/multihost.py). segment runs both its modes on --device too;
+its exact mode's --device cpu is the host DP (cli/cmd_segment.py).
 """
 
 import argparse

@@ -1,1 +1,2 @@
-"""The port's models: segmentation (models/segment.py)."""
+"""The port's models: segmentation (models/segment.py; exact mode on a torch
+device in models/segment_exact_device.py)."""

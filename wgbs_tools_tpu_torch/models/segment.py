@@ -11,11 +11,16 @@ with overlap-patch stitching (ref: src/python/segment.py). The DP:
     blocks longer than max_bp basepairs get cost -inf
 
 Two modes:
-- "exact" (the CLI default) runs on the host: the native C++ DP
+- "exact" (the CLI default) gives the reference segmentor's borders
+  byte for byte, on the device it is given. On a CUDA device (the
+  default) the chunks, batched by size, and windows of 4096 sites or more
+  run through models/segment_exact_device.py: the ll table on the host,
+  the cost and float64 DP in the kernel csrc/segment_exact.cu; a window
+  that route does not take (JAX's eligibility) and the stitching's
+  patches run on the host DP. On the CPU it runs the host DP
   (host/segment_exact.cpp through native.segment_exact_native, the JAX
-  package's kernel copied), chunks on a thread pool, byte-identical
-  borders. It needs no device. There is no numpy emulation: a host library
-  that cannot be built raises.
+  package's kernel copied), chunks on a thread pool. There is no numpy
+  emulation: a host library that cannot be built raises.
 - "fast" runs in float32 on a torch device: the cost tensor
   (_cost_fast), the blocked max-plus DP (_dp_fast_blocked, its in-block
   closures in the hand-written kernel ops/maxplus.py::maxplus_closure) or,
@@ -45,6 +50,7 @@ from ..utils import IllegalArgumentError
 DEF_CHUNK = 60000  # ref: segment.py:21
 NEG = float("-inf")
 SCAN_MAX = 512  # a lone fast window below this many sites takes the scan DP
+EXACT_DEVICE_MIN = 4096  # a lone exact window takes the device from here
 BLOCK = 128     # borders per block of the blocked DP
 
 
@@ -349,7 +355,10 @@ def segment_borders(data, loci, max_cpg=1000, max_bp=2000, pseudo_count=15.0,
     data: (K, n, 2) int counts for sites [s, s+n).
     loci: int (n,) basepair positions of those sites (for max_bp).
     Returns 0-based relative border array (ascending, includes 0 and n).
-    `device` is the torch device of fast mode; exact mode runs on the host.
+    `device` is the torch device (cuda by default: it raises without
+    CUDA). Fast mode runs on it; exact mode runs a window of
+    EXACT_DEVICE_MIN sites or more on it where it is CUDA, and on the host
+    DP otherwise.
     """
     data = np.asarray(data)
     K, n, _ = data.shape
@@ -363,9 +372,20 @@ def segment_borders(data, loci, max_cpg=1000, max_bp=2000, pseudo_count=15.0,
         )
 
     if mode == "exact":
-        # native C++ kernel: the reference's rounding chain, band-limited
-        # cost evaluation (host/segment_exact.cpp)
-        T = segment_exact_native(data, loci, W, max_bp, pseudo_count)
+        dev = resolve_device(device)
+        T = None
+        # the device route: bit-identical, None for an ineligible window.
+        # Small windows (the stitching's patches, ~100-400 sites) stay on
+        # the host, as in JAX
+        if n >= EXACT_DEVICE_MIN and dev.type == "cuda":
+            from .segment_exact_device import segment_exact_device_T
+
+            T = segment_exact_device_T(data, loci, W, max_bp, pseudo_count,
+                                       device=dev)
+        if T is None:
+            # native C++ kernel: the reference's rounding chain,
+            # band-limited cost evaluation (host/segment_exact.cpp)
+            T = segment_exact_native(data, loci, W, max_bp, pseudo_count)
     elif mode == "fast":
         dev = resolve_device(device)
         pm, pt = _prefix_sums(data)
@@ -407,9 +427,11 @@ def segment_sites_window(beta_paths, sites, index, max_cpg=1000, max_bp=2000,
 
 
 class SegmentConfig:
-    """Segmentation settings. `device` is fast mode's torch device (cuda by
-    default: it raises without CUDA; exact mode ignores it). `timings`, a
-    dict, collects the stage seconds of segment_ranges."""
+    """Segmentation settings. `device` is the torch device, cuda by default
+    (it raises without CUDA). Fast mode runs on it; exact mode runs its DP
+    on the card where it is CUDA, and on the host DP's thread pool where it
+    is the CPU. `timings`, a dict, collects the stage seconds of
+    segment_ranges."""
 
     def __init__(self, max_cpg=1000, max_bp=2000, pseudo_count=15.0,
                  chunk_size=DEF_CHUNK, min_cpg=1, mode="exact", threads=None,
@@ -428,7 +450,7 @@ class SegmentConfig:
             threads = int(os.environ.get("SLURM_JOB_CPUS_PER_NODE", 0)) \
                 or (os.cpu_count() or 1)  # ref: utils_wgbs.py:250-261
         self.threads = max(1, threads)
-        self.device = resolve_device(device) if mode == "fast" else None
+        self.device = resolve_device(device)
         self.timings = timings
 
 
@@ -480,6 +502,34 @@ def segment_chunks(beta_paths, chunks, index, cfg: SegmentConfig,
     results = [None] * len(chunks)
     own = list(range(len(chunks))) if subset is None else \
         sorted(set(int(i) for i in subset))
+    if cfg.mode == "exact" and cfg.device.type == "cuda":
+        # the exact DP on the device, batched over equal-size chunks (no
+        # size gate: every chunk of more than one site); a window the route
+        # does not take stays None and runs on the host below
+        from .segment_exact_device import segment_exact_device_batch
+
+        by_size = {}
+        for i in own:
+            s, e = chunks[i]
+            if e - s > 1:
+                by_size.setdefault(e - s, []).append(i)
+        for n, idxs in by_size.items():
+            with timed(cfg.timings, "beta_load", None):
+                datas, locis = _load_windows(beta_paths,
+                                             [chunks[i] for i in idxs], index)
+            # the host path's invalid-beta guard (segment_sites_window), on
+            # the device route too: the first chunk's first bad beta raises
+            bad = np.argwhere((datas[..., 0] > datas[..., 1]).any(axis=2))
+            if bad.size:
+                raise IllegalArgumentError(
+                    f"invalid beta data in {beta_paths[bad[0, 1]]}")
+            Ts = segment_exact_device_batch(
+                datas, locis, int(min(cfg.max_cpg, n)), cfg.max_bp,
+                cfg.pseudo_count, device=cfg.device, timings=cfg.timings)
+            del datas
+            for i, T in zip(idxs, Ts):
+                if T is not None:
+                    results[i] = _traceback(T, n) + chunks[i][0]
     if cfg.mode == "fast":
         # batch all equal-size chunks into single device launches
         by_size = {}
