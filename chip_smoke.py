@@ -85,11 +85,17 @@ result line:
      borders that fast mode finds (fails under 0.95). maxplus_closure is
      held to its twin with tolerance 0 on the main path's batch (8 real
      chunks: 3,752 matrices of 129 x 129) and on hand-made edges (all -inf
-     off the diagonal; W 64 < B; a ragged last block), and timed beside
-     its bound (pairs x 2 instructions over 132 SMs x 128 FP32 lanes x
-     clocks.max.sm; pairs: the (p, r, q) whose two terms are finite on
-     this run's data, per squaring); the fast DP's T on the card equals the CPU's (the
-     twin's closures) on one real chunk fed the same cost tensor.
+     off the diagonal; W 64 < B; a ragged last block; MAXPLUS_EDGE: banded
+     upper triangular matrices with holes at n 1 / 2 / 31 / 33 / 64 / 65 /
+     128 / 129 / 144, one launch mixing them with a matrix that has one
+     finite entry below the diagonal, 0 and 1 squarings); the batch must
+     be -inf below the diagonal (so its launch takes the upper schedule),
+     and it is timed beside its bound (pairs x 2 instructions over 132 SMs
+     x 128 FP32 lanes x clocks.max.sm; pairs: the (p, r, q) whose two
+     terms are finite on this run's data, per squaring), with the triples
+     the upper schedule evaluates (at most 1.3x the triangle's) and the
+     kernel's registers; the fast DP's T on the card equals the CPU's
+     (the twin's closures) on one real chunk fed the same cost tensor.
      Exact mode on the card: `segment` with its defaults (--mode exact,
      --device cuda) through the CLI, counters set to 0 just before and read
      just after (segment_exact_dp must launch, no window may go to the
@@ -1749,6 +1755,61 @@ def _maxplus_pairs(S0, steps):
             S = mp.maxplus_closure_plain(S, 1)
     return pairs
 
+MAXPLUS_UPPER_N = (1, 2, 31, 33, 64, 65, 128, 129, 144)
+MAXPLUS_EDGE = tuple(f"upper_n{n}" for n in MAXPLUS_UPPER_N) + (
+    "mixed", "steps_0", "steps_1")
+
+
+def _upper_band(rng, nb, n, band):
+    """nb random (n, n) f32 matrices, finite only on the diagonal and in
+    the band 0 < q - p <= band above it, with a fifth of those -inf
+    (holes); the diagonal is 0 in even matrices, random in odd ones."""
+    import numpy as np
+
+    P, Q = np.arange(n)[:, None], np.arange(n)[None, :]
+    keep = (Q > P) & (Q - P <= band)
+    S = rng.normal(size=(nb, n, n)).astype(np.float32)
+    S[:, ~keep] = -np.inf
+    S[rng.random((nb, n, n)) < 0.2] = -np.inf
+    diag = rng.normal(size=(nb, n)).astype(np.float32)
+    diag[::2] = 0.0
+    S[:, P[:, 0], P[:, 0]] = diag
+    return S
+
+
+def finite_below(S):
+    """Whether a matrix of the batch S (nb, n, n) has a finite entry strictly
+    below the diagonal (maxplus_closure then takes its general schedule)."""
+    import torch
+
+    below = torch.ones(S.shape[1:], dtype=torch.bool,
+                       device=S.device).tril(-1)
+    return bool(torch.isfinite(S[:, below]).any())
+
+
+def maxplus_edge_batch(name):
+    """(S0 (nb, n, n) f32 numpy, steps) for one edge case of
+    maxplus_closure, from a seed:
+      upper_nN   6 matrices of side N, upper triangular with a band and
+                 holes (_upper_band): the kernel's upper schedule at every
+                 tile remainder, N = 1 up to its NMAX of 144
+      mixed      8 upper matrices of side 129 and, third in the launch,
+                 one with a single finite entry below the diagonal: one
+                 launch reaches both schedules
+      steps_0/1  4 upper matrices of side 129, 0 and 1 squarings"""
+    import numpy as np
+
+    rng = np.random.default_rng(MAXPLUS_EDGE.index(name) + 1100)
+    if name.startswith("upper_n"):
+        n = int(name[len("upper_n"):])
+        return _upper_band(rng, 6, n, max(1, 3 * n // 4)), 7
+    if name == "mixed":
+        S = _upper_band(rng, 9, 129, 100)
+        S[2, 100, 40] = -0.5
+        return S, 7
+    return _upper_band(rng, 4, 129, 129), int(name[-1])
+
+
 SEG_CUT = 8192              # sites of the two main-path windows the twin runs
 SEG_WIDE = (30_000, 32_768)  # (W, sites) of the wide case, max_bp 0
 SEG_SAMPLE = 16             # main-path chunks held to the host DP's T
@@ -2018,7 +2079,7 @@ def _exact_device_checks(betas, loci, dev, launches):
 
 
 
-def phase_segment(work):
+def phase_segment(work, regs):
     """segment at hg19 size through the port's CLI: exact mode on the host
     cores and on the card, fast mode on the card (launch counters set to 0
     just before each device run and read just after), the two exact beds'
@@ -2122,22 +2183,34 @@ def phase_segment(work):
              "W 64 < B": _seg_closures(betas, loci, chunks[:1], 64, dev)[1],
              "ragged (1,000 sites)": seg._closure_inputs(
                  Crev[:1, :1000].contiguous(), W)[1]}
-    for name, S in cases.items():
-        got = _launch_checked(mp.maxplus_closure, S, steps)
+    cases = {name: (S, steps) for name, S in cases.items()}
+    for name in MAXPLUS_EDGE:
+        S, k = maxplus_edge_batch(name)
+        cases[name] = (torch.from_numpy(S).to(dev), k)
+    for name, (S, k) in cases.items():
+        got = _launch_checked(mp.maxplus_closure, S, k)
         torch.cuda.synchronize()
-        want = mp.maxplus_closure_plain(S, steps)
+        want = mp.maxplus_closure_plain(S, k)
         if not torch.equal(got, want):
             err = float((got - want).abs().nan_to_num(0.0).max())
             raise RuntimeError(f"maxplus_closure != its twin on {name}: "
                                f"max_abs_err {err}")
         log(f"phase 8: maxplus_closure == twin (tolerance 0) on {name}: "
-            f"{S.shape[0]:,} matrices of {n} x {n}")
+            f"{S.shape[0]:,} matrices of {S.shape[1]} x {S.shape[1]}, {k} "
+            "squarings")
+    # the timed batch takes the upper schedule: nothing finite below the
+    # diagonal
+    if finite_below(S0):
+        raise RuntimeError("the batch's S0 has a finite entry below the "
+                           "diagonal: the timed launch would not take the "
+                           "upper schedule")
     nb = S0.shape[0]
     ms = _device_ms(lambda: mp.maxplus_closure(S0, steps), 5)
     call_ms = _time_ms(lambda: mp.maxplus_closure(S0, steps), 5)
     plain_ms = _time_ms(lambda: mp.maxplus_closure_plain(S0, steps), 1)
     pairs = _maxplus_pairs(S0, steps)
     tri = nb * steps * (n + 2) * (n + 1) * n // 6
+    scanned = nb * steps * mp.upper_pairs(n)
     clock = _sm_clock_mhz()
     ops = 2 * pairs
     t_ops = ops / (132 * 128 * clock * 1e6)
@@ -2151,11 +2224,17 @@ def phase_segment(work):
         f"({bound_by}) = {pairs:,} (add, max) pairs with both terms finite "
         f"x 2 instructions / (132 SMs x 128 FP32 lanes x {clock:.0f} MHz "
         f"clocks.max.sm) [the triangle p <= r <= q: {tri:,} pairs; the "
-        f"dense square: {nb * steps * n ** 3:,}; what the kernel scans, "
-        f"{mp.NMAX} x {mp.NMAX} outputs x {n} r: "
+        f"dense square: {nb * steps * n ** 3:,}; what the kernel's upper "
+        f"schedule scans, 4 x 4 tiles over their r ranges: {scanned:,} "
+        f"({scanned / tri:.4f}x the triangle); the general schedule "
+        f"scans {mp.NMAX} x {mp.NMAX} outputs x {n} r: "
         f"{nb * steps * mp.NMAX ** 2 * n:,}; bytes {n_bytes:,} / 3.35 TB/s = "
         f"{1e3 * t_bytes:.4f} ms]; the kernel at "
-        f"{100 * bound_ms / ms:.1f} % of it")
+        f"{100 * bound_ms / ms:.1f} % of it; ptxas registers "
+        f"{regs.get('maxplus_closure')}")
+    if scanned > 1.3 * tri:
+        raise RuntimeError(f"the upper schedule scans {scanned:,} pairs, "
+                           f"over 1.3x the triangle's {tri:,}")
 
     # the fast DP's T on the card against the CPU's (the twin's closures)
     # on one real chunk, fed the same cost tensor
@@ -2175,6 +2254,7 @@ def phase_segment(work):
     res = {"max_abs_err": 0.0, "ms": ms, "call_ms": call_ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": None, "pairs": pairs, "triangle_pairs": tri,
+           "scanned_pairs": scanned,
            "matrices": nb,
            "squarings": steps, "sm_clock_mhz": clock, "bytes": n_bytes}
     line = (f"segment at {N_SITES:,} sites, {SEG_K} betas: exact (host) "
@@ -2209,7 +2289,7 @@ def main():
         del slab
         workers, e2e_procs = phase_procs(work, big, args.frags)
         forms, e2e_forms = phase_forms(work, big, deep, args.frags)
-        seg_kernels, seg_launches, e2e_seg = phase_segment(work)
+        seg_kernels, seg_launches, e2e_seg = phase_segment(work, regs)
         kernels.update(seg_kernels)
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -2,28 +2,37 @@
 """A/B of the code-word pileup kernels (flat_classic, flat_lc,
 tiled_classic) and the fragment-row kernels (tiles_v2, tiles_v1) of two
 source trees, on one GPU, on the slabs that chip_smoke.py's phase 3 gives
-them (tiles_v1 also on its long slab).
+them (tiles_v1 also on its long slab), and of the max-plus closure
+(maxplus_closure) on fast segmentation's batch.
 
     python3 kernel_ab.py OTHER_TREE [--frags N] [--reps R] [--rounds K]
-                         [--listed B[,B...]]
+                         [--listed B[,B...]] [--kernels NAME[,NAME...]]
+                         [--squarings K[,K...]]
 
 OTHER_TREE is another checkout of this repo (for the parent commit:
 `git archive HEAD~1 | tar -x -C build/parent`; build/ is ignored by git).
 Each tree's wgbs_tools_tpu_torch/csrc/pileup_v3.cu, pileup_v2.cu and
-pileup_v1.cu are compiled by nvcc with the port's flags into a library of its own, and both
-are called through ctypes on the same staged tensors (staged by this tree;
-the layout is the same in both), in turns other, this, this, other (K
-rounds). --listed also times this tree's tiles_v1 in its listed
-(warp-per-row) form at every w16, B CTAs per SM, in the same turns: a
-probe source that includes pileup_v1.cu and calls its launch_tiles<0, B>
-takes pileup_v1.cu's place in a third build. Every output must equal the
-kernel's plain twin. Times are the
-card's (chip_smoke._device_ms: launches queued behind a spinning kernel),
-per slab (for the code-word kernels both rc-class launches) and per
-rc-class launch. Prints the card's name and power limit, one line per
-kernel, slab and run, and last one JSON object with every run's times and
-each tree's ptxas registers (the most any template instance uses, and each
-instance's).
+pileup_v1.cu are compiled by nvcc with the port's flags into a library
+of its own, and both are called through ctypes on the same staged
+tensors (staged by this tree; the layout is the same in both), in turns
+other, this, this, other (K rounds). --listed also times this tree's
+tiles_v1 in its listed (warp-per-row) form at every w16, B CTAs per SM,
+in the same turns: a probe source that includes pileup_v1.cu and calls
+its launch_tiles<0, B> takes pileup_v1.cu's place in a third build.
+Every output must equal the kernel's plain twin. Times are the card's
+(chip_smoke._device_ms: launches queued behind a spinning kernel), per
+slab (for the code-word kernels both rc-class launches) and per rc-class
+launch. maxplus_closure: each tree's csrc/maxplus.cu is compiled alone,
+and both are called on one S0 batch (SEG_BATCH chunks of 60,000 sites
+made from a seed as chip_smoke.write_seg_data makes its betas, cut into
+129 x 129 edge matrices by _closure_inputs at W = 1000: 3,752 matrices;
+7 squarings, or each count of --squarings), in the same turns; a tree
+whose entry takes a schedule table gets this tree's upper_schedule; each
+output must equal the twin's bit for bit. --kernels picks the kernels
+(default: all). Prints the card's name and power limit, one line per
+kernel, slab and run, and last one JSON object with every run's times
+and each tree's ptxas registers (the most any template instance uses,
+and each instance's).
 """
 
 import argparse
@@ -54,6 +63,123 @@ KERNELS = {name: chip_smoke.PHASE3[name][:2]
 ENTRIES = {"pileup_flat_classic": (5, 5), "pileup_flat_lc": (6, 5),
            "pileup_tiled_classic": (5, 6), "pileup_tiles_v2": (5, 6),
            "pileup_tiles_v1": (5, 5)}
+
+
+MAXPLUS = "maxplus_closure"
+MAXPLUS_SRC = "wgbs_tools_tpu_torch/csrc/maxplus.cu"
+MAXPLUS_SEED = 20261017
+
+
+def build_maxplus(tree, out_dir):
+    """nvcc the tree's maxplus.cu into out_dir/lib.so; returns (its C
+    entry, whether it takes the schedule table, ptxas registers)."""
+    from wgbs_tools_tpu_torch import _kernels
+
+    os.makedirs(out_dir, exist_ok=True)
+    src = op.join(tree, MAXPLUS_SRC)
+    so = op.join(out_dir, "lib.so")
+    proc = subprocess.run([_kernels._nvcc()] + _kernels.NVCC_FLAGS
+                          + ["-shared", "-o", so, src],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}"
+                           f"{proc.stderr}")
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers",
+                                       proc.stdout + proc.stderr)]
+    with open(src) as f:
+        takes_sched = "const void* sched" in f.read()
+    fn = ctypes.CDLL(so).maxplus_closure
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    fn.argtypes = [vp] * (3 if takes_sched else 2) + [i64] * 3 + [vp]
+    fn.restype = ctypes.c_int
+    return fn, takes_sched, max(regs)
+
+
+def maxplus_batch(dev):
+    """S0 of fast segmentation's batch: chip_smoke.SEG_BATCH chunks of
+    DEF_CHUNK sites, chip_smoke.SEG_K betas of Poisson(SEG_COV) coverage
+    over SEG_BLOCK-site blocks of methylation 0.15 / 0.85 and loci
+    cumsum(integers(5, 60)) + 100 (write_seg_data's recipe, from this
+    file's seed), cost at the CLI's defaults, cut by _closure_inputs."""
+    import numpy as np
+
+    from wgbs_tools_tpu_torch.models import segment as seg
+
+    rng = np.random.default_rng(MAXPLUS_SEED)
+    n = chip_smoke.SEG_BATCH * seg.DEF_CHUNK
+    loci = np.cumsum(rng.integers(5, 60, size=n, dtype=np.int64)) + 100
+    site = np.arange(n)
+    datas = []
+    for _ in range(chip_smoke.SEG_K):
+        cov = rng.poisson(chip_smoke.SEG_COV, size=n)
+        p = np.clip(0.15 + 0.7 * ((site // chip_smoke.SEG_BLOCK) % 2)
+                    + rng.normal(0, 0.05, size=n), 0.01, 0.99)
+        datas.append(np.stack([rng.binomial(cov, p), cov], axis=1))
+    data = np.stack(datas).reshape(chip_smoke.SEG_K, chip_smoke.SEG_BATCH,
+                                   seg.DEF_CHUNK, 2).transpose(1, 0, 2, 3)
+    pms, pts = zip(*map(seg._prefix_sums, data))
+    args = chip_smoke.SEG_ARGS
+    Crev = seg._cost_fast(seg._int32(np.stack(pms), dev),
+                          seg._int32(np.stack(pts), dev),
+                          seg._int32(loci.reshape(chip_smoke.SEG_BATCH, -1),
+                                     dev),
+                          args["max_cpg"], args["max_bp"], args["pcount"])
+    return seg._closure_inputs(Crev, args["max_cpg"])[1]
+
+
+def ab_maxplus(trees, reps, rounds, squarings):
+    """Both trees' maxplus_closure on maxplus_batch in turns, at each
+    count of squarings; returns (runs, {"batch s<k>": {tree: median ms}})."""
+    import torch
+
+    from wgbs_tools_tpu_torch.ops import maxplus as mp
+
+    dev = torch.device("cuda")
+    S0 = maxplus_batch(dev)
+    if chip_smoke.finite_below(S0):
+        raise RuntimeError("the batch has a finite entry below the diagonal")
+    nb, n, _ = S0.shape
+    sched = mp._schedule_on(n, dev)
+    runs, summary = [], {}
+    for steps in squarings:
+        want = mp.maxplus_closure_plain(S0, steps)
+        calls = {}
+        for tree, (fn, takes_sched, _) in trees.items():
+            out = torch.empty_like(S0)
+            ptrs = [S0.data_ptr(), out.data_ptr()] + (
+                [sched.data_ptr()] if takes_sched else [])
+
+            def launch(fn=fn, ptrs=ptrs, steps=steps):
+                err = fn(*ptrs, nb, n, steps,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"maxplus_closure: CUDA error {err}")
+
+            launch()
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise RuntimeError(f"{tree} maxplus_closure, {steps} "
+                                   "squarings: kernel != twin")
+            calls[tree] = launch
+        slab = f"batch s{steps}"
+        order = (list(calls) + list(calls)[::-1]) * rounds
+        for i, tree in enumerate(order):
+            ms = chip_smoke._device_ms(calls[tree], reps)
+            runs.append({"kernel": "maxplus_closure", "slab": slab,
+                         "tree": tree, "turn": i, "ms": ms})
+            chip_smoke.log(f"A/B maxplus_closure on the batch ({nb:,} "
+                           f"matrices of {n} x {n}, {steps} squarings) turn "
+                           f"{i} {tree}: {ms:.4f} ms == twin")
+        med = summary[slab] = {
+            tree: statistics.median(r["ms"] for r in runs
+                                    if r["tree"] == tree
+                                    and r["slab"] == slab)
+            for tree in calls}
+        chip_smoke.log(f"A/B maxplus_closure on the batch, {steps} "
+                       "squarings: median " + ", ".join(
+                           f"{tree} {v:.4f} ms ({med['other'] / v:.2f}x)"
+                           for tree, v in med.items()))
+    return runs, summary
 
 
 PROBE = """#include "{src}"
@@ -159,89 +285,122 @@ def main():
     p.add_argument("--listed", default="",
                    help="CTAs per SM (comma-separated) at which to time this "
                         "tree's tiles_v1 also in its listed form")
+    p.add_argument("--squarings", default="7",
+                   help="maxplus_closure's squaring counts (comma-separated; "
+                        "default 7, the DP's)")
+    p.add_argument("--kernels", default=",".join(list(KERNELS) + [MAXPLUS]),
+                   help="the kernels to A/B (comma-separated; default all)")
     args = p.parse_args()
     listed = [int(b) for b in args.listed.split(",") if b]
-
-    import torch
-
-    from wgbs_tools_tpu_torch.ops import pileup_v1, pileup_v2, pileup_v3
+    picked = args.kernels.split(",")
+    unknown = set(picked) - set(KERNELS) - {MAXPLUS}
+    if unknown:
+        p.error(f"unknown kernels {sorted(unknown)}")
+    pileups = [name for name in KERNELS if name in picked]
 
     smi = chip_smoke.phase_card()
     os.makedirs(op.join(REPO, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="kernel_ab_", dir=op.join(REPO, "build"))
+    runs, summary, regs, inst = [], {}, {}, {}
     try:
-        trees = {"other": build(op.abspath(args.other), op.join(work, "o")),
-                 "this": build(REPO, op.join(work, "t"))}
-        if listed:
-            probe = build(REPO, op.join(work, "p"), listed)
-        # the tiles_v1 variants beyond the two trees: (tree, C entry)
-        forms = {f"listed b{b}": (probe, f"pileup_tiles_v1_listed_b{b}")
-                 for b in listed}
-        big, deep = chip_smoke.phase_data(work, args.frags)
-        slabs = {"big": chip_smoke._first_slab(big),
-                 "deep": chip_smoke._first_slab(deep)}
-        slabs["long"] = chip_smoke.long_slab()
-        dev = torch.device("cuda")
-        runs = []
-        for name, (pats, path) in KERNELS.items():
-            module = {"tiles_v1": pileup_v1,
-                      "tiles_v2": pileup_v2}.get(name, pileup_v3)
-            plain = getattr(module, name + "_plain")
-            for pat in pats:
-                sel, lo, span = slabs[pat]
-                sts = chip_smoke._stage(sel, lo, span, dev, path)
-                want = sum(plain(st, span) for st in sts)
-                variants = {tree: (tl, None) for tree, tl in trees.items()}
-                if name == "tiles_v1":
-                    variants.update(forms)
-                calls = {}
-                for tree, (tl, entry) in variants.items():
-                    calls[tree] = [launcher(tl, name, st, span, entry)
-                                   for st in sts]
-                    for launch, _ in calls[tree]:
-                        launch()
-                    torch.cuda.synchronize()
-                    got = sum(out for _, out in calls[tree])
-                    if not torch.equal(got, want):
-                        raise RuntimeError(f"{tree} {name} on {pat}: kernel "
-                                           "!= twin")
-                order = (list(calls) + list(calls)[::-1]) * args.rounds
-                for i, tree in enumerate(order):
-                    cl = calls[tree]
-                    ms = chip_smoke._device_ms(
-                        lambda: [launch() for launch, _ in cl], args.reps)
-                    per_class = {
-                        str(st.rc): chip_smoke._device_ms(launch, args.reps)
-                        for st, (launch, _) in zip(sts, cl)
-                        if hasattr(st, "rc")}
-                    runs.append({"kernel": name, "slab": pat, "tree": tree,
-                                 "turn": i, "ms": ms, "class_ms": per_class})
-                    chip_smoke.log(f"A/B {name} on {pat} turn {i} {tree}: "
-                                   f"{ms:.4f} ms per slab (" + ", ".join(
-                                       f"rc {rc} {v:.4f}" for rc, v in
-                                       per_class.items()) + ") == twin")
-        summary = {}
-        for name, (pats, _) in KERNELS.items():
-            for pat in pats:
-                med = {tree: statistics.median(
-                    r["ms"] for r in runs if r["kernel"] == name
-                    and r["slab"] == pat and r["tree"] == tree)
-                    for tree in dict.fromkeys(
-                        r["tree"] for r in runs if r["kernel"] == name)}
-                summary[f"{name} {pat}"] = med
-                chip_smoke.log(f"A/B {name} on {pat}: median " + ", ".join(
-                    f"{tree} {v:.4f} ms ({med['other'] / v:.2f}x)"
-                    for tree, v in med.items()))
+        if pileups:
+            trees = {"other": build(op.abspath(args.other),
+                                    op.join(work, "o")),
+                     "this": build(REPO, op.join(work, "t"))}
+            probe = build(REPO, op.join(work, "p"), listed) if listed \
+                else None
+            runs += ab_pileups(trees, probe, listed, pileups, work, args,
+                               summary)
+            regs.update({t: tl[1] for t, tl in trees.items()})
+            inst.update({t: tl[3] for t, tl in dict(
+                trees, **({"probe": probe} if listed else {})).items()})
+        if MAXPLUS in picked:
+            mtrees = {"other": build_maxplus(op.abspath(args.other),
+                                             op.join(work, "mo")),
+                      "this": build_maxplus(REPO, op.join(work, "mt"))}
+            squarings = [int(k) for k in args.squarings.split(",")]
+            mruns, med = ab_maxplus(mtrees, args.reps, args.rounds,
+                                    squarings)
+            runs += mruns
+            summary.update({f"{MAXPLUS} {k}": v for k, v in med.items()})
+            for t, (_, _, r) in mtrees.items():
+                regs.setdefault(t, {})[MAXPLUS] = r
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(smi, flush=True)
     print(json.dumps({"card": smi, "reps": args.reps, "median_ms": summary,
-                      "registers": {t: tl[1] for t, tl in trees.items()},
-                      "instances": {t: tl[3] for t, tl in dict(
-                          trees, **({"probe": probe} if listed else {})
-                      ).items()},
-                      "runs": runs}), flush=True)
+                      "registers": regs, "instances": inst, "runs": runs}),
+          flush=True)
     return 0
+
+
+def ab_pileups(trees, probe, listed, pileups, work, args, summary):
+    """The pileup kernels `pileups` of both trees (and tiles_v1's listed
+    forms from `probe`) on chip_smoke's slabs, in turns; fills `summary`
+    with each kernel and slab's medians and returns the runs."""
+    import torch
+
+    from wgbs_tools_tpu_torch.ops import pileup_v1, pileup_v2, pileup_v3
+
+    # the tiles_v1 variants beyond the two trees: (tree, C entry)
+    forms = {f"listed b{b}": (probe, f"pileup_tiles_v1_listed_b{b}")
+             for b in listed}
+    big, deep = chip_smoke.phase_data(work, args.frags)
+    slabs = {"big": chip_smoke._first_slab(big),
+             "deep": chip_smoke._first_slab(deep)}
+    slabs["long"] = chip_smoke.long_slab()
+    dev = torch.device("cuda")
+    runs = []
+    for name in pileups:
+        pats, path = KERNELS[name]
+        module = {"tiles_v1": pileup_v1,
+                  "tiles_v2": pileup_v2}.get(name, pileup_v3)
+        plain = getattr(module, name + "_plain")
+        for pat in pats:
+            sel, lo, span = slabs[pat]
+            sts = chip_smoke._stage(sel, lo, span, dev, path)
+            want = sum(plain(st, span) for st in sts)
+            variants = {tree: (tl, None) for tree, tl in trees.items()}
+            if name == "tiles_v1":
+                variants.update(forms)
+            calls = {}
+            for tree, (tl, entry) in variants.items():
+                calls[tree] = [launcher(tl, name, st, span, entry)
+                               for st in sts]
+                for launch, _ in calls[tree]:
+                    launch()
+                torch.cuda.synchronize()
+                got = sum(out for _, out in calls[tree])
+                if not torch.equal(got, want):
+                    raise RuntimeError(f"{tree} {name} on {pat}: kernel "
+                                       "!= twin")
+            order = (list(calls) + list(calls)[::-1]) * args.rounds
+            for i, tree in enumerate(order):
+                cl = calls[tree]
+                ms = chip_smoke._device_ms(
+                    lambda: [launch() for launch, _ in cl], args.reps)
+                per_class = {
+                    str(st.rc): chip_smoke._device_ms(launch, args.reps)
+                    for st, (launch, _) in zip(sts, cl)
+                    if hasattr(st, "rc")}
+                runs.append({"kernel": name, "slab": pat, "tree": tree,
+                             "turn": i, "ms": ms, "class_ms": per_class})
+                chip_smoke.log(f"A/B {name} on {pat} turn {i} {tree}: "
+                               f"{ms:.4f} ms per slab (" + ", ".join(
+                                   f"rc {rc} {v:.4f}" for rc, v in
+                                   per_class.items()) + ") == twin")
+    for name in pileups:
+        for pat in KERNELS[name][0]:
+            med = {tree: statistics.median(
+                r["ms"] for r in runs if r["kernel"] == name
+                and r["slab"] == pat and r["tree"] == tree)
+                for tree in dict.fromkeys(
+                    r["tree"] for r in runs if r["kernel"] == name)}
+            summary[f"{name} {pat}"] = med
+            chip_smoke.log(f"A/B {name} on {pat}: median " + ", ".join(
+                f"{tree} {v:.4f} ms ({med['other'] / v:.2f}x)"
+                for tree, v in med.items()))
+    return runs
 
 
 if __name__ == "__main__":

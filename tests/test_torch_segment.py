@@ -19,6 +19,8 @@ from wgbs_tools_tpu_torch.models import segment as pseg  # noqa: E402
 from wgbs_tools_tpu_torch.ops import maxplus  # noqa: E402
 from wgbs_tools_tpu_torch.utils import IllegalArgumentError  # noqa: E402
 
+import chip_smoke  # noqa: E402
+
 pytestmark = pytest.mark.skipif(oracle_lib() is None,
                                 reason="the JAX package's native library "
                                        "(the reference) is unavailable")
@@ -243,6 +245,102 @@ def test_closure_equals_jax(betas, n, W):
             jnp.asarray(Cp[b * 128:(b + 1) * 128]), W)
         assert np.array_equal(S0[b].numpy(), want_s0), b
         assert np.array_equal(S_plain[b].numpy(), want), b
+
+
+@pytest.mark.parametrize("n,W", [(300, 40), (400, 129), (700, 300),
+                                 (3000, 1000)])
+def test_closure_inputs_are_upper_triangular(betas, n, W):
+    """The premise of the kernel's upper schedule: on JAX's cost of a real
+    window (W < B, W = B + 1 and W > B, a ragged last block) the DP's S0 is
+    -inf strictly below the diagonal, and every squaring keeps it so."""
+    datas, loci = betas
+    C = _jax_cost(datas[:, :n], loci[:n], W, 2000, 15.0)
+    S = pseg._closure_inputs(torch.from_numpy(C.copy())[None], W)[1]
+    below = torch.ones(129, 129, dtype=torch.bool).tril(-1)
+    assert torch.isfinite(S[:, ~below]).any()
+    for _ in range(8):
+        assert torch.isneginf(S[:, below]).all()
+        S = maxplus.maxplus_closure_plain(S, 1)
+
+
+def _schedule_tiles(n):
+    """upper_schedule(n) as arrays (a, c, r_lo, r_end), -1 / 0 where idle."""
+    tp = tq = maxplus.TILE
+    t = maxplus.upper_schedule(n).astype(np.int64)
+    a = np.where(t >= 0, t >> 16, -1)
+    c = np.where(t >= 0, t & 0xFFFF, -1)
+    r_lo = np.where(t >= 0, tp * a, 0)
+    r_end = np.where(t >= 0, np.minimum(tq * c + tq, n), 0)
+    return a, c, r_lo, r_end
+
+
+def test_upper_schedule_covers_the_triangle():
+    """For every n the kernel takes, the upper schedule's tiles cover each
+    (p, q) with p <= q < n exactly once, each output's r range [p, q] lies
+    in its tile's, and no tile lies wholly below the diagonal. The triples
+    the kernel's loops evaluate (upper_pairs) are the triangle's, each
+    output's r in [p, q], plus the padding columns' r in [p, n) for q from
+    n to the side padded to a multiple of 4."""
+    tp = tq = maxplus.TILE
+    assert maxplus.upper_schedule(129).shape == (maxplus.SLOTS,
+                                                 maxplus.THREADS)
+    for n in range(1, maxplus.NMAX + 1):
+        a, c, r_lo, r_end = _schedule_tiles(n)
+        on = a >= 0
+        # inside the side, and some output on or above the diagonal
+        assert (tp * a[on] < n).all() and (tq * c[on] < n).all(), n
+        assert (tq * c[on] + tq - 1 >= tp * a[on]).all(), n
+        cover = np.zeros((n, n), np.int64)
+        for ai, ci in zip(a[on], c[on]):
+            cover[tp * ai:tp * ai + tp, tq * ci:tq * ci + tq] += 1
+        assert np.array_equal(np.triu(cover), np.triu(np.ones((n, n)))), n
+        # p_lo is the tile's first output row, q_hi its last column
+        assert (r_lo[on] == tp * a[on]).all(), n
+        assert (r_end[on] == np.minimum(tq * c[on] + tq, n)).all(), n
+        pad = -(-n // tq) * tq - n
+        assert maxplus.upper_pairs(n) == ((n + 2) * (n + 1) * n // 6
+                                          + pad * n * (n + 1) // 2), n
+
+
+@pytest.mark.parametrize("n", [96, 112, 128, 129, 144])
+def test_upper_schedule_balance(n):
+    """The work is balanced where it matters, at the DP's n = 129 and
+    around it: each warp's lanes loop together, so a slot costs its
+    longest tile, and the warps w and w + 4 share one of the SM's 4
+    schedulers. Each scheduler's sum of slot costs is within 1.2x of the
+    ideal (all r steps over 128 lanes); the largest thread's r count is at
+    most the larger of its longest tile and 1.2x the mean; the scanned
+    pairs are within 1.3x of the triangle's (n + 2)(n + 1)n / 6."""
+    a, c, r_lo, r_end = _schedule_tiles(n)
+    steps = r_end - r_lo                                # (SLOTS, THREADS)
+    per_sched = steps.reshape(maxplus.SLOTS, 2, 4, 32).max(-1).sum((0, 1))
+    assert per_sched.max() <= 1.2 * steps.sum() / 128, per_sched
+    per_thread = steps.sum(0)
+    assert per_thread.max() <= max(steps.max(), 1.2 * per_thread.mean())
+    assert maxplus.upper_pairs(n) <= 1.3 * (n + 2) * (n + 1) * n // 6
+
+
+def _maxplus_numpy(S, steps):
+    for _ in range(steps):
+        S = np.max(S[:, :, :, None] + S[:, None, :, :], axis=2)
+    return S
+
+
+@pytest.mark.parametrize("name", chip_smoke.MAXPLUS_EDGE)
+def test_maxplus_edge_twin_equals_numpy(name):
+    """chip_smoke.py's edge cases of maxplus_closure: the upper ones are
+    -inf below the diagonal (the mixed launch has one finite entry there,
+    in one matrix), and the twin (the wrapper on the CPU) equals a numpy
+    max-plus power bit for bit."""
+    S, steps = chip_smoke.maxplus_edge_batch(name)
+    n = S.shape[1]
+    below = np.tril(np.isfinite(S), -1).sum((1, 2))
+    assert below.tolist() == ([0, 0, 1] + [0] * 6 if name == "mixed"
+                              else [0] * S.shape[0])
+    assert np.isfinite(S).any() and not np.isnan(S).any()
+    got = maxplus.maxplus_closure(torch.from_numpy(S), steps).numpy()
+    assert got.shape == (S.shape[0], n, n)
+    assert np.array_equal(got, _maxplus_numpy(S, steps))
 
 
 def test_closure_plain_refuses_nan_and_inf():
@@ -486,7 +584,8 @@ def cuda_device():
 @pytest.mark.cuda
 def test_cuda_maxplus_closure_equals_twin(cuda_device, betas):
     """The kernel equals its twin bit for bit on real edge matrices (W <
-    B and W > B, a ragged last block), an all -inf block and a small n."""
+    B and W > B, a ragged last block), an all -inf block and a small dense
+    n (the general schedule), and on chip_smoke.py's maxplus edges."""
     datas, loci = betas
     cases = []
     for n, W in ((700, 300), (400, 100)):
@@ -496,10 +595,15 @@ def test_cuda_maxplus_closure_equals_twin(cuda_device, betas):
     edge = torch.full((2, 129, 129), float("-inf"))
     edge[:, torch.arange(129), torch.arange(129)] = 0.0
     cases += [edge, torch.randn((5, 17, 17)).clamp_max(2.0)]
-    for S0 in cases:
+    cases = [(S0, 7) for S0 in cases]
+    # chip_smoke.py's edges: banded upper matrices with holes at every n in
+    # MAXPLUS_UPPER_N, a launch that mixes both schedules, 0 / 1 squarings
+    cases += [(torch.from_numpy(S), k) for S, k in map(
+        chip_smoke.maxplus_edge_batch, chip_smoke.MAXPLUS_EDGE)]
+    for S0, steps in cases:
         S0 = S0.to(cuda_device)
         before = maxplus.maxplus_closure.launches
-        got = maxplus.maxplus_closure(S0, 7)
+        got = maxplus.maxplus_closure(S0, steps)
         torch.cuda.synchronize()
         assert maxplus.maxplus_closure.launches == before + 1
-        assert torch.equal(got, maxplus.maxplus_closure_plain(S0, 7))
+        assert torch.equal(got, maxplus.maxplus_closure_plain(S0, steps))

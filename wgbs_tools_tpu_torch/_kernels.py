@@ -117,8 +117,8 @@ def _bind(lib):
             # v1: (lo, hi, meta, words, out), (num_tiles, window_len, tile,
             # fc, w16)
             ("pileup_tiles_v1", 5, 5),
-            # max-plus closure: (S0, out), (nb, n, steps)
-            ("maxplus_closure", 2, 3),
+            # max-plus closure: (S0, out, sched), (nb, n, steps)
+            ("maxplus_closure", 3, 3),
             # exact segmentation: (pm, pt, loci, tbl, ks, ring), (B, K, n,
             # Wb, max_bp, tbl_size)
             ("segment_exact_dp", 6, 6)):
