@@ -105,15 +105,21 @@ result line:
      twin timed there, and the kernel beside it), on the same prefix sums
      shifted across 2^31 (ks unchanged), and on hand-made edges (ties from
      1,000 sites of zero coverage, K 1, K 8, W 48, max_bp 0 with W 1000,
-     the ragged last window);
+     max_bp 0 with Wb 1,227 and 1,228 on either side of the threshold
+     between the kernel's ahead and single bodies, the ragged last
+     window; both bodies must be among them);
      its T equals the host DP's on 16 main-path chunks (the ragged last
      among them) and, through segment_exact_device_T, on a 32,768-site
      window with max_bp 0 and W 30,000 (the ring in global memory). It is
      timed on the main path's batch (the 470 full chunks in one launch, as
      the CLI launches them) beside its bound: the larger of the valid band
      cells x K float64 adds over 132 SMs x 64 FP64 lanes x clocks.max.sm
-     and the bytes (prefix sums, loci, table, ks) over 3.35 TB/s; and the
-     chain's ns per step.
+     and the bytes (prefix sums, loci, table, ks) over 3.35 TB/s; with the
+     table lookups the batch makes (ok cells with nt > 0, per dataset) and
+     their rate, the chain's ns per step there and on the cut windows, the
+     body the launch takes, its registers and spills per body (ptxas), and
+     its CTAs per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor, which
+     must put the batch in one wave).
 Then a summary (the card line again, build, end to end), one
 {"kernels": [...]} line (the 8 pileup kernels, maxplus_closure and
 segment_exact_dp), and last {"ok": true, "device": ...}.
@@ -294,16 +300,27 @@ def phase_card():
     return smi
 
 
-def _ptxas_registers(build_log):
+# kernel function -> kernel name (segment_exact_dp has two bodies)
+FUNCTIONS = {**{name + "_kernel": name for name in KERNELS},
+             "segment_exact_dp_ahead_kernel": "segment_exact_dp"}
+# segment_exact_dp's kernel functions -> its bodies
+SEGX_BODIES = {"segment_exact_dp_ahead_kernel": "ahead",
+               "segment_exact_dp_kernel": "single"}
+
+
+def _ptxas_registers(build_log, functions=None):
     """({kernel name: registers per thread}, {kernel name: spill bytes})
     from nvcc's `-Xptxas -v` log; a kernel built in several template
-    instances (w_cols, plane form) reports the most any of them uses."""
+    instances (w_cols, plane form) or bodies reports the most any of them
+    uses. `functions` maps a kernel function's name to the name it is
+    reported under (default FUNCTIONS)."""
     regs, spills, entry = {}, {}, None
+    functions = FUNCTIONS if functions is None else functions
     with open(build_log) as f:
         for line in f:
             if "Compiling entry function" in line:
-                entry = next((k for k in KERNELS if k + "_kernel" in line),
-                             None)
+                entry = next((name for fn, name in functions.items()
+                              if fn in line), None)
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
             if m and entry is not None:
@@ -1663,18 +1680,32 @@ SEG_ARGS = dict(max_cpg=1000, max_bp=2000, pcount=15.0)  # the CLI defaults
 SEG_BATCH = 8      # windows per launch of segment_windows_fast
 
 
+def seg_data():
+    """bench_segment4.py:66-85's data at N_SITES sites, from its seed: loci
+    cumsum(integers(5, 60)) + 100 (int64), then SEG_K betas of
+    Poisson(SEG_COV) coverage over SEG_BLOCK-site blocks of methylation
+    0.15 / 0.85 (+ N(0, 0.05), clipped to [0.01, 0.99]). Yields the loci,
+    then each beta's (N_SITES, 2) int64 (meth, cov)."""
+    import numpy as np
+
+    rng = np.random.default_rng(20260821)
+    yield np.cumsum(rng.integers(5, 60, size=N_SITES, dtype=np.int64)) + 100
+    for _ in range(SEG_K):
+        cov = rng.poisson(SEG_COV, size=N_SITES).astype(np.int64)
+        p = np.clip(0.15 + 0.7 * ((np.arange(N_SITES) // SEG_BLOCK) % 2)
+                    + rng.normal(0, 0.05, size=N_SITES), 0.01, 0.99)
+        yield np.stack([rng.binomial(cov, p), cov], axis=1)
+
+
 def write_seg_data(work, refs):
-    """bench_segment4.py:66-85's data at N_SITES sites: one chromosome with
-    loci cumsum(integers(5, 60)) + 100 (reference SEG_GENOME), and SEG_K
-    betas of Poisson(SEG_COV) coverage over SEG_BLOCK-site blocks of
-    methylation 0.15 / 0.85 (+ N(0, 0.05), clipped to [0.01, 0.99]), from
-    its seed. Returns (beta paths, loci)."""
+    """seg_data() on disk: one chromosome with its loci (reference
+    SEG_GENOME) and SEG_K betas. Returns (beta paths, loci)."""
     import numpy as np
 
     from wgbs_tools_tpu_torch.formats.beta import save_beta
 
-    rng = np.random.default_rng(20260821)
-    loci = np.cumsum(rng.integers(5, 60, size=N_SITES, dtype=np.int64)) + 100
+    data = seg_data()
+    loci = next(data)
     gdir = op.join(refs, SEG_GENOME)
     os.makedirs(gdir)
     np.savez(op.join(gdir, "cpg_index.npz"), loci=loci.astype(np.int32),
@@ -1683,15 +1714,8 @@ def write_seg_data(work, refs):
     with open(op.join(gdir, "cpg_index.json"), "w") as f:
         json.dump({"name": SEG_GENOME, "chroms": ["chr1"],
                    "nr_sites": N_SITES}, f)
-    betas = []
-    for k in range(SEG_K):
-        cov = rng.poisson(SEG_COV, size=N_SITES).astype(np.int64)
-        p = np.clip(0.15 + 0.7 * ((np.arange(N_SITES) // SEG_BLOCK) % 2)
-                    + rng.normal(0, 0.05, size=N_SITES), 0.01, 0.99)
-        meth = rng.binomial(cov, p)
-        betas.append(save_beta(op.join(work, f"seg{k}.beta"),
-                               np.stack([meth, cov], axis=1)))
-        del cov, meth, p
+    betas = [save_beta(op.join(work, f"seg{k}.beta"), beta)
+             for k, beta in enumerate(data)]
     return betas, loci.astype(np.int32)
 
 
@@ -1870,6 +1894,31 @@ def _exact_vs_twin(name, pm, pt, loci, tbl, Wb, max_bp):
     return got, twin_s
 
 
+def _table_lookups(pt, loci, Wb, max_bp, per=8):
+    """The table entries segment_exact_dp reads on these inputs: over the
+    windows and datasets, the ok band cells whose total nt is above 0 (a
+    cell with nt <= 0 adds +0.0 without a read). Counted on the card,
+    `per` windows at a time."""
+    import torch
+
+    B, K, n1 = pt.shape
+    dev = pt.device
+    i = torch.arange(n1 - 1, device=dev)[:, None]
+    k = i - Wb + 1 + torch.arange(Wb, device=dev)[None, :]
+    kc = k.clamp(min=0)
+    lookups = 0
+    for lo in range(0, B, per):
+        ok = (k >= 0).expand(min(per, B - lo), -1, -1)
+        if max_bp:
+            lw = loci[lo:lo + per].long()
+            ok = ok & (lw[:, i] - lw[:, kc] <= max_bp)
+        for d in range(K):
+            p = pt[lo:lo + per, d].long()
+            nt = (p[:, i + 1] - p[:, kc] + (1 << 31)) % (1 << 32) - (1 << 31)
+            lookups += int((ok & (nt > 0)).sum())
+    return lookups
+
+
 def _band_cells(locis, Wb, max_bp):
     """The valid band cells (k >= 0, i - k < Wb, loci[i] - loci[k] <=
     max_bp) of the windows: the cells whose cost and sum the DP needs."""
@@ -1892,6 +1941,7 @@ def _edge_windows(betas, loci, chunks):
     import numpy as np
 
     from wgbs_tools_tpu_torch.models.segment import _load_windows
+    from wgbs_tools_tpu_torch.ops.segment_exact import dp_occupancy
 
     class _Idx:
         pass
@@ -1909,7 +1959,13 @@ def _edge_windows(betas, loci, chunks):
     sparse = rng.poisson(0.2, size=(2, SEG_K, m)).astype(np.int64)
     sparse = np.stack([rng.binomial(sparse, 0.5), sparse], axis=3)
     last, llast = _load_windows(betas, chunks[-1:], idx)
+    wide = next(w for w in range(1, m)
+                if dp_occupancy(w)["body"] == "single")
     return {
+        f"max_bp 0, Wb {wide - 1:,} (the ahead body's widest)":
+            (sparse, locis, wide - 1, 0),
+        f"max_bp 0, Wb {wide:,} (the single body's narrowest)":
+            (sparse, locis, wide, 0),
         "ties: 1,000 sites of zero coverage": (zero, locis, 1000, 2000),
         "K 1": (datas[:, :1], locis, 1000, 2000),
         "K 8": (k8, locis, 1000, 2000),
@@ -1943,7 +1999,7 @@ def _exact_device_checks(betas, loci, dev, launches):
     import numpy as np
     import torch
 
-    from wgbs_tools_tpu_torch import native
+    from wgbs_tools_tpu_torch import _kernels, native
     from wgbs_tools_tpu_torch.models import segment_exact_device as sed
     from wgbs_tools_tpu_torch.models.segment import _load_windows
     from wgbs_tools_tpu_torch.ops import segment_exact as se
@@ -1984,6 +2040,15 @@ def _exact_device_checks(betas, loci, dev, launches):
     ks_host = ks.cpu().numpy()
     B, K, n1 = pm.shape
     n = n1 - 1
+    # the launch the C entry makes and its residency: one wave
+    occ = se.dp_occupancy(Wb)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if occ["ctas_per_sm"] * sms < B:
+        raise RuntimeError(f"{B} windows at {occ['ctas_per_sm']} CTAs per "
+                           f"SM on {sms} SMs take more than one wave")
+    body_regs, body_spills = _ptxas_registers(_kernels.BUILD_LOG,
+                                              SEGX_BODIES)
+    lookups = _table_lookups(pt, tl, Wb, max_bp)
     cells = _band_cells(locis.astype(np.int64), Wb, max_bp)
     clock = _sm_clock_mhz()
     adds = cells * K  # K - 1 across the datasets, 1 with M
@@ -2001,7 +2066,10 @@ def _exact_device_checks(betas, loci, dev, launches):
         f"/ (132 SMs x 64 FP64 lanes x {clock:.0f} MHz clocks.max.sm) = "
         f"{1e3 * t_ops:.4f} ms, {n_bytes:,} bytes / 3.35 TB/s = "
         f"{1e3 * t_bytes:.4f} ms); the kernel at {100 * bound_ms / ms:.2f} % "
-        f"of it; the chain: {n:,} steps at {1e6 * ms / n:.1f} ns per step")
+        f"of it; the chain: {n:,} steps at {1e6 * ms / n:.1f} ns per step; "
+        f"{lookups:,} table lookups ({lookups / (ms * 1e6):.1f} G/s); "
+        f"launch {occ}; ptxas registers {body_regs}, spill bytes "
+        f"{body_spills}")
     del pm, pt, tl, ks, datas
 
     # kernel == twin: two main-path windows cut to SEG_CUT sites (timed on
@@ -2031,12 +2099,18 @@ def _exact_device_checks(betas, loci, dev, launches):
         raise RuntimeError("shifting the prefix sums changed ks")
     del cpm, cpt, spm, spt
     last_T = None
+    bodies = {se.dp_occupancy(cWb)["body"]}
     for name, (d, lo, w, mbp) in _edge_windows(betas, loci, chunks).items():
         epm, ept, etl, etbl, eWb = _exact_inputs(d, lo, min(w, d.shape[2]),
                                                  mbp, dev)
-        eks, _ = _exact_vs_twin(name, epm, ept, etl, etbl, eWb, mbp)
+        body = se.dp_occupancy(eWb)["body"]
+        bodies.add(body)
+        eks, _ = _exact_vs_twin(f"{name} [{body} body]", epm, ept, etl, etbl,
+                                eWb, mbp)
         if name.startswith("the ragged"):
             last_T = np.concatenate([[0], eks[0].cpu().numpy()])
+    if bodies != {"ahead", "single"}:
+        raise RuntimeError(f"the twin checks reached only {bodies}")
 
     # the route's T against the host DP's: SEG_SAMPLE chunks (the ragged
     # last one from its edge case) and the wide case (Wb above SMEM_RING)
@@ -2069,12 +2143,17 @@ def _exact_device_checks(betas, loci, dev, launches):
            "bound_by": bound_by, "library_ms": None, "windows": B,
            "sites": n, "K": K, "Wb": Wb, "band_cells": cells,
            "float64_adds": adds, "bytes": n_bytes, "sm_clock_mhz": clock,
-           "ns_per_step": 1e6 * ms / n, "launches_per_job":
-           launches["segment_exact_dp"]}
+           "ns_per_step": 1e6 * ms / n,
+           "ns_per_step_cut_windows": 1e6 * cut_ms / SEG_CUT,
+           "table_lookups": lookups, "launch": occ,
+           "registers_by_body": body_regs, "spills_by_body": body_spills,
+           "launches_per_job": launches["segment_exact_dp"]}
     line = (f"segment_exact_dp {ms:.4f} ms per launch on {B} windows "
-            f"({1e6 * ms / n:.1f} ns per step of {n:,}), bound {bound_ms:.4f}"
-            f" ms ({bound_by}), twin {1e3 * twin_s:.1f} ms on {SEG_CUT:,} x 2 "
-            f"sites (kernel {cut_ms:.4f} ms there)")
+            f"({1e6 * ms / n:.1f} ns per step of {n:,}; {occ['body']} body, "
+            f"{occ['ctas_per_sm']} CTAs per SM, registers {body_regs}), bound "
+            f"{bound_ms:.4f} ms ({bound_by}), twin {1e3 * twin_s:.1f} ms on "
+            f"{SEG_CUT:,} x 2 sites (kernel {cut_ms:.4f} ms there, "
+            f"{1e6 * cut_ms / SEG_CUT:.1f} ns per step)")
     return res, line
 
 

@@ -2,8 +2,9 @@
 """A/B of the code-word pileup kernels (flat_classic, flat_lc,
 tiled_classic) and the fragment-row kernels (tiles_v2, tiles_v1) of two
 source trees, on one GPU, on the slabs that chip_smoke.py's phase 3 gives
-them (tiles_v1 also on its long slab), and of the max-plus closure
-(maxplus_closure) on fast segmentation's batch.
+them (tiles_v1 also on its long slab), of the max-plus closure
+(maxplus_closure) on fast segmentation's batch, and of exact
+segmentation's DP (segment_exact_dp) on phase 8's batch.
 
     python3 kernel_ab.py OTHER_TREE [--frags N] [--reps R] [--rounds K]
                          [--listed B[,B...]] [--kernels NAME[,NAME...]]
@@ -28,11 +29,23 @@ made from a seed as chip_smoke.write_seg_data makes its betas, cut into
 129 x 129 edge matrices by _closure_inputs at W = 1000: 3,752 matrices;
 7 squarings, or each count of --squarings), in the same turns; a tree
 whose entry takes a schedule table gets this tree's upper_schedule; each
-output must equal the twin's bit for bit. --kernels picks the kernels
-(default: all). Prints the card's name and power limit, one line per
-kernel, slab and run, and last one JSON object with every run's times
-and each tree's ptxas registers (the most any template instance uses,
-and each instance's).
+output must equal the twin's bit for bit. segment_exact_dp: each tree's
+csrc/segment_exact.cu is compiled alone, and both are called on phase 8's
+inputs as chip_smoke._exact_inputs makes them from chip_smoke.seg_data
+(the same seed): "batch", the 470 full chunks of 60,000 sites in one
+launch (K 3, max_bp 2000, Wb 128), and "cut", the first two chunks cut to
+SEG_CUT sites; and on phase 8's edge case "max_bp 0, W 1000" (K 3 of
+Poisson(0.2) coverage from a seed, Wb 1000): "wide", at the batch's size
+(470 chunks of 60,000 sites, the batch's loci), and "wide cut", its first
+two chunks cut to SEG_EDGE_SITES sites, the edge case's size; in the same
+turns, with --reps R (at most 3 on the batches); both trees' ks must be
+equal (and equal the twin's on the cut slabs); each tree's registers and
+spills per body and, where its source has the entry, the launch and CTAs
+per SM that segment_exact_dp_occupancy reports at each slab's Wb are
+printed. --kernels picks the kernels (default: all). Prints the card's
+name and power limit, one line per kernel, slab and run, and last one
+JSON object with every run's times and each tree's ptxas registers (the
+most any template instance uses, and each instance's).
 """
 
 import argparse
@@ -182,6 +195,146 @@ def ab_maxplus(trees, reps, rounds, squarings):
     return runs, summary
 
 
+SEGX = "segment_exact_dp"
+SEGX_SRC = "wgbs_tools_tpu_torch/csrc/segment_exact.cu"
+
+
+def build_segx(tree, out_dir):
+    """nvcc the tree's segment_exact.cu alone into out_dir/lib.so; returns
+    (the library, {body: registers}, {body: spill bytes}), body "ahead" or
+    "single" by the kernel function's name."""
+    from wgbs_tools_tpu_torch import _kernels
+
+    os.makedirs(out_dir, exist_ok=True)
+    src = op.join(tree, SEGX_SRC)
+    so = op.join(out_dir, "lib.so")
+    proc = subprocess.run([_kernels._nvcc()] + _kernels.NVCC_FLAGS
+                          + ["-shared", "-o", so, src],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}"
+                           f"{proc.stderr}")
+    log = op.join(out_dir, "nvcc.log")
+    with open(log, "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    regs, spills = chip_smoke._ptxas_registers(log, chip_smoke.SEGX_BODIES)
+    lib = ctypes.CDLL(so)
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.segment_exact_dp.argtypes = [vp] * 6 + [i64] * 6 + [vp]
+    lib.segment_exact_dp.restype = ctypes.c_int
+    return lib, regs, spills
+
+
+def segx_inputs(dev):
+    """segment_exact_dp's slabs (see the module's docstring): {slab: (pm,
+    pt, loci, tbl, Wb, max_bp)}, made as chip_smoke._exact_inputs makes
+    them."""
+    import numpy as np
+
+    from wgbs_tools_tpu_torch.models import segment as seg
+
+    data = chip_smoke.seg_data()
+    loci = next(data)
+    betas = [b.astype(np.uint8) for b in data]  # as load_beta reads them
+    chunks = chip_smoke._seg_chunks()
+    full = [c for c in chunks if c[1] - c[0] == seg.DEF_CHUNK]
+    W, max_bp = chip_smoke.SEG_ARGS["max_cpg"], chip_smoke.SEG_ARGS["max_bp"]
+
+    def window_loci(wins):
+        return np.stack([loci[s - 1:e - 1] for s, e in wins])
+
+    def inputs(wins, bp):
+        datas = np.stack([np.stack([b[s - 1:e - 1] for b in betas])
+                          for s, e in wins])
+        return chip_smoke._exact_inputs(datas, window_loci(wins), W, bp,
+                                        dev) + (bp,)
+
+    slabs = {"batch": inputs(full, max_bp),
+             "cut": inputs([(s, s + chip_smoke.SEG_CUT)
+                            for s, _ in full[:2]], max_bp)}
+    del betas
+    rng = np.random.default_rng(20261017)
+    cov = rng.poisson(0.2, size=(len(full), chip_smoke.SEG_K,
+                                 seg.DEF_CHUNK)).astype(np.uint8)
+    sparse = np.stack([rng.binomial(cov, 0.5).astype(np.uint8), cov],
+                      axis=3)
+    del cov
+    m = chip_smoke.SEG_EDGE_SITES
+    for slab, datas, locis in (
+            ("wide", sparse, window_loci(full)),
+            ("wide cut", sparse[:2, :, :m], window_loci(full[:2])[:, :m])):
+        slabs[slab] = chip_smoke._exact_inputs(
+            np.ascontiguousarray(datas), locis, W, 0, dev) + (0,)
+    return slabs
+
+
+def ab_segx(trees, reps, rounds):
+    """The trees' segment_exact_dp on segx_inputs in turns; returns (runs,
+    {slab: {tree: median ms}}, {tree: {slab: occupancy at its Wb}})."""
+    import torch
+
+    from wgbs_tools_tpu_torch.ops import segment_exact as se
+
+    dev = torch.device("cuda")
+    slabs = segx_inputs(dev)
+    runs, summary, occ = [], {}, {}
+    for slab, (pm, pt, tl, tbl, Wb, max_bp) in slabs.items():
+        B, K, n1 = pm.shape
+        calls, first = {}, None
+        for tree, (lib, _, _) in trees.items():
+            ks = torch.empty((B, n1 - 1), dtype=torch.int32, device=dev)
+
+            def launch(fn=lib.segment_exact_dp, ks=ks):
+                err = fn(pm.data_ptr(), pt.data_ptr(), tl.data_ptr(),
+                         tbl.data_ptr(), ks.data_ptr(), None, B, K, n1 - 1,
+                         Wb, max_bp, tbl.numel(),
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"segment_exact_dp: CUDA error {err}")
+
+            launch()
+            torch.cuda.synchronize()
+            if first is None:
+                first = ks
+                if "cut" in slab and not torch.equal(
+                        ks, se.segment_exact_dp_plain(pm, pt, tl, tbl, Wb,
+                                                      max_bp)):
+                    raise RuntimeError(f"{tree} segment_exact_dp on {slab}: "
+                                       "kernel != twin")
+            elif not torch.equal(ks, first):
+                raise RuntimeError(f"{tree} segment_exact_dp on {slab}: ks "
+                                   f"!= {next(iter(trees))}'s")
+            calls[tree] = launch
+            if hasattr(lib, "segment_exact_dp_occupancy"):
+                out = (ctypes.c_int64 * 5)()
+                if lib.segment_exact_dp_occupancy(ctypes.c_int64(Wb), out):
+                    raise RuntimeError("segment_exact_dp_occupancy failed")
+                occ.setdefault(tree, {})[slab] = dict(zip(
+                    ("ahead", "threads", "smem", "lookahead", "ctas_per_sm"),
+                    out))
+        order = (list(calls) + list(calls)[::-1]) * rounds
+        r = reps if "cut" in slab else min(reps, 3)
+        for i, tree in enumerate(order):
+            ms = chip_smoke._device_ms(calls[tree], r)
+            runs.append({"kernel": SEGX, "slab": slab, "tree": tree,
+                         "turn": i, "ms": ms, "ns_per_step": 1e6 * ms
+                         / (n1 - 1)})
+            chip_smoke.log(f"A/B segment_exact_dp on {slab} ({B} windows of "
+                           f"{n1 - 1:,} sites, K {K}, Wb {Wb}, max_bp "
+                           f"{max_bp}) turn {i} {tree}: {ms:.4f} ms "
+                           f"({1e6 * ms / (n1 - 1):.1f} ns per step), ks == "
+                           "the first tree's")
+        med = summary[slab] = {
+            tree: statistics.median(x["ms"] for x in runs
+                                    if x["tree"] == tree
+                                    and x["slab"] == slab)
+            for tree in calls}
+        chip_smoke.log(f"A/B segment_exact_dp on {slab}: median " + ", ".join(
+            f"{tree} {v:.4f} ms ({1e6 * v / (n1 - 1):.1f} ns per step, "
+            f"{med['other'] / v:.2f}x)" for tree, v in med.items()))
+    return runs, summary, occ
+
+
 PROBE = """#include "{src}"
 """
 PROBE_ENTRY = """extern "C" int pileup_tiles_v1_listed_b{b}(
@@ -288,12 +441,13 @@ def main():
     p.add_argument("--squarings", default="7",
                    help="maxplus_closure's squaring counts (comma-separated; "
                         "default 7, the DP's)")
-    p.add_argument("--kernels", default=",".join(list(KERNELS) + [MAXPLUS]),
+    p.add_argument("--kernels",
+                   default=",".join(list(KERNELS) + [MAXPLUS, SEGX]),
                    help="the kernels to A/B (comma-separated; default all)")
     args = p.parse_args()
     listed = [int(b) for b in args.listed.split(",") if b]
     picked = args.kernels.split(",")
-    unknown = set(picked) - set(KERNELS) - {MAXPLUS}
+    unknown = set(picked) - set(KERNELS) - {MAXPLUS, SEGX}
     if unknown:
         p.error(f"unknown kernels {sorted(unknown)}")
     pileups = [name for name in KERNELS if name in picked]
@@ -325,6 +479,19 @@ def main():
             summary.update({f"{MAXPLUS} {k}": v for k, v in med.items()})
             for t, (_, _, r) in mtrees.items():
                 regs.setdefault(t, {})[MAXPLUS] = r
+        if SEGX in picked:
+            strees = {"other": build_segx(op.abspath(args.other),
+                                          op.join(work, "so")),
+                      "this": build_segx(REPO, op.join(work, "st"))}
+            sruns, med, occ = ab_segx(strees, args.reps, args.rounds)
+            runs += sruns
+            summary.update({f"{SEGX} {k}": v for k, v in med.items()})
+            for t, (_, r, sp) in strees.items():
+                regs.setdefault(t, {})[SEGX] = {"registers": r, "spills": sp,
+                                                "occupancy": occ.get(t)}
+                chip_smoke.log(f"segment_exact_dp {t}: ptxas registers {r}, "
+                               f"spill bytes {sp}, launch by slab "
+                               f"{occ.get(t)}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(smi, flush=True)

@@ -460,3 +460,80 @@ def test_cuda_segment_exact_dp_equals_twin(cuda_device):
                                        device=cuda_device)
         assert np.array_equal(T[1:], pnat.segment_exact_native(
             datas[0], locis[0], W, max_bp, 15.0)[1:])
+
+
+AHEAD_WB_MAX = 1227  # the widest band the kernel's ahead body takes
+MIN_CTAS = 4         # the ahead body's CTAs per SM (its __launch_bounds__)
+
+# (name, K, n, Wb, max_bp, windows, cov_hi, zero stretch): the edges of
+# both bodies; Wb is given to the kernel as it is, the table planned at W =
+# Wb (so that it holds every in-band total)
+CUDA_EDGES = [
+    ("n below the lookahead", 2, 7, 32, 2000, 3, 12, False),
+    ("n not a multiple of L or P", 3, 1001, 128, 2000, 3, 12, False),
+    ("Wb 1", 2, 300, 1, 0, 3, 12, False),
+    ("Wb 31", 3, 400, 31, 2000, 3, 12, False),
+    ("Wb 33", 3, 400, 33, 0, 3, 12, False),
+    ("Wb 128", 3, 2000, 128, 2000, 3, 12, False),
+    ("Wb at the body threshold", 2, 2500, 1227, 0, 2, 2, False),
+    ("Wb above the body threshold", 2, 2500, 1228, 0, 2, 2, False),
+    ("K 1", 1, 800, 64, 2000, 3, 12, False),
+    ("K 8", 8, 600, 96, 1500, 3, 12, False),
+    ("ties from zero coverage", 2, 900, 128, 2000, 3, 3, True),
+    ("B 1", 3, 700, 128, 2000, 1, 12, False),
+    ("B above one wave", 2, 200, 64, 2000, 600, 12, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,K,n,Wb,max_bp,B,cov_hi,zero", CUDA_EDGES,
+                         ids=[c[0] for c in CUDA_EDGES])
+def test_cuda_segment_exact_dp_edges_equal_twin(cuda_device, name, K, n, Wb,
+                                                max_bp, B, cov_hi, zero):
+    """Each body's edges equal the twin bit for bit: n below the lookahead
+    and not a multiple of it or of the cost warps, Wb 1 / 31 / 33 / 128 and
+    on both sides of the body threshold, K 1 / 8, ties from zero coverage,
+    one window and more windows than one wave holds. The C entry takes the
+    ahead body up to AHEAD_WB_MAX, at MIN_CTAS CTAs per SM or more."""
+    rng = np.random.default_rng(n + 7 * Wb + B)
+    datas = np.stack([_rand_window(rng, K, n, cov_hi)[0] for _ in range(B)])
+    locis = np.stack([_rand_window(rng, 1, n, 2)[1] for _ in range(B)])
+    if zero:
+        datas[:, :, 100:400] = 0
+    elig, tbl, _ = sed.plan_windows(datas, locis, Wb, max_bp, 15.0)
+    assert elig == list(range(B))
+    counts, loci = sed._upload(datas, locis, cuda_device)
+    pm, pt = sed._prefix_sums_wrapped(counts)
+    tt = torch.from_numpy(tbl).to(cuda_device)
+    want = se.segment_exact_dp_plain(pm, pt, loci, tt, Wb, max_bp)
+    before = se.segment_exact_dp.launches
+    got = se.segment_exact_dp(pm, pt, loci, tt, Wb, max_bp)
+    torch.cuda.synchronize()
+    assert se.segment_exact_dp.launches == before + 1
+    assert torch.equal(got, want), name
+    occ = se.dp_occupancy(Wb)
+    assert occ["body"] == ("ahead" if Wb <= AHEAD_WB_MAX else "single")
+    if occ["body"] == "ahead":
+        assert occ["ctas_per_sm"] >= MIN_CTAS
+
+
+@pytest.mark.cuda
+def test_cuda_segment_exact_dp_runs_phase_8s_batch_in_one_wave(cuda_device):
+    """At every Wb from 1 to 8,192 the launch the C entry makes puts 470
+    windows (phase 8's batch) in one wave on the card's SMs: the ahead body
+    up to AHEAD_WB_MAX, with 32 (1 + 3) threads, 4 to 8 cost slots and at
+    most 48 KB of shared memory; the single body above, one warp, its ring
+    in shared memory up to SMEM_RING values."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for Wb in range(1, 8193):
+        occ = se.dp_occupancy(Wb)
+        assert occ["ctas_per_sm"] * sms >= 470, (Wb, occ)
+        if Wb <= AHEAD_WB_MAX:
+            assert occ["body"] == "ahead" and occ["threads"] == 128, Wb
+            assert 4 <= occ["lookahead"] <= 8, (Wb, occ)
+            assert occ["smem"] <= 48 * 1024, (Wb, occ)
+            assert occ["ctas_per_sm"] >= MIN_CTAS, (Wb, occ)
+        else:
+            assert occ["body"] == "single" and occ["threads"] == 32, Wb
+            assert occ["lookahead"] == 0, Wb
+            assert occ["smem"] == (8 * Wb if Wb <= se.SMEM_RING else 0), Wb

@@ -125,6 +125,9 @@ def _bind(lib):
         fn = getattr(lib, name)
         fn.argtypes = [vp] * n_ptr + [i64] * n_int + [vp]
         fn.restype = i32
+    # (Wb, int64 out[5]): segment_exact_dp's launch and its CTAs per SM
+    lib.segment_exact_dp_occupancy.argtypes = [i64, vp]
+    lib.segment_exact_dp_occupancy.restype = i32
     lib.wgbs_cuda_error_string.argtypes = [i32]
     lib.wgbs_cuda_error_string.restype = ctypes.c_char_p
 

@@ -10,14 +10,19 @@ maximum, M[0] = +0.0. It replaces
 wgbs_tools_tpu/models/segment_exact_tpu.py::_exact_batch_ring_raw (:349):
 the cost (_exact_cost_body :168, here exact_cost_plain) under vmap, then the
 ring DP (_dp_exact_batched_ring :284, here dp_exact_ring_plain), which JAX
-runs in software doubles. The kernel (csrc/segment_exact.cu) computes each
-cell's cost where its step needs it; the twin, segment_exact_dp_plain,
-chains the two plain functions over slices of windows. Both do IEEE float64
-adds only, in the same order, and take the same first maximum, so they
-agree bit for bit. A wrapper sends CUDA tensors to the kernel and CPU
-tensors to the twin; any other device raises. `segment_exact_dp.launches`
-counts its launches.
+runs in software doubles. The kernel (csrc/segment_exact.cu) has two bodies
+that its C entry picks by Wb alone (dp_occupancy reports it): "ahead",
+where cost warps compute the steps' costs ahead of a chain warp into a
+shared ring, and "single", one warp per window that computes each cell's
+cost where its step needs it. The twin, segment_exact_dp_plain, chains the
+two plain functions over slices of windows. All three do IEEE float64 adds
+only, in the same order, and take the same first maximum, so they agree
+bit for bit. A wrapper sends CUDA tensors to the kernel and CPU tensors to
+the twin; any other device raises. `segment_exact_dp.launches` counts its
+launches.
 """
+
+import ctypes
 
 import torch
 
@@ -25,9 +30,23 @@ from .. import _kernels
 from ..models.segment import _hankel
 
 LL_CAP_MAX = 32768     # the largest table cap whose index fits in int32
-SMEM_RING = 6144       # the kernel's largest ring of M in shared memory
+SMEM_RING = 6144       # the single body's largest ring of M in shared memory
 TWIN_CELLS = 1 << 24   # (windows, n, Wb) cost cells per twin slice
 NEG = float("-inf")
+
+
+def dp_occupancy(Wb):
+    """The launch segment_exact_dp makes for band width Wb on the current
+    CUDA device, as its C entry chooses it, and the CTAs per SM that
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor gives it: {"body":
+    "ahead" or "single", "threads" per CTA, "lookahead" (cost slots, 0 for
+    single), "smem" (dynamic shared bytes), "ctas_per_sm"}. Needs the
+    card."""
+    out = (ctypes.c_int64 * 5)()
+    _kernels.check(_kernels.load().segment_exact_dp_occupancy(int(Wb), out),
+                   "segment_exact_dp_occupancy")
+    return {"body": "ahead" if out[0] else "single", "threads": out[1],
+            "lookahead": out[3], "smem": out[2], "ctas_per_sm": out[4]}
 
 
 def _check(pm, pt, loci, tbl, Wb, max_bp):
@@ -63,10 +82,11 @@ def segment_exact_dp(pm, pt, loci, tbl, Wb, max_bp):
     """ks (B, n) int32 of the exact ring DP over B windows' band costs.
 
     Replaces segment_exact_tpu.py::_exact_batch_ring_raw. CUDA tensors
-    launch the kernel; CPU tensors take segment_exact_dp_plain. The kernel
-    keeps M in shared memory up to SMEM_RING values of Wb and in global
-    scratch above. The caller keeps every in-band index
-    nt * (nt + 1) / 2 + nm (0 <= nm <= nt) inside tbl, as the route does."""
+    launch the kernel (the body dp_occupancy(Wb) names); CPU tensors take
+    segment_exact_dp_plain. The single body keeps M in shared memory up to
+    SMEM_RING values of Wb and in global scratch above. The caller keeps
+    every in-band index nt * (nt + 1) / 2 + nm (0 <= nm <= nt) inside tbl,
+    as the route does."""
     Wb, max_bp = int(Wb), int(max_bp)
     _check(pm, pt, loci, tbl, Wb, max_bp)
     if pm.device.type == "cpu":
