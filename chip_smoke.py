@@ -6,7 +6,7 @@
 Phases, each printed as it runs; any failure exits nonzero and prints no
 result line:
   1. the card: `nvidia-smi` name and power limit; fails without CUDA.
-  2. build: nvcc compiles the five sources csrc/*.cu for sm_90a, in
+  2. build: nvcc compiles the six sources csrc/*.cu for sm_90a, in
      parallel (seconds and ptxas register counts printed), and g++ the
      port's host library (host/wgbsio.cpp and host/segment_exact.cpp) that
      decoding, staging, exact segmentation and the oracle run; both must
@@ -120,9 +120,33 @@ result line:
      body the launch takes, its registers and spills per body (ptxas), and
      its CTAs per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor, which
      must put the batch in one wave).
+     Phase 8 also keeps its fast run's borders of the 470 full chunks.
+  9. the parallel layer at hg19 size. The analysis step
+     (parallel/sharded.py::AnalysisStep) on a (2 samples, 2 sites) mesh of
+     4 stand-in devices on the card: the big pat's 20M fragments through
+     bucket_fragments, 4 samples from phase 8's generator, seed and loci,
+     W 64, halo 32, max_bp 2000, pc 15, the counters set to 0 just before
+     and read just after (tiles_v1 and dp_scan must launch); its counts
+     equal native.pileup_native's of the same fragments, decode_sum64 of
+     its coverage pair equals the int64 sum, its peak device memory stays
+     under 60 GB; its two chains' cost is built again and dp_scan
+     (csrc/dp_scan.cu) timed on it with CUDA events (its ks equal the
+     step's), each chain's first 1,000,000 ks equal scan_numpy (the DP in
+     numpy on the host) bit for bit, the share _dp_fast_blocked agrees on
+     is printed (it sums a path's costs in another order, so near-ties
+     move), dp_scan equals its twin on two windows cut to 8,192 sites, and
+     its time stands beside its bound (the larger of the chain floor, 8
+     cycles a step over clocks.max.sm, and the bytes over 3.35 TB/s). Then
+     segment_windows_sharded on phase 8's 470 chunks over 4 stand-in
+     shards (maxplus_closure must launch) equals phase 8's fast borders
+     window for window; `segment --procs 2` through the CLI (both ranks on
+     cuda:0), exact and fast, writes phase 8's one-process beds, each
+     worker's launch line showing segment_exact_dp / maxplus_closure;
+     flagship.entry() on the card (merged equals the host pileup plus the
+     samples) and flagship.dryrun_multichip(4), each with its line.
 Then a summary (the card line again, build, end to end), one
-{"kernels": [...]} line (the 8 pileup kernels, maxplus_closure and
-segment_exact_dp), and last {"ok": true, "device": ...}.
+{"kernels": [...]} line (the 8 pileup kernels, maxplus_closure,
+segment_exact_dp and dp_scan), and last {"ok": true, "device": ...}.
 
 Scratch data goes to build/ (ignored by git) and is deleted at the end.
 """
@@ -165,11 +189,14 @@ KERNELS = {
     "tiles_v1": ("pileup_v1", _CSRC + "pileup_v1.cu",
                  "wgbs_tools_tpu/ops/pileup_tpu.py:54"),
     # not Pallas kernels: the XLA max-plus closure of fast segmentation,
-    # and exact segmentation's cost and ring DP (_exact_batch_ring_raw)
+    # exact segmentation's cost and ring DP (_exact_batch_ring_raw)
     "maxplus_closure": ("maxplus", _CSRC + "maxplus.cu",
                         "wgbs_tools_tpu/models/segment.py:313"),
     "segment_exact_dp": ("segment_exact", _CSRC + "segment_exact.cu",
                          "wgbs_tools_tpu/models/segment_exact_tpu.py:349"),
+    # and the analysis step's serial DP (a lax.scan)
+    "dp_scan": ("dp_scan", _CSRC + "dp_scan.cu",
+                "wgbs_tools_tpu/parallel/sharded.py:105"),
 }
 BGZF_EOF = bytes.fromhex("1f8b08040000000000ff0600424302001b0003000000000000"
                          "000000")
@@ -1680,9 +1707,9 @@ SEG_ARGS = dict(max_cpg=1000, max_bp=2000, pcount=15.0)  # the CLI defaults
 SEG_BATCH = 8      # windows per launch of segment_windows_fast
 
 
-def seg_data():
+def seg_data(k=SEG_K):
     """bench_segment4.py:66-85's data at N_SITES sites, from its seed: loci
-    cumsum(integers(5, 60)) + 100 (int64), then SEG_K betas of
+    cumsum(integers(5, 60)) + 100 (int64), then k betas (default SEG_K) of
     Poisson(SEG_COV) coverage over SEG_BLOCK-site blocks of methylation
     0.15 / 0.85 (+ N(0, 0.05), clipped to [0.01, 0.99]). Yields the loci,
     then each beta's (N_SITES, 2) int64 (meth, cov)."""
@@ -1690,7 +1717,7 @@ def seg_data():
 
     rng = np.random.default_rng(20260821)
     yield np.cumsum(rng.integers(5, 60, size=N_SITES, dtype=np.int64)) + 100
-    for _ in range(SEG_K):
+    for _ in range(k):
         cov = rng.poisson(SEG_COV, size=N_SITES).astype(np.int64)
         p = np.clip(0.15 + 0.7 * ((np.arange(N_SITES) // SEG_BLOCK) % 2)
                     + rng.normal(0, 0.05, size=N_SITES), 0.01, 0.99)
@@ -2166,7 +2193,9 @@ def phase_segment(work, regs):
     against its twin on real and hand-made closures and timed beside its
     bound, the fast DP's T on the card against the CPU's on one real chunk,
     and the exact kernel's checks (_exact_device_checks). Returns ({kernel:
-    results}, {kernel: launches of its run}, summary line)."""
+    results}, {kernel: launches of its run}, summary line, {what phase 9
+    reads: the betas, loci and flags, the three beds, the fast run's
+    borders of the full chunks and the in-process walls})."""
     import numpy as np
     import torch
 
@@ -2226,11 +2255,26 @@ def phase_segment(work, regs):
 
     fast_bed = op.join(work, "fast.bed")
     timings = {}
+    # phase 9 holds segment_windows_sharded to this run's borders of the
+    # full chunks (the one group of DEF_CHUNK-site windows)
+    fast_chunks = {}
+    windows_fast = seg.segment_windows_fast
+
+    def recording(datas, locis, *args, **kw):
+        out = windows_fast(datas, locis, *args, **kw)
+        if datas.shape[2] == seg.DEF_CHUNK:
+            fast_chunks[datas.shape[0]] = out
+        return out
+
     _zero_launches()
+    seg.segment_windows_fast = recording
     t0 = time.perf_counter()
-    if cmd_segment.main(base + ["--mode", "fast", "--device", "cuda", "-o",
-                                fast_bed], timings=timings):
-        raise RuntimeError("segment --mode fast CLI failed")
+    try:
+        if cmd_segment.main(base + ["--mode", "fast", "--device", "cuda",
+                                    "-o", fast_bed], timings=timings):
+            raise RuntimeError("segment --mode fast CLI failed")
+    finally:
+        seg.segment_windows_fast = windows_fast
     fast_wall = time.perf_counter() - t0
     launches = _read_launches()
     _require_launches("phase 8", launches, ("maxplus_closure",))
@@ -2343,8 +2387,357 @@ def phase_segment(work, regs):
             f"{share:.4%} of exact's borders; maxplus_closure launches "
             f"{launches['maxplus_closure']}, segment_exact_dp launches "
             f"{ex_launches['segment_exact_dp']}; {ex_line}")
+    if len(fast_chunks) != 1:
+        raise RuntimeError(f"expected one group of {seg.DEF_CHUNK:,}-site "
+                           f"chunks in the fast run, got "
+                           f"{sorted(fast_chunks)}")
+    seg_out = {"betas": betas, "loci": loci, "flags": flags,
+               "exact_bed": exact_bed, "dev_bed": dev_bed,
+               "fast_bed": fast_bed, "fast_chunks": fast_chunks.popitem()[1],
+               "walls": {"exact": dev_wall, "fast": fast_wall}}
     return {"maxplus_closure": res, "segment_exact_dp": ex_res}, \
-        {"maxplus_closure": launches, "segment_exact_dp": ex_launches}, line
+        {"maxplus_closure": launches, "segment_exact_dp": ex_launches}, \
+        line, seg_out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the parallel layer at hg19 size
+# ---------------------------------------------------------------------------
+
+PAR_MESH = (2, 2)      # (samples, sites): the dry run's rule for 4 devices
+PAR_K = 4              # samples
+PAR_W, PAR_HALO, PAR_MAX_BP, PAR_PC = 64, 32, 2000, 15.0  # entry()'s W
+PAR_PREFIX = 1_000_000  # ks entries of each chain held to the host scan
+PAR_CUT = 8192          # sites of the two windows the twin runs
+PAR_MEM_MAX = 60e9      # bytes of device memory the step may peak at
+CHAIN_CYCLES = 8        # dp_scan's floor a step: an add, then a compare
+
+
+def _load_frags(pat):
+    """Every fragment of a pat, (start, length, count, codes) with codes
+    '.'-padded to MAX_LEN columns."""
+    import numpy as np
+
+    from wgbs_tools_tpu_torch.formats.pat import iter_pat
+
+    parts = list(iter_pat(pat))
+    codes = np.full((sum(p.nr_frags for p in parts), MAX_LEN), 3, np.uint8)
+    pos = 0
+    for p in parts:
+        codes[pos:pos + p.nr_frags, :p.codes.shape[1]] = p.codes
+        pos += p.nr_frags
+    return (np.concatenate([p.start for p in parts]),
+            np.concatenate([p.length for p in parts]),
+            np.concatenate([p.count for p in parts]), codes)
+
+
+def scan_numpy(C, W):
+    """The serial DP in numpy on the host, the plain reference of dp_scan's
+    chains: C (n, W) f32 -> ks (n,) int32, f32 adds and np.argmax's first
+    maximum, JAX's _dp_scan step by step."""
+    import numpy as np
+
+    n = C.shape[0]
+    M = np.full(n + W + 1, -np.inf, np.float32)
+    M[W] = 0.0
+    ks = np.empty(n, np.int64)
+    for i in range(n):
+        cand = M[i + 1:i + 1 + W] + C[i]
+        am = int(np.argmax(cand))
+        M[W + i + 1] = cand[am]
+        ks[i] = i - (W - 1) + am
+    return ks.astype(np.int32)
+
+
+def _analysis_step(big, dev, clock):
+    """The analysis step at N_SITES sites on a PAR_MESH mesh of stand-in
+    devices on the card, checked: counts against the host pileup of the
+    same fragments, the coverage pair against the int64 sum, each chain's
+    first PAR_PREFIX ks against scan_numpy on the same cost rows, dp_scan
+    against its twin on two windows cut to PAR_CUT sites. Returns
+    (dp_scan's results, launches of the step's run, summary line)."""
+    import numpy as np
+    import torch
+
+    from wgbs_tools_tpu_torch import _kernels, native
+    from wgbs_tools_tpu_torch.models import segment as seg
+    from wgbs_tools_tpu_torch.ops import dp_scan as dps
+    from wgbs_tools_tpu_torch.parallel.mesh import make_mesh
+    from wgbs_tools_tpu_torch.parallel.sharded import (AnalysisStep,
+                                                       bucket_fragments,
+                                                       decode_sum64)
+
+    a, b = PAR_MESH
+    S, W = N_SITES // b, PAR_W
+    t0 = time.perf_counter()
+    frags = _load_frags(big)
+    data = seg_data(PAR_K)
+    loci = next(data).astype(np.int32)
+    sample_counts = np.stack([d.astype(np.int32) for d in data])
+    del data
+    log(f"phase 9: loaded {frags[0].shape[0]:,} fragments of the big pat and "
+        f"made {PAR_K} samples of {N_SITES:,} sites (phase 8's generator, "
+        f"seed and loci) in {time.perf_counter() - t0:.3f} s")
+    timings = {}
+    t0 = time.perf_counter()
+    bucket = bucket_fragments(*frags, N_SITES, b)
+    timings["bucket"] = time.perf_counter() - t0
+    mesh = make_mesh(a * b, samples_axis=a, device="cuda")
+    step = AnalysisStep(mesh, N_SITES, PAR_HALO, W, PAR_MAX_BP, PAR_PC,
+                        timings=timings)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    counts, tb, lo, f = step(*bucket, sample_counts, loci)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    _require_launches("phase 9 analysis step", launches,
+                      ("tiles_v1", "dp_scan"))
+    t0 = time.perf_counter()
+    counts_h, tb_h = counts.cpu().numpy(), tb.cpu().numpy()
+    timings["fetch"] = time.perf_counter() - t0
+    del bucket, counts, tb
+    stages = ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
+    log(f"phase 9: AnalysisStep on a {dict(mesh.shape)} mesh of stand-ins "
+        f"for cuda:0, {N_SITES:,} sites (2 chains of {S:,}), W {W}, halo "
+        f"{PAR_HALO}, max_bp {PAR_MAX_BP}, pc {PAR_PC}: {step_s:.3f} s "
+        f"({stages}; each device stage synchronized); peak device memory "
+        f"{peak / 1e9:.3f} GB; kernel launches {launches}")
+    if peak > PAR_MEM_MAX:
+        raise RuntimeError(f"the analysis step peaked at {peak / 1e9:.3f} "
+                           f"GB of device memory, over {PAR_MEM_MAX / 1e9} GB")
+
+    t0 = time.perf_counter()
+    oracle = native.pileup_native(*frags, 1, N_SITES)
+    if not np.array_equal(counts_h, oracle):
+        raise RuntimeError("the analysis step's counts differ from the host "
+                           "pileup of the same fragments")
+    total = int(oracle[:, 1].sum())
+    if decode_sum64(lo, f) != total:
+        raise RuntimeError(f"decode_sum64 gives {decode_sum64(lo, f)}, the "
+                           f"coverage sums to {total}")
+    del frags, oracle
+    log(f"phase 9: counts == the host pileup (native.pileup_native) at "
+        f"{N_SITES:,} sites; decode_sum64 == the int64 coverage sum "
+        f"{total:,} (lo {int(lo)}, f {float(f)!r}); "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    # the chains' cost again (the step frees it): the same functions on the
+    # same inputs; dp_scan on it timed with CUDA events gives the step's ks
+    sc = torch.from_numpy(sample_counts)
+    lt = torch.from_numpy(loci)
+    cost = torch.empty((b, S, W), dtype=torch.float32, device=dev)
+    for j in range(b):
+        step._cost(cost[j], j, sc, lt)
+    del sc
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    ks = dps.dp_scan(cost, W)
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1])
+    if not np.array_equal(ks.cpu().numpy().reshape(-1), tb_h):
+        raise RuntimeError("dp_scan on the rebuilt cost != the step's tb")
+    # each chain's first PAR_PREFIX entries against the plain reference
+    # on the host (the recurrence is causal), and how many of them the
+    # blocked DP shares (it sums a path's costs in another order)
+    shared = []
+    t0 = time.perf_counter()
+    for j in range(b):
+        prefix = cost[j, :PAR_PREFIX].contiguous()
+        want = scan_numpy(prefix.cpu().numpy(), W)
+        got = tb_h[j * S:j * S + PAR_PREFIX]
+        if not np.array_equal(got, want):
+            bad = np.flatnonzero(got != want)
+            raise RuntimeError(f"chain {j}: dp_scan's ks differ from the host "
+                               f"scan at {bad.size} of {PAR_PREFIX:,} sites, "
+                               f"first {bad[:5].tolist()}")
+        blocked = seg._dp_fast_blocked(prefix, W)[1:].cpu().numpy()
+        shared.append(int((blocked == want).sum()))
+    scan_s = time.perf_counter() - t0
+    log(f"phase 9: each chain's first {PAR_PREFIX:,} ks == scan_numpy "
+        f"(host, numpy f32) bit for bit; _dp_fast_blocked on the card "
+        f"agrees at {shared} of them (a path's costs summed in another "
+        f"order move near-ties); {scan_s:.3f} s")
+
+    cut = cost[:, :PAR_CUT].contiguous()
+    del cost
+    torch.cuda.empty_cache()
+    got = dps.dp_scan(cut, W)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = dps.dp_scan_plain(cut, W)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    if not torch.equal(got, want):
+        raise RuntimeError("dp_scan != its twin on the two cut windows")
+    cut_ms = _time_ms(lambda: dps.dp_scan(cut, W), 5)
+    n_bytes = b * S * (W + 1) * 4
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_chain = S * CHAIN_CYCLES / (clock * 1e6)
+    t_ops = b * S * W / OPS_PER_S
+    bound_ms = 1e3 * max(t_bytes, t_chain, t_ops)
+    bound_by = "bytes" if t_bytes >= max(t_chain, t_ops) else "operations"
+    log(f"phase 9: dp_scan == twin (tolerance 0) on 2 windows cut to "
+        f"{PAR_CUT:,} sites: kernel {cut_ms:.4f} ms "
+        f"({1e6 * cut_ms / PAR_CUT:.1f} ns per step), twin "
+        f"{plain_ms:.3f} ms")
+    res = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+           "plain_on": f"2 x {PAR_CUT} sites", "cut_ms": cut_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "bytes": n_bytes, "bytes_ms": 1e3 * t_bytes,
+           "chain_floor_ms": 1e3 * t_chain, "chains": b, "steps": S,
+           "ns_per_step": 1e6 * ms / S, "sm_clock_mhz": clock}
+    regs, spills = _ptxas_registers(_kernels.BUILD_LOG,
+                                    {"dp_scan_kernel": "dp_scan"})
+    res["spill_bytes"] = spills.get("dp_scan")
+    log(f"phase 9: dp_scan on the step's chains (2 x {S:,} steps, W {W}, one "
+        f"launch; ptxas: {regs.get('dp_scan')} registers, "
+        f"{spills.get('dp_scan')} spill bytes): {ms:.3f} ms "
+        f"({1e6 * ms / S:.1f} ns per step); bound "
+        f"{bound_ms:.4f} ms ({bound_by}: the chain floor {S:,} steps x "
+        f"{CHAIN_CYCLES} cycles (an add and a compare) / {clock:.0f} MHz = "
+        f"{1e3 * t_chain:.4f} ms; bytes {n_bytes:,} / 3.35 TB/s = "
+        f"{1e3 * t_bytes:.4f} ms; adds {b * S * W:,} / 67 T/s = "
+        f"{1e3 * t_ops:.4f} ms); the kernel at {100 * bound_ms / ms:.2f} % "
+        f"of it")
+    line = (f"analysis step at {N_SITES:,} sites ({dict(mesh.shape)} mesh on "
+            f"cuda:0): {step_s:.3f} s ({stages}), peak {peak / 1e9:.3f} GB; "
+            f"dp_scan {ms:.3f} ms ({1e6 * ms / S:.1f} ns per step)")
+    return res, launches, line
+
+
+def _procs_segment(work, seg_out):
+    """`segment --procs 2` through the CLI (both ranks on cuda:0), exact
+    and fast, each bed against phase 8's one-process bed. Returns the
+    summary line."""
+    walls, lines = {}, []
+    base = (["--betas"] + seg_out["betas"] + ["--genome", SEG_GENOME]
+            + seg_out["flags"] + ["--device", "cuda", "--procs", "2"])
+    for mode, want, kernel in (("exact", seg_out["dev_bed"],
+                                "segment_exact_dp"),
+                               ("fast", seg_out["fast_bed"],
+                                "maxplus_closure")):
+        bed = op.join(work, f"procs_{mode}.bed")
+        cmd = [sys.executable, "-m", "wgbs_tools_tpu_torch", "segment"] + \
+            base + ["--mode", mode, "-o", bed]
+        t0 = time.perf_counter()
+        rc, _, stderr = _run_group(cmd, 900)
+        walls[mode] = time.perf_counter() - t0
+        if rc:
+            raise RuntimeError(f"{' '.join(cmd)} exited {rc}:\n"
+                               f"{stderr[-3000:]}")
+        if not _same(bed, want):
+            raise RuntimeError(f"segment --procs 2 --mode {mode}: the bed "
+                               "differs from phase 8's one-process bed")
+        workers = {int(m.group(1)): json.loads(m.group(2))
+                   for m in re.finditer(r"\[wgbs-torch worker (\d+)\] "
+                                        r"launches (\{.*\})", stderr)}
+        if sorted(workers) != [0, 1]:
+            raise RuntimeError(f"expected a launch line from each of 2 "
+                               f"workers, got {workers}:\n{stderr[-3000:]}")
+        for r, launches in workers.items():
+            _require_launches(f"phase 9 segment --procs 2 --mode {mode} "
+                              f"worker {r}", launches, (kernel,))
+        for m in re.finditer(r"multihost segment: (p\d .*)", stderr):
+            log(f"phase 9: --mode {mode} worker {m.group(1)}")
+        lines.append(f"--mode {mode} {walls[mode]:.3f} s from process start "
+                     f"(phase 8's one process, in-process: "
+                     f"{seg_out['walls'][mode]:.3f} s), worker launches "
+                     f"{workers}")
+        log(f"phase 9: CLI segment --procs 2 --mode {mode} (both ranks on "
+            f"cuda:0): the bed == phase 8's one-process bed; {lines[-1]}")
+    return "segment --procs 2: " + "; ".join(lines)
+
+
+def phase_parallel(work, big, seg_out):
+    """Phase 9: the analysis step at hg19 size, segment_windows_sharded on
+    phase 8's chunks over 4 stand-in shards, segment --procs 2, and
+    flagship.entry() / dryrun_multichip(4) on the card. Returns ({kernel:
+    results}, {kernel: launches of its run}, summary line)."""
+    import numpy as np
+    import torch
+
+    from wgbs_tools_tpu_torch import flagship, native
+    from wgbs_tools_tpu_torch.models import segment as seg
+    from wgbs_tools_tpu_torch.parallel.mesh import make_mesh
+    from wgbs_tools_tpu_torch.parallel.sharded import (
+        _segment_cost_local, segment_windows_sharded)
+
+    dev = torch.device("cuda")
+    clock = _sm_clock_mhz()
+    res, launches, step_line = _analysis_step(big, dev, clock)
+    torch.cuda.empty_cache()
+
+    # phase 8's full chunks over 4 stand-in shards of the card
+    chunk = seg.DEF_CHUNK
+    want = seg_out["fast_chunks"]
+    chunks = [(1 + i * chunk, 1 + (i + 1) * chunk) for i in range(len(want))]
+
+    class _Index:
+        loci = seg_out["loci"]
+
+    datas, locis = seg._load_windows(seg_out["betas"], chunks, _Index)
+    timings = {}
+    _zero_launches()
+    t0 = time.perf_counter()
+    got = segment_windows_sharded(
+        make_mesh(4, device="cuda"), datas, locis, SEG_ARGS["max_cpg"],
+        SEG_ARGS["max_bp"], SEG_ARGS["pcount"], timings=timings)
+    win_wall = time.perf_counter() - t0
+    win_launches = _read_launches()
+    _require_launches("phase 9 segment_windows_sharded", win_launches,
+                      ("maxplus_closure",))
+    del datas, locis
+    diff = [i for i, (g, w) in enumerate(zip(got, want))
+            if not np.array_equal(g, w)]
+    if len(got) != len(want) or diff:
+        raise RuntimeError(f"segment_windows_sharded differs from phase 8's "
+                           f"fast run at windows {diff[:5]} (of {len(want)})")
+    win_line = (f"segment_windows_sharded on phase 8's {len(want)} chunks "
+                f"over 4 stand-in shards: {win_wall:.3f} s (" + ", ".join(
+                    f"{k} {v:.3f}" for k, v in timings.items())
+                + f"), maxplus_closure launches "
+                f"{win_launches['maxplus_closure']}")
+    log(f"phase 9: {win_line}; every window's borders == phase 8's fast run")
+    torch.cuda.empty_cache()
+
+    procs_line = _procs_segment(work, seg_out)
+
+    t0 = time.perf_counter()
+    fn, args = flagship.entry()
+    merged, tb, total = fn(*args)
+    torch.cuda.synchronize()
+    # merged against the host pileup plus the samples; tb against
+    # scan_numpy on the forward's cost, rebuilt from the host pileup
+    start, length, count, codes, sample_counts, loci = args
+    pile = native.pileup_native(start, length, count, codes, 1,
+                                flagship.N_SITES)
+    want_m = pile + sample_counts.sum(dim=0).cpu().numpy()
+    pile = torch.from_numpy(pile.astype(np.int32)).to(dev)
+    cost = torch.zeros((flagship.N_SITES, flagship.W), device=dev)
+    for d in range(sample_counts.shape[0]):
+        _segment_cost_local(sample_counts[d] + pile, loci, flagship.W,
+                            flagship.MAX_BP, flagship.PC, out=cost)
+    want_tb = scan_numpy(cost.cpu().numpy(), flagship.W)
+    if not (np.array_equal(merged.cpu().numpy(), want_m)
+            and int(total) == int(pile[:, 1].sum())
+            and np.array_equal(tb.cpu().numpy(), want_tb)):
+        raise RuntimeError("flagship.entry(): merged, the coverage or tb "
+                           "differs from the host's")
+    shapes = [tuple(o.shape) for o in (merged, tb, total)]
+    log(f"[entry] ok: {shapes} on cuda, merged == the host pileup + the "
+        f"samples, tb == scan_numpy, total coverage {int(total):,}; "
+        f"{time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    flagship.dryrun_multichip(4)
+    log(f"phase 9: dryrun_multichip(4) on cuda: "
+        f"{time.perf_counter() - t0:.3f} s")
+    return {"dp_scan": res}, {"dp_scan": launches}, "; ".join(
+        (step_line, win_line, procs_line))
 
 
 def main():
@@ -2368,8 +2761,13 @@ def main():
         del slab
         workers, e2e_procs = phase_procs(work, big, args.frags)
         forms, e2e_forms = phase_forms(work, big, deep, args.frags)
-        seg_kernels, seg_launches, e2e_seg = phase_segment(work, regs)
+        seg_kernels, seg_launches, e2e_seg, seg_out = phase_segment(work,
+                                                                    regs)
         kernels.update(seg_kernels)
+        par_kernels, par_launches, e2e_par = phase_parallel(work, big,
+                                                            seg_out)
+        kernels.update(par_kernels)
+        seg_launches.update(par_launches)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if torch.cuda.current_device() != 0:
@@ -2377,7 +2775,7 @@ def main():
     # each kernel's launches on its path: the single-device CLI (phase 4),
     # the sharded pat2beta (phase 5), the split-plane accumulator (phase
     # 5), pat2beta through the other forms (phase 7), segment --mode fast
-    # and --mode exact on the card (phase 8)
+    # and --mode exact on the card (phase 8), the analysis step (phase 9)
     launches = {"flat_vals_fused": ("phase 4 CLI", single),
                 "flat_classic": ("phase 4 CLI", single),
                 "flat_vals_add": ("phase 5 sharded pat2beta", sharded),
@@ -2386,7 +2784,8 @@ def main():
                                     seg_launches["maxplus_closure"]),
                 "segment_exact_dp": ("phase 8 segment --mode exact CLI "
                                      "on cuda",
-                                     seg_launches["segment_exact_dp"])}
+                                     seg_launches["segment_exact_dp"]),
+                "dp_scan": ("phase 9 analysis step", seg_launches["dp_scan"])}
     # a summary at the end, which a log that keeps only its tail still shows
     print(smi, flush=True)
     log("end to end: " + e2e)
@@ -2394,6 +2793,7 @@ def main():
     log("end to end: " + e2e_procs)
     log("end to end: " + e2e_forms)
     log("end to end: " + e2e_seg)
+    log("end to end: " + e2e_par)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name][1][name],

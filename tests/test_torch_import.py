@@ -47,7 +47,7 @@ def test_port_imports_without_jax():
     assert r.returncode == 0, r.stderr
     # every module of the port was imported, not an empty walk
     names = set(r.stdout.split())
-    assert len(names) >= 32
+    assert len(names) >= 34
     assert {"wgbs_tools_tpu_torch.parallel.mesh",
             "wgbs_tools_tpu_torch.parallel.sharded",
             "wgbs_tools_tpu_torch.parallel.multihost",
@@ -67,7 +67,9 @@ def test_port_imports_without_jax():
             "wgbs_tools_tpu_torch.ops.maxplus",
             "wgbs_tools_tpu_torch.cli.cmd_segment",
             "wgbs_tools_tpu_torch.models.segment_exact_device",
-            "wgbs_tools_tpu_torch.ops.segment_exact"} <= names
+            "wgbs_tools_tpu_torch.ops.segment_exact",
+            "wgbs_tools_tpu_torch.ops.dp_scan",
+            "wgbs_tools_tpu_torch.flagship"} <= names
 
 
 def _imported_modules(path):
@@ -166,6 +168,16 @@ def test_segment_exact_dp_refuses_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         segment_exact_device_T([[[1, 2]] * 10], list(range(10)), 8, 2000,
                                15.0, device="meta")
+
+
+def test_dp_scan_refuses_other_devices():
+    """The analysis step's DP wrapper, like the others: a tensor on a
+    device other than the CPU goes to the launcher, which raises."""
+    from wgbs_tools_tpu_torch.ops.dp_scan import dp_scan
+
+    with pytest.raises(ValueError, match="CUDA"):
+        dp_scan(torch.zeros((2, 100, 64), device="meta"), 64)
+    assert dp_scan.launches == 0
 
 
 def test_new_kernel_wrappers_refuse_other_devices():

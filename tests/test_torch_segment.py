@@ -17,7 +17,6 @@ from wgbs_tools_tpu.models import segment as jseg  # noqa: E402
 from wgbs_tools_tpu_torch import native as pnat  # noqa: E402
 from wgbs_tools_tpu_torch.models import segment as pseg  # noqa: E402
 from wgbs_tools_tpu_torch.ops import maxplus  # noqa: E402
-from wgbs_tools_tpu_torch.utils import IllegalArgumentError  # noqa: E402
 
 import chip_smoke  # noqa: E402
 
@@ -549,9 +548,6 @@ def test_cli_refuses_procs_and_asks_for_cuda(tmp_path, genome_betas,
 
     paths, _, _ = genome_betas
     argv = ["--betas"] + paths + ["-o", str(tmp_path / "x.bed")]
-    with pytest.raises(IllegalArgumentError, match="queue 1 item 6"):
-        cmd_segment.main(argv + ["--procs", "2"])
-    assert port_main(["segment"] + argv + ["--procs", "2"]) == 1
     # max_bp 2 leaves max_cpg = min(1000, 2 // 2) = 1: refused, not asserted
     assert port_main(["segment"] + argv + ["--max_bp", "2"]) == 1
     # --array_id is not ported: refused, not read as the whole genome
@@ -562,6 +558,9 @@ def test_cli_refuses_procs_and_asks_for_cuda(tmp_path, genome_betas,
     for mode in ("fast", "exact"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             port_main(["segment"] + argv + ["--mode", mode])
+    # --procs 2 asks for CUDA too, before any worker starts
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cmd_segment.main(argv + ["--procs", "2"])
     assert not (tmp_path / "x.bed").exists()
     # --device cpu: exact mode's host DP needs no card
     assert port_main(["segment"] + argv + ["--procs", "1", "--device",

@@ -121,7 +121,9 @@ def _bind(lib):
             ("maxplus_closure", 3, 3),
             # exact segmentation: (pm, pt, loci, tbl, ks, ring), (B, K, n,
             # Wb, max_bp, tbl_size)
-            ("segment_exact_dp", 6, 6)):
+            ("segment_exact_dp", 6, 6),
+            # the analysis step's serial DP: (C, ks, ring), (nb, n, W)
+            ("dp_scan", 3, 3)):
         fn = getattr(lib, name)
         fn.argtypes = [vp] * n_ptr + [i64] * n_int + [vp]
         fn.restype = i32

@@ -1,7 +1,8 @@
 """segment command of the port (ref: src/python/segment.py).
 
     python -m wgbs_tools_tpu_torch segment --betas a.beta b.beta -o blocks.bed
-        [--mode exact|fast] [--device cuda|cpu] [-r REGION | -s SITES | -L BED]
+        [--mode exact|fast] [--device cuda|cpu] [--procs N]
+        [-r REGION | -s SITES | -L BED]
 
 Flags match wgbs_tools_tpu's segment (cli/cmd_segment.py::main), plus
 --device, less --array_id: the JAX CLI accepts it and segments the whole
@@ -10,12 +11,15 @@ genome; here it is refused as an unknown flag. Both modes run on
 (the default) writes the JAX CLI's bytes: on cuda its DP runs in the
 kernel csrc/segment_exact.cu, on cpu in the host DP on a thread pool.
 Fast mode on cpu runs the plain PyTorch path, with the max-plus kernel's
-twin. --procs N above 1 (segmentation over worker processes) is not
-ported yet and raises.
+twin. --procs N above 1 segments the chunks over N worker processes
+(parallel/multihost.py::run_segment_multiprocess: gloo, rank r on
+cuda:{r % device_count} or the CPU), with the bytes of one process.
 """
 
 import argparse
+import os.path as op
 import sys
+import tempfile
 
 import numpy as np
 
@@ -24,6 +28,7 @@ from ..formats.blocks import index_bed, load_blocks, sites_blocks
 from ..genome.refdir import Genome
 from ..genome.region import GenomicRegion
 from ..models.segment import DEF_CHUNK, SegmentConfig, segment_ranges
+from ..parallel.multihost import run_segment_multiprocess
 from ..utils import IllegalArgumentError, eprint, validate_file_list, \
     validate_single_file
 from .main import add_gr_args
@@ -57,16 +62,15 @@ def main(argv, timings=None):
                         "but some borders may differ at numerical ties")
     p.add_argument("-o", "--out_path", default=None)
     p.add_argument("--procs", type=int, default=None,
-                   help="(not ported yet: a value above 1 raises)")
+                   help="segment the chunks over N worker processes on this "
+                        "machine (torch.distributed, gloo; rank r on "
+                        "cuda:{r %% device_count}, or the CPU with --device "
+                        "cpu); the same blocks as one process")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default; an error without "
                         "CUDA) or cpu (exact mode: the host DP; fast mode: "
                         "the plain PyTorch path)")
     args = p.parse_args(argv)
-    if args.procs and args.procs > 1:
-        raise IllegalArgumentError(
-            "--procs above 1 (segmentation over worker processes) is not "
-            "ported yet: ROADMAP.md queue 1 item 6")
 
     if args.betas:
         betas = args.betas
@@ -108,7 +112,16 @@ def main(argv, timings=None):
         device=args.device,
         timings=timings,
     )
-    starts, ends = segment_ranges(betas, ranges, idx, cfg)
+    if args.procs and args.procs > 1:
+        with tempfile.TemporaryDirectory() as td:
+            starts, ends = run_segment_multiprocess(
+                betas, ranges, op.join(td, "seg"), num_processes=args.procs,
+                device=args.device, max_cpg=cfg.max_cpg, max_bp=cfg.max_bp,
+                pseudo_count=cfg.pseudo_count, chunk_size=cfg.chunk_size,
+                min_cpg=cfg.min_cpg, mode=cfg.mode, genome=args.genome,
+                threads=args.threads)
+    else:
+        starts, ends = segment_ranges(betas, ranges, idx, cfg)
     eprint(f"[wt segment] found {len(starts):,} blocks")
 
     blocks = sites_blocks(idx, np.stack([starts, ends], axis=1))

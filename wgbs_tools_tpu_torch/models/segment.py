@@ -29,7 +29,9 @@ Two modes:
   packing (pack_mask_bits); only the packed masks cross to the host. The
   DP's adds and maxima are exact, so given the same cost tensor it gives
   the JAX package's tracebacks bit for bit; the cost's log2 may differ by
-  an ulp between libraries.
+  an ulp between libraries. With device "cuda" and more than one card
+  visible, the chunk groups go over all the cards
+  (parallel/sharded.py::segment_windows_sharded), as in JAX.
 
 The chunking and the overlap-patch stitching are host code, as in JAX.
 """
@@ -497,7 +499,12 @@ def segment_chunks(beta_paths, chunks, index, cfg: SegmentConfig,
                    subset=None):
     """Per-chunk absolute border arrays (the parallelizable phase of
     segment_ranges). `subset`: chunk indices this caller owns (default
-    all) — entries outside it stay None."""
+    all) — entries outside it stay None; the multi-process path
+    (parallel/multihost.py) round-robins the subset over processes. In fast
+    mode a group of equal-size chunks goes to segment_windows_fast on
+    cfg.device, or, where cfg.device is "cuda" and more than one card is
+    visible, to parallel/sharded.py::segment_windows_sharded over all of
+    them (JAX's multi-device route)."""
     seg = _seg_fn(beta_paths, index, cfg)
     results = [None] * len(chunks)
     own = list(range(len(chunks))) if subset is None else \
@@ -542,9 +549,21 @@ def segment_chunks(beta_paths, chunks, index, cfg: SegmentConfig,
             with timed(cfg.timings, "beta_load", None):
                 datas, locis = _load_windows(beta_paths,
                                              [chunks[i] for i in idxs], index)
-            borders = segment_windows_fast(
-                datas, locis, cfg.max_cpg, cfg.max_bp, cfg.pseudo_count,
-                device=cfg.device, timings=cfg.timings)
+            if (cfg.device.type == "cuda" and cfg.device.index is None
+                    and torch.cuda.device_count() > 1):
+                # the window axis over every visible card (the windows are
+                # independent by the chunk+stitch decomposition; replaces
+                # the reference's process Pool, segment.py:144-146)
+                from ..parallel.mesh import make_mesh
+                from ..parallel.sharded import segment_windows_sharded
+
+                borders = segment_windows_sharded(
+                    make_mesh(device="cuda"), datas, locis, cfg.max_cpg,
+                    cfg.max_bp, cfg.pseudo_count, timings=cfg.timings)
+            else:
+                borders = segment_windows_fast(
+                    datas, locis, cfg.max_cpg, cfg.max_bp, cfg.pseudo_count,
+                    device=cfg.device, timings=cfg.timings)
             for i, rel in zip(idxs, borders):
                 results[i] = rel + chunks[i][0]
     todo = [i for i in own if results[i] is None]

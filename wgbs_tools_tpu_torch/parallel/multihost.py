@@ -1,27 +1,41 @@
-"""Multi-process pat2beta: N worker processes, one site range each.
+"""Multi-process pat2beta and segment: N worker processes on one machine.
 
-Port of the pat2beta job of wgbs_tools_tpu/parallel/multihost.py
-(pat2beta_worker :67-157, _worker_main :524-572, free_port :575,
+Port of wgbs_tools_tpu/parallel/multihost.py's pat2beta and segment jobs
+(pat2beta_worker :67-157, segment_worker :160-214,
+run_segment_multiprocess :217-264, _worker_main :524-572, free_port :575,
 run_pat2beta_multiprocess :583-624). The workers join one
-torch.distributed job on the gloo backend. Rank r owns one device,
-cuda:{r % device_count} (or the CPU), and the sites [r*S + 1, (r+1)*S + 1)
-with S = ceil(nr_sites / world). It streams the pat rows overlapping its
-range (formats/pat.py::iter_pat_region), piles them up in a one-shard
-ShardedPileupV3 (which clips fragments at the range's edges), saturates on
-its device and writes its own byte range of the beta. The pileup needs no
-cross-process traffic; the only collectives are one int64 coverage
-allgather and two write barriers, all host scalars, which is why gloo and
-not NCCL carries them (two ranks on one card cannot use NCCL).
+torch.distributed job on the gloo backend, and rank r runs on one device,
+cuda:{r % device_count} (or the CPU).
+
+- pat2beta: rank r owns the sites [r*S + 1, (r+1)*S + 1) with S =
+  ceil(nr_sites / world). It streams the pat rows overlapping its range
+  (formats/pat.py::iter_pat_region), piles them up in a one-shard
+  ShardedPileupV3 (which clips fragments at the range's edges), saturates
+  on its device and writes its own byte range of the beta. The only
+  collectives are one int64 coverage allgather and two write barriers.
+- segment: the 60,000-site chunk axis is round-robined over the ranks
+  (the distributed form of the reference's chunk Pool, ref:
+  src/python/segment.py:137-155). Each rank segments its chunks on its
+  device (models/segment.py::segment_chunks: exact mode through the device
+  route on cuda and the host DP on cpu, fast mode through
+  segment_windows_fast) and writes a part file; after one barrier rank 0
+  stitches (finalize_segmentation).
+
+The collectives are host scalars and barriers, which is why gloo and not
+NCCL carries them (two ranks on one card cannot use NCCL).
 
     python -m wgbs_tools_tpu_torch.parallel.multihost --coordinator HOST:PORT \\
-        --num_processes N --process_id R --pat x.pat.gz --out x.beta \\
-        --nr_sites S [--lbeta] [--device cuda|cpu]
+        --num_processes N --process_id R [--device cuda|cpu] \\
+        (--pat x.pat.gz --out x.beta --nr_sites S [--lbeta]
+         | --job segment --params job.json)
 
-is one worker; run_pat2beta_multiprocess starts N of them on this machine.
+is one worker; run_pat2beta_multiprocess and run_segment_multiprocess
+start N of them on this machine.
 """
 
 import argparse
 import datetime
+import importlib
 import json
 import os
 import os.path as op
@@ -111,11 +125,92 @@ def pat2beta_worker(pat_path, out_path, nr_sites, lbeta=False,
     return out_path if rank == 0 else None
 
 
+def segment_worker(beta_paths, ranges, out_prefix, max_cpg=1000,
+                   max_bp=2000, pseudo_count=15.0, chunk_size=None,
+                   min_cpg=1, mode="exact", genome=None, threads=None,
+                   device="cuda"):
+    """Per-process body of the multi-process segmentation; every process of
+    the group calls it with the same arguments. Rank r segments the chunks
+    r, r + world, ... on worker_device(device, r) and writes
+    {out_prefix}.part{r}.npz; after the barrier rank 0 stitches every part
+    and writes {out_prefix}.blocks.npz (starts, ends), whose path it returns
+    (the others None). Rank 0 stitches as segment_ranges does (in fast mode
+    the patches batched, models/segment.py::_batch_seg_fast, where JAX's
+    worker segments them one at a time), so the blocks equal one process's
+    segment_ranges on the same device."""
+    import torch.distributed as dist
+
+    from ..genome.refdir import Genome
+    from ..models.segment import (DEF_CHUNK, SegmentConfig, _batch_seg_fast,
+                                  _seg_fn, break_to_chunks,
+                                  finalize_segmentation, segment_chunks)
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = worker_device(device, rank)
+    idx = Genome(genome).index
+    cfg = SegmentConfig(max_cpg=max_cpg, max_bp=max_bp,
+                        pseudo_count=pseudo_count,
+                        chunk_size=chunk_size or DEF_CHUNK, min_cpg=min_cpg,
+                        mode=mode, threads=threads, device=dev)
+    ranges = [(int(s), int(e)) for s, e in ranges]
+    tags, chunks = break_to_chunks(ranges, cfg.chunk_size)
+    own = list(range(rank, len(chunks), world))
+    t0 = time.perf_counter()
+    results = segment_chunks(beta_paths, chunks, idx, cfg, subset=own)
+    np.savez(f"{out_prefix}.part{rank}.npz",
+             idx=np.asarray(own, dtype=np.int64),
+             **{f"r{i}": np.asarray(results[i], dtype=np.int64)
+                for i in own})
+    logger.info("multihost segment: p%d segmented %d/%d chunks on %s in "
+                "%.3f s", rank, len(own), len(chunks), dev,
+                time.perf_counter() - t0)
+    dist.barrier()
+    if rank != 0:
+        return None
+    results_all = [None] * len(chunks)
+    for q in range(world):
+        part = f"{out_prefix}.part{q}.npz"
+        with np.load(part) as z:
+            for i in z["idx"]:
+                results_all[int(i)] = z[f"r{int(i)}"]
+        os.unlink(part)
+    t1 = time.perf_counter()
+    seg = _seg_fn(beta_paths, idx, cfg)
+    batch_seg = (_batch_seg_fast(beta_paths, idx, cfg)
+                 if cfg.mode == "fast" else None)
+    starts, ends = finalize_segmentation(tags, chunks, results_all, seg, cfg,
+                                         batch_seg=batch_seg)
+    out = out_prefix + ".blocks.npz"
+    np.savez(out, starts=starts, ends=ends)
+    logger.info("multihost segment: p0 stitched %d blocks in %.3f s",
+                len(starts), time.perf_counter() - t1)
+    return out
+
+
+# the kernels each job's worker reports on its launch line -> their module
+# in wgbs_tools_tpu_torch.ops
+JOB_KERNELS = {
+    "pat2beta": {name: "pileup_v3" for name in (
+        "flat_vals_fused", "flat_vals", "flat_vals_add", "flat_classic")},
+    "segment": {"maxplus_closure": "maxplus",
+                "segment_exact_dp": "segment_exact"}}
+
+
+def _launches(job):
+    """{kernel: launches} of this process, for the job's kernels."""
+    return {name: getattr(importlib.import_module(
+        "wgbs_tools_tpu_torch.ops." + module), name).launches
+        for name, module in JOB_KERNELS[job].items()}
+
+
 def _worker_main(argv=None):
     p = argparse.ArgumentParser(prog="wgbs-torch-multihost-worker")
     p.add_argument("--coordinator", help="host:port of process 0")
     p.add_argument("--num_processes", type=int)
     p.add_argument("--process_id", type=int)
+    p.add_argument("--job", default="pat2beta", choices=sorted(JOB_KERNELS))
+    p.add_argument("--params", help="JSON file of the segment job's keyword "
+                                    "arguments")
     p.add_argument("--pat")
     p.add_argument("--out")
     p.add_argument("--nr_sites", type=int)
@@ -126,27 +221,29 @@ def _worker_main(argv=None):
     if not (args.coordinator and args.num_processes
             and args.process_id is not None):
         p.error("--coordinator/--num_processes/--process_id are required")
-    if not (args.pat and args.out and args.nr_sites):
+    if args.job == "segment" and not args.params:
+        p.error("--params is required for the segment job")
+    if args.job == "pat2beta" and not (args.pat and args.out
+                                       and args.nr_sites):
         p.error("--pat/--out/--nr_sites are required")
     if not 0 <= args.process_id < args.num_processes:
         p.error(f"--process_id {args.process_id} outside [0, "
                 f"{args.num_processes})")
     import torch.distributed as dist
 
-    from ..ops import pileup_v3
-
     distributed_init(args.coordinator, args.num_processes, args.process_id)
     try:
-        pat2beta_worker(args.pat, args.out, args.nr_sites, lbeta=args.lbeta,
-                        device=args.device)
+        if args.job == "segment":
+            with open(args.params) as f:
+                segment_worker(**json.load(f), device=args.device)
+        else:
+            pat2beta_worker(args.pat, args.out, args.nr_sites,
+                            lbeta=args.lbeta, device=args.device)
     finally:
         dist.destroy_process_group()
     # one line a caller can parse: this worker's kernel launches
-    launches = {name: getattr(pileup_v3, name).launches
-                for name in ("flat_vals_fused", "flat_vals", "flat_vals_add",
-                             "flat_classic")}
     print(f"[wgbs-torch worker {args.process_id}] launches "
-          f"{json.dumps(launches)}", flush=True)
+          f"{json.dumps(_launches(args.job))}", flush=True)
     return 0
 
 
@@ -158,23 +255,18 @@ def free_port():
     return port
 
 
-def run_pat2beta_multiprocess(pat_path, out_path, nr_sites, num_processes=2,
-                              lbeta=False, device="cuda", timeout=600):
-    """Launcher: run num_processes workers on this machine and block until
-    all exit; returns out_path. Each worker's output (its log and its
-    launch-count line) is copied to this process's stderr. When a worker
-    exits nonzero or `timeout` seconds pass, the others are killed and a
-    RuntimeError carries the failing worker's output."""
+def _run_workers(job, args, num_processes, device, timeout):
+    """Start num_processes workers of `job` (their shared arguments `args`)
+    on this machine and block until all exit. Each worker's output (its log
+    and its launch-count line) is copied to this process's stderr. When a
+    worker exits nonzero or `timeout` seconds pass, the others are killed
+    and a RuntimeError carries the failing worker's output."""
     resolve_device(device)  # no CUDA: raise here, before any worker starts
     cmd_base = [
         sys.executable, "-m", "wgbs_tools_tpu_torch.parallel.multihost",
-        "--coordinator", f"127.0.0.1:{free_port()}",
-        "--num_processes", str(num_processes),
-        "--pat", pat_path, "--out", out_path, "--nr_sites", str(nr_sites),
-        "--device", str(device),
-    ]
-    if lbeta:
-        cmd_base.append("--lbeta")
+        "--job", job, "--coordinator", f"127.0.0.1:{free_port()}",
+        "--num_processes", str(num_processes), "--device", str(device),
+    ] + args
     env = dict(os.environ)
     env["PYTHONPATH"] = op.dirname(op.dirname(op.dirname(
         op.abspath(__file__)))) + os.pathsep + env.get("PYTHONPATH", "")
@@ -196,9 +288,41 @@ def run_pat2beta_multiprocess(pat_path, out_path, nr_sites, num_processes=2,
     sys.stderr.flush()
     if fail is not None:
         i, why = fail
-        raise RuntimeError(f"multi-process pat2beta failed: worker {i} "
+        raise RuntimeError(f"multi-process {job} failed: worker {i} "
                            f"{why}:\n{outs[i][-2000:]}")
+
+
+def run_pat2beta_multiprocess(pat_path, out_path, nr_sites, num_processes=2,
+                              lbeta=False, device="cuda", timeout=600):
+    """Launcher: run num_processes pat2beta workers on this machine
+    (_run_workers) and return out_path."""
+    _run_workers("pat2beta", ["--pat", pat_path, "--out", out_path,
+                              "--nr_sites", str(nr_sites)]
+                 + (["--lbeta"] if lbeta else []), num_processes, device,
+                 timeout)
     return out_path
+
+
+def run_segment_multiprocess(beta_paths, ranges, out_prefix, num_processes=2,
+                             device="cuda", timeout=600, **cfg_kwargs):
+    """Launcher: multi-process segmentation on this machine (_run_workers;
+    `cfg_kwargs` are segment_worker's: max_cpg, max_bp, pseudo_count,
+    chunk_size, min_cpg, mode, genome, threads). Returns (starts, ends)
+    from rank 0's {out_prefix}.blocks.npz. JAX's platform= and
+    local_devices= become device=."""
+    params = dict(beta_paths=list(beta_paths),
+                  ranges=[[int(s), int(e)] for s, e in ranges],
+                  out_prefix=out_prefix, **cfg_kwargs)
+    fd, pfile = tempfile.mkstemp(suffix=".json")
+    with os.fdopen(fd, "w") as f:
+        json.dump(params, f)
+    try:
+        _run_workers("segment", ["--params", pfile], num_processes, device,
+                     timeout)
+    finally:
+        os.unlink(pfile)
+    with np.load(out_prefix + ".blocks.npz") as z:
+        return z["starts"].copy(), z["ends"].copy()
 
 
 def _wait_all(procs, timeout):
@@ -223,6 +347,7 @@ def _wait_all(procs, timeout):
             pr.kill()
         pr.wait()
     return fail
+
 
 if __name__ == "__main__":
     sys.exit(_worker_main())
