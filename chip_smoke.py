@@ -129,14 +129,21 @@ result line:
      and read just after (tiles_v1 and dp_scan must launch); its counts
      equal native.pileup_native's of the same fragments, decode_sum64 of
      its coverage pair equals the int64 sum, its peak device memory stays
-     under 60 GB; its two chains' cost is built again and dp_scan
+     under 60 GB, and dp_scan's C entry must name its push body for the
+     step's chains; its two chains' cost is built again and dp_scan
      (csrc/dp_scan.cu) timed on it with CUDA events (its ks equal the
      step's), each chain's first 1,000,000 ks equal scan_numpy (the DP in
      numpy on the host) bit for bit, the share _dp_fast_blocked agrees on
      is printed (it sums a path's costs in another order, so near-ties
-     move), dp_scan equals its twin on two windows cut to 8,192 sites, and
-     its time stands beside its bound (the larger of the chain floor, 8
-     cycles a step over clocks.max.sm, and the bytes over 3.35 TB/s). Then
+     move), dp_scan equals its twin on two windows cut to 8,192 sites and,
+     with tolerance 0, on dp_edge_batch (edges of ties, -inf rows, NaN,
+     signed zeros, +inf in the first W steps, the oldest and newest
+     candidates tied, n < W, nb 1 and 3, W 1-3, 31-33, 63-65 and both
+     sides of each body's threshold, which dp_plan gives), which must hold
+     every body; its time stands beside its bound (the larger of the chain
+     floor, 8 cycles a step over clocks.max.sm, and the bytes over 3.35
+     TB/s) with its ns per step, share of the chain floor, and registers
+     and spills per body (ptxas). Then
      segment_windows_sharded on phase 8's 470 chunks over 4 stand-in
      shards (maxplus_closure must launch) equals phase 8's fast borders
      window for window; `segment --procs 2` through the CLI (both ranks on
@@ -329,10 +336,17 @@ def phase_card():
 
 # kernel function -> kernel name (segment_exact_dp has two bodies)
 FUNCTIONS = {**{name + "_kernel": name for name in KERNELS},
-             "segment_exact_dp_ahead_kernel": "segment_exact_dp"}
+             "segment_exact_dp_ahead_kernel": "segment_exact_dp",
+             "dp_scan_push_kernel": "dp_scan",
+             "dp_scan_argmax_kernel": "dp_scan"}
 # segment_exact_dp's kernel functions -> its bodies
 SEGX_BODIES = {"segment_exact_dp_ahead_kernel": "ahead",
                "segment_exact_dp_kernel": "single"}
+# dp_scan's kernel functions -> its bodies (the push body's second kernel
+# apart)
+DPS_BODIES = {"dp_scan_push_kernel": "push",
+              "dp_scan_argmax_kernel": "push argmax",
+              "dp_scan_kernel": "warp"}
 
 
 def _ptxas_registers(build_log, functions=None):
@@ -2411,6 +2425,7 @@ PAR_PREFIX = 1_000_000  # ks entries of each chain held to the host scan
 PAR_CUT = 8192          # sites of the two windows the twin runs
 PAR_MEM_MAX = 60e9      # bytes of device memory the step may peak at
 CHAIN_CYCLES = 8        # dp_scan's floor a step: an add, then a compare
+DPS_EDGE_SEED = 14
 
 
 def _load_frags(pat):
@@ -2447,6 +2462,94 @@ def scan_numpy(C, W):
         M[W + i + 1] = cand[am]
         ks[i] = i - (W - 1) + am
     return ks.astype(np.int32)
+
+
+def dp_body_edges(n=100, w_max=5000):
+    """The widths at which dp_scan's C entry starts each body after the
+    first (dp_plan over W = 1 .. w_max), checked to come in BODIES' order."""
+    from wgbs_tools_tpu_torch.ops import dp_scan as dps
+
+    bodies = [dps.dp_plan(n, W)["body"] for W in range(1, w_max + 1)]
+    edges = [W for W in range(2, w_max + 1) if bodies[W - 1] != bodies[W - 2]]
+    if [bodies[0]] + [bodies[W - 1] for W in edges] != list(dps.BODIES):
+        raise RuntimeError(f"dp_scan's bodies by W: {bodies[0]} then "
+                           f"{[(W, bodies[W - 1]) for W in edges]}, want "
+                           f"{dps.BODIES} in order")
+    return edges
+
+
+def dp_edge_batch(edges):
+    """(name, C (nb, n, W) f32) cases for dp_scan on each body, made from
+    DPS_EDGE_SEED: rows of -inf, exact ties, NaN, signed zeros, +inf in the
+    first W steps (-inf + +inf is NaN), the oldest and newest candidates
+    tied, n < W, n not a multiple of 32 (the push body's stage rows), nb 1
+    and 3, W 1, 2, 3, 31-33, 63-65, and W on both sides of each body's
+    threshold (`edges`)."""
+    import numpy as np
+
+    rng = np.random.default_rng(DPS_EDGE_SEED)
+    neg = np.float32(-np.inf)
+
+    def normal(nb, n, W):
+        C = rng.normal(size=(nb, n, W)).astype(np.float32)
+        C[:, :, ::5] = np.round(C[:, :, ::5])  # ties
+        return C
+
+    cases = []
+    C = normal(3, 120, 16)
+    C[0, 40:44] = neg
+    C[1] = np.round(C[1])
+    C[2, 50:60, ::2] = -1.0
+    cases.append(("nb 3, -inf rows, ties", C))
+    C = normal(1, 60, 40)
+    C[0, 30, 7] = C[0, 45, [3, 9]] = np.nan
+    cases.append(("NaN", C))
+    C = np.zeros((1, 50, 33), np.float32)
+    C[0, ::3] = -0.0
+    cases.append(("signed zeros", C))
+    C = normal(2, 40, 12)
+    C[0, 2, 1] = np.inf
+    C[1, :12, ::4] = np.inf
+    cases.append(("+inf in the first W steps", C))
+    for W in (6, 64):
+        C = np.full((1, 150, W), neg, np.float32)
+        C[0, :, 0] = C[0, :, W - 1] = 0.0
+        C[0, 1::2, 0] = -0.0
+        cases.append((f"oldest and newest tie, W {W}", C))
+    for W in (1, 2, 3, 31, 32, 33, 63, 64, 65):
+        cases.append((f"W {W}, nb 1, n 77", normal(1, 77, W)))
+        cases.append((f"W {W}, nb 3, n < W", normal(3, W // 2 + 1, W)))
+    for e in edges:
+        for W in (e - 1, e):
+            cases.append((f"W {W} (threshold {e})", normal(2, 45, W)))
+    return cases
+
+
+def _dp_edges_vs_twin(edges):
+    """dp_scan on the card == its twin on dp_edge_batch, tolerance 0, each
+    case's body asked of the C entry; fails unless every body was held.
+    Returns {body: cases}."""
+    import torch
+
+    from wgbs_tools_tpu_torch.ops import dp_scan as dps
+
+    held = {}
+    for name, C in dp_edge_batch(edges):
+        W = C.shape[2]
+        body = dps.dp_plan(C.shape[1], W)["body"]
+        Ct = torch.from_numpy(C).cuda()
+        got = dps.dp_scan(Ct, W)
+        want = dps.dp_scan_plain(Ct, W)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = (got != want).nonzero()[:5].tolist()
+            raise RuntimeError(f"dp_scan ({body} body) != its twin on the "
+                               f"edge case {name!r} at {bad}")
+        held[body] = held.get(body, 0) + 1
+    if set(held) != set(dps.BODIES):
+        raise RuntimeError(f"dp_scan's edge batch held only {held} to the "
+                           f"twin, want every body of {dps.BODIES}")
+    return held
 
 
 def _analysis_step(big, dev, clock):
@@ -2496,6 +2599,10 @@ def _analysis_step(big, dev, clock):
     peak = torch.cuda.max_memory_allocated()
     _require_launches("phase 9 analysis step", launches,
                       ("tiles_v1", "dp_scan"))
+    plan = dps.dp_plan(S, W)
+    if plan["body"] != "push":
+        raise RuntimeError(f"dp_scan took its {plan['body']} body on the "
+                           f"step's chains (W {W}), not the push body")
     t0 = time.perf_counter()
     counts_h, tb_h = counts.cpu().numpy(), tb.cpu().numpy()
     timings["fetch"] = time.perf_counter() - t0
@@ -2575,6 +2682,13 @@ def _analysis_step(big, dev, clock):
     if not torch.equal(got, want):
         raise RuntimeError("dp_scan != its twin on the two cut windows")
     cut_ms = _time_ms(lambda: dps.dp_scan(cut, W), 5)
+    del cut
+    t0 = time.perf_counter()
+    edges = dp_body_edges()
+    held = _dp_edges_vs_twin(edges)
+    log(f"phase 9: dp_scan == twin (tolerance 0) on {sum(held.values())} "
+        f"edge cases, by body {held} (each body from W "
+        f"{[1] + edges}); {time.perf_counter() - t0:.3f} s")
     n_bytes = b * S * (W + 1) * 4
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_chain = S * CHAIN_CYCLES / (clock * 1e6)
@@ -2590,14 +2704,17 @@ def _analysis_step(big, dev, clock):
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
            "bytes": n_bytes, "bytes_ms": 1e3 * t_bytes,
            "chain_floor_ms": 1e3 * t_chain, "chains": b, "steps": S,
-           "ns_per_step": 1e6 * ms / S, "sm_clock_mhz": clock}
-    regs, spills = _ptxas_registers(_kernels.BUILD_LOG,
-                                    {"dp_scan_kernel": "dp_scan"})
-    res["spill_bytes"] = spills.get("dp_scan")
+           "ns_per_step": 1e6 * ms / S, "sm_clock_mhz": clock,
+           "body": plan["body"], "smem": plan["smem"],
+           "chain_floor_share": t_chain * 1e3 / ms, "edge_cases": held}
+    regs, spills = _ptxas_registers(_kernels.BUILD_LOG, DPS_BODIES)
+    res["registers_by_body"], res["spill_bytes_by_body"] = regs, spills
     log(f"phase 9: dp_scan on the step's chains (2 x {S:,} steps, W {W}, one "
-        f"launch; ptxas: {regs.get('dp_scan')} registers, "
-        f"{spills.get('dp_scan')} spill bytes): {ms:.3f} ms "
-        f"({1e6 * ms / S:.1f} ns per step); bound "
+        f"launch of its {plan['body']} body, {plan['threads']} threads and "
+        f"{plan['smem']:,} B of shared memory a chain; ptxas registers by "
+        f"body {regs}, spill bytes {spills}): {ms:.3f} ms "
+        f"({1e6 * ms / S:.1f} ns per step, "
+        f"{100 * t_chain * 1e3 / ms:.2f} % of the chain floor); bound "
         f"{bound_ms:.4f} ms ({bound_by}: the chain floor {S:,} steps x "
         f"{CHAIN_CYCLES} cycles (an add and a compare) / {clock:.0f} MHz = "
         f"{1e3 * t_chain:.4f} ms; bytes {n_bytes:,} / 3.35 TB/s = "

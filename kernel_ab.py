@@ -3,8 +3,9 @@
 tiled_classic) and the fragment-row kernels (tiles_v2, tiles_v1) of two
 source trees, on one GPU, on the slabs that chip_smoke.py's phase 3 gives
 them (tiles_v1 also on its long slab), of the max-plus closure
-(maxplus_closure) on fast segmentation's batch, and of exact
-segmentation's DP (segment_exact_dp) on phase 8's batch.
+(maxplus_closure) on fast segmentation's batch, of exact
+segmentation's DP (segment_exact_dp) on phase 8's batch, and of the
+analysis step's serial DP (dp_scan) on phase 9's cost shape.
 
     python3 kernel_ab.py OTHER_TREE [--frags N] [--reps R] [--rounds K]
                          [--listed B[,B...]] [--kernels NAME[,NAME...]]
@@ -42,7 +43,14 @@ turns, with --reps R (at most 3 on the batches); both trees' ks must be
 equal (and equal the twin's on the cut slabs); each tree's registers and
 spills per body and, where its source has the entry, the launch and CTAs
 per SM that segment_exact_dp_occupancy reports at each slab's Wb are
-printed. --kernels picks the kernels (default: all). Prints the card's
+printed. dp_scan: each tree's csrc/dp_scan.cu is compiled alone, and both
+are called in the same turns on phase 9's cost shape (kernel_ab.dps_inputs:
+W 64, from chip_smoke.seg_data's samples and loci): "chains", 2 chains of
+DPS_STEPS steps in one launch (one rep a turn), and "cut", their first
+8,192 sites; both trees' ks must be equal on every step (and the twin's on
+the cut slab); each tree's registers and spills per body and, where its
+source has dp_scan_plan, the body it takes are printed. --kernels picks the
+kernels (default: all). Prints the card's
 name and power limit, one line per kernel, slab and run, and last one
 JSON object with every run's times and each tree's ptxas registers (the
 most any template instance uses, and each instance's).
@@ -199,14 +207,14 @@ SEGX = "segment_exact_dp"
 SEGX_SRC = "wgbs_tools_tpu_torch/csrc/segment_exact.cu"
 
 
-def build_segx(tree, out_dir):
-    """nvcc the tree's segment_exact.cu alone into out_dir/lib.so; returns
-    (the library, {body: registers}, {body: spill bytes}), body "ahead" or
-    "single" by the kernel function's name."""
+def build_alone(tree, src, out_dir, bodies):
+    """nvcc the tree's `src` alone into out_dir/lib.so; returns (the
+    library, {body: registers}, {body: spill bytes}), body by the kernel
+    function's name (`bodies`, as chip_smoke._ptxas_registers takes it)."""
     from wgbs_tools_tpu_torch import _kernels
 
     os.makedirs(out_dir, exist_ok=True)
-    src = op.join(tree, SEGX_SRC)
+    src = op.join(tree, src)
     so = op.join(out_dir, "lib.so")
     proc = subprocess.run([_kernels._nvcc()] + _kernels.NVCC_FLAGS
                           + ["-shared", "-o", so, src],
@@ -217,8 +225,15 @@ def build_segx(tree, out_dir):
     log = op.join(out_dir, "nvcc.log")
     with open(log, "w") as f:
         f.write(proc.stdout + proc.stderr)
-    regs, spills = chip_smoke._ptxas_registers(log, chip_smoke.SEGX_BODIES)
-    lib = ctypes.CDLL(so)
+    regs, spills = chip_smoke._ptxas_registers(log, bodies)
+    return ctypes.CDLL(so), regs, spills
+
+
+def build_segx(tree, out_dir):
+    """The tree's segment_exact.cu alone (build_alone), body "ahead" or
+    "single"."""
+    lib, regs, spills = build_alone(tree, SEGX_SRC, out_dir,
+                                    chip_smoke.SEGX_BODIES)
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.segment_exact_dp.argtypes = [vp] * 6 + [i64] * 6 + [vp]
     lib.segment_exact_dp.restype = ctypes.c_int
@@ -335,6 +350,120 @@ def ab_segx(trees, reps, rounds):
     return runs, summary, occ
 
 
+DPS = "dp_scan"
+DPS_SRC = "wgbs_tools_tpu_torch/csrc/dp_scan.cu"
+DPS_STEPS = 2_000_000  # steps of each of the "chains" slab's 2 chains
+
+
+def build_dps(tree, out_dir):
+    """The tree's dp_scan.cu alone (build_alone), bodies as
+    chip_smoke.DPS_BODIES names them."""
+    lib, regs, spills = build_alone(tree, DPS_SRC, out_dir,
+                                    chip_smoke.DPS_BODIES)
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.dp_scan.argtypes = [vp] * 3 + [i64] * 3 + [vp]
+    lib.dp_scan.restype = ctypes.c_int
+    if hasattr(lib, "dp_scan_plan"):
+        lib.dp_scan_plan.argtypes = [i64, i64, vp]
+        lib.dp_scan_plan.restype = ctypes.c_int
+    return lib, regs, spills
+
+
+def dps_inputs(dev):
+    """dp_scan's slabs, {slab: C (2, n, W) f32}: "chains", phase 9's cost
+    shape (AnalysisStep's cost at W 64, max_bp 2000, pc 15: the sum over
+    chip_smoke.PAR_K samples of _segment_cost_local, from
+    chip_smoke.seg_data's samples and loci, without the pileup) on the first
+    DPS_STEPS sites of each of phase 9's 2 site shards; "cut", each chain's
+    first chip_smoke.PAR_CUT sites."""
+    import numpy as np
+    import torch
+
+    from wgbs_tools_tpu_torch.parallel.sharded import _segment_cost_local
+
+    data = chip_smoke.seg_data(chip_smoke.PAR_K)
+    loci = torch.from_numpy(next(data).astype(np.int32))
+    samples = [torch.from_numpy(d.astype(np.int32)) for d in data]
+    S = chip_smoke.N_SITES // chip_smoke.PAR_MESH[1]
+    W = chip_smoke.PAR_W
+    C = torch.zeros((2, DPS_STEPS, W), dtype=torch.float32, device=dev)
+    for j in range(2):
+        rows = slice(j * S, j * S + DPS_STEPS)
+        for d in samples:
+            _segment_cost_local(d[rows].to(dev), loci[rows].to(dev), W,
+                                chip_smoke.PAR_MAX_BP, chip_smoke.PAR_PC,
+                                out=C[j])
+    return {"chains": C, "cut": C[:, :chip_smoke.PAR_CUT].contiguous()}
+
+
+def ab_dps(trees, reps, rounds):
+    """The trees' dp_scan on dps_inputs in turns; returns (runs, {slab:
+    {tree: median ms}}, {tree: the body its C entry names, or None})."""
+    import torch
+
+    from wgbs_tools_tpu_torch.ops import dp_scan as dps
+
+    dev = torch.device("cuda")
+    slabs = dps_inputs(dev)
+    runs, summary, bodies = [], {}, {}
+    for slab, C in slabs.items():
+        nb, n, W = C.shape
+        calls, first = {}, None
+        for tree, (lib, _, _) in trees.items():
+            floats = 0
+            if hasattr(lib, "dp_scan_plan"):
+                out = (ctypes.c_int64 * 4)()
+                if lib.dp_scan_plan(n, W, out):
+                    raise RuntimeError("dp_scan_plan failed")
+                floats = out[1]
+                bodies[tree] = dps.BODIES[out[0]]
+            else:
+                bodies[tree] = None
+            scratch = (torch.empty((nb, floats), dtype=torch.float32,
+                                   device=dev) if floats else None)
+            ks = torch.empty((nb, n), dtype=torch.int32, device=dev)
+
+            def launch(fn=lib.dp_scan, ks=ks, scratch=scratch):
+                err = fn(C.data_ptr(), ks.data_ptr(),
+                         None if scratch is None else scratch.data_ptr(),
+                         nb, n, W, torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"dp_scan: CUDA error {err}")
+
+            launch()
+            torch.cuda.synchronize()
+            if first is None:
+                first = ks
+                if slab == "cut" and not torch.equal(
+                        ks, dps.dp_scan_plain(C, W)):
+                    raise RuntimeError(f"{tree} dp_scan on {slab}: kernel "
+                                       "!= twin")
+            elif not torch.equal(ks, first):
+                bad = (ks != first).nonzero()[:5].tolist()
+                raise RuntimeError(f"{tree} dp_scan on {slab}: ks != "
+                                   f"{next(iter(trees))}'s at {bad}")
+            calls[tree] = launch
+        order = (list(calls) + list(calls)[::-1]) * rounds
+        r = reps if slab == "cut" else 1
+        for i, tree in enumerate(order):
+            ms = chip_smoke._device_ms(calls[tree], r)
+            runs.append({"kernel": DPS, "slab": slab, "tree": tree,
+                         "turn": i, "ms": ms, "ns_per_step": 1e6 * ms / n})
+            chip_smoke.log(f"A/B dp_scan on {slab} ({nb} chains of {n:,} "
+                           f"steps, W {W}) turn {i} {tree}: {ms:.4f} ms "
+                           f"({1e6 * ms / n:.2f} ns per step), ks == the "
+                           "first tree's")
+        med = summary[slab] = {
+            tree: statistics.median(x["ms"] for x in runs
+                                    if x["tree"] == tree
+                                    and x["slab"] == slab)
+            for tree in calls}
+        chip_smoke.log(f"A/B dp_scan on {slab}: median " + ", ".join(
+            f"{tree} {v:.4f} ms ({1e6 * v / n:.2f} ns per step, "
+            f"{med['other'] / v:.2f}x)" for tree, v in med.items()))
+    return runs, summary, bodies
+
+
 PROBE = """#include "{src}"
 """
 PROBE_ENTRY = """extern "C" int pileup_tiles_v1_listed_b{b}(
@@ -442,12 +571,12 @@ def main():
                    help="maxplus_closure's squaring counts (comma-separated; "
                         "default 7, the DP's)")
     p.add_argument("--kernels",
-                   default=",".join(list(KERNELS) + [MAXPLUS, SEGX]),
+                   default=",".join(list(KERNELS) + [MAXPLUS, SEGX, DPS]),
                    help="the kernels to A/B (comma-separated; default all)")
     args = p.parse_args()
     listed = [int(b) for b in args.listed.split(",") if b]
     picked = args.kernels.split(",")
-    unknown = set(picked) - set(KERNELS) - {MAXPLUS, SEGX}
+    unknown = set(picked) - set(KERNELS) - {MAXPLUS, SEGX, DPS}
     if unknown:
         p.error(f"unknown kernels {sorted(unknown)}")
     pileups = [name for name in KERNELS if name in picked]
@@ -492,6 +621,18 @@ def main():
                 chip_smoke.log(f"segment_exact_dp {t}: ptxas registers {r}, "
                                f"spill bytes {sp}, launch by slab "
                                f"{occ.get(t)}")
+        if DPS in picked:
+            dtrees = {"other": build_dps(op.abspath(args.other),
+                                         op.join(work, "do")),
+                      "this": build_dps(REPO, op.join(work, "dt"))}
+            druns, med, bodies = ab_dps(dtrees, args.reps, args.rounds)
+            runs += druns
+            summary.update({f"{DPS} {k}": v for k, v in med.items()})
+            for t, (_, r, sp) in dtrees.items():
+                regs.setdefault(t, {})[DPS] = {"registers": r, "spills": sp,
+                                               "body": bodies.get(t)}
+                chip_smoke.log(f"dp_scan {t}: ptxas registers {r}, spill "
+                               f"bytes {sp}, body at W 64 {bodies.get(t)}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(smi, flush=True)

@@ -184,6 +184,24 @@ def _dp_cases():
     C = np.zeros((1, 50, 33), np.float32)
     C[0, ::3] = -0.0               # -0.0 ties +0.0
     cases.append(("signed zeros, W 33", C))
+    W = 12
+    C = rng.normal(size=(2, 40, W)).astype(np.float32)
+    C[0, 2, 1] = np.inf            # -inf + +inf: NaN in the first W steps
+    C[1, :W, ::4] = np.inf
+    cases.append(("+inf in the first W steps", C))
+    # the oldest (k = 0) and newest (k = W-1) candidates tie exactly: every
+    # other cost is -inf and those two are 0 (-0.0 at k = 0 on odd rows), so
+    # M stays 0 and from step W-1 on both sums are 0; the first, k = 0,
+    # wins (the seam between candidates folded ahead and the chain's own)
+    for W in (6, 64):
+        C = np.full((1, 150, W), NEG, np.float32)
+        C[0, :, 0] = 0.0
+        C[0, 1::2, 0] = -0.0
+        C[0, :, W - 1] = 0.0
+        cases.append((f"oldest and newest tie, W {W}", C))
+    for W, n in ((2, 33), (3, 41), (65, 100)):
+        C = np.round(rng.normal(size=(2, n, W))).astype(np.float32)
+        cases.append((f"W {W}", C))
     return cases
 
 
@@ -452,25 +470,39 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_cuda_dp_scan_equals_twin(cuda_device):
-    """dp_scan on the card == its twin on the edges above and on W above
-    32, not a multiple of 32, on both sides of SMEM_W_MAX (the ring in
-    shared memory, then in the global scratch), n < W and nb 3."""
+    """dp_scan on the card == its twin on the edges above, on
+    chip_smoke.dp_edge_batch (W 1-3, 31-33, 63-65, both sides of each
+    body's threshold, n < W, nb 1 and 3, ties, +inf in the first W steps,
+    the oldest and newest candidates tied) and on W above 32, not a
+    multiple of 32, n not a multiple of 32 and nb 3. Each case's body is
+    asked of the C entry (dp_plan) and must be the one its W's range
+    names; the analysis step's W 64 takes the push body, and every body is
+    held."""
+    import chip_smoke
+
+    edges = chip_smoke.dp_body_edges()
+    assert pdp.dp_plan(1000, 64)["body"] == "push"
     rng = np.random.default_rng(23)
     cases = [C for _, C in DP_CASES]
-    for nb, n, W in ((3, 700, 64), (2, 300, 100), (1, 40, 1000),
-                     (2, 20, pdp.SMEM_W_MAX), (1, 30, pdp.SMEM_W_MAX + 1),
-                     (2, 9, 70)):
+    cases += [C for _, C in chip_smoke.dp_edge_batch(edges)]
+    for nb, n, W in ((3, 700, 64), (2, 300, 100), (1, 40, 1000), (2, 9, 70),
+                     (1, 1000, 64), (3, 333, 37)):
         C = rng.normal(size=(nb, n, W)).astype(np.float32)
         C[:, :, ::5] = np.round(C[:, :, ::5])
         cases.append(C)
+    held = set()
     for C in cases:
-        W = C.shape[2]
+        nb, n, W = C.shape
+        body = pdp.dp_plan(n, W)["body"]
+        assert body == pdp.BODIES[sum(W >= e for e in edges)], W
+        held.add(body)
         Ct = torch.from_numpy(C.copy())
         before = pdp.dp_scan.launches
         got = pdp.dp_scan(Ct.to(cuda_device), W)
         torch.cuda.synchronize()
         assert pdp.dp_scan.launches == before + 1
-        assert torch.equal(got.cpu(), pdp.dp_scan_plain(Ct, W))
+        assert torch.equal(got.cpu(), pdp.dp_scan_plain(Ct, W)), (body, W)
+    assert held == set(pdp.BODIES)
 
 
 @pytest.mark.cuda

@@ -122,7 +122,7 @@ def _bind(lib):
             # exact segmentation: (pm, pt, loci, tbl, ks, ring), (B, K, n,
             # Wb, max_bp, tbl_size)
             ("segment_exact_dp", 6, 6),
-            # the analysis step's serial DP: (C, ks, ring), (nb, n, W)
+            # the analysis step's serial DP: (C, ks, scratch), (nb, n, W)
             ("dp_scan", 3, 3)):
         fn = getattr(lib, name)
         fn.argtypes = [vp] * n_ptr + [i64] * n_int + [vp]
@@ -130,6 +130,9 @@ def _bind(lib):
     # (Wb, int64 out[5]): segment_exact_dp's launch and its CTAs per SM
     lib.segment_exact_dp_occupancy.argtypes = [i64, vp]
     lib.segment_exact_dp_occupancy.restype = i32
+    # (n, W, int64 out[4]): dp_scan's body, scratch, threads, shared bytes
+    lib.dp_scan_plan.argtypes = [i64, i64, vp]
+    lib.dp_scan_plan.restype = i32
     lib.wgbs_cuda_error_string.argtypes = [i32]
     lib.wgbs_cuda_error_string.restype = ctypes.c_char_p
 
@@ -152,6 +155,14 @@ def check(err, what):
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
+def require_cuda(name, device):
+    """Raise unless `device` is a CUDA device (before anything loads the
+    library)."""
+    if device.type != "cuda":
+        raise ValueError(f"{name}: tensors on {device}; the kernel takes CUDA "
+                         "tensors and its plain twin CPU tensors")
+
+
 def launch(name, device, *args):
     """Call the C entry point `name` with `args` (data pointers, then int
     scalars) and the current stream of `device`, with `device` made current
@@ -159,9 +170,7 @@ def launch(name, device, *args):
     device, so the caller's current device is what it was, and a per-device
     shared-memory attribute is set on the right device. Raises on a device
     other than CUDA and on a CUDA error."""
-    if device.type != "cuda":
-        raise ValueError(f"{name}: tensors on {device}; the kernel takes CUDA "
-                         "tensors and its plain twin CPU tensors")
+    require_cuda(name, device)
     lib = load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

@@ -9,21 +9,41 @@ smaller k, the first NaN if there is one, 0 for a row of -inf: jnp.argmax's
 order), writes M[W+i+1] = cand[am] and returns ks[b, i] = i - (W-1) + am,
 int32 (nb, n). It replaces wgbs_tools_tpu/parallel/sharded.py::_dp_scan
 (:105-122), a lax.scan with one dependent step per site. The kernel
-(csrc/dp_scan.cu: one warp per chain, the M ring in shared memory up to
-W = SMEM_W_MAX and in a global scratch above it) and the twin
-(dp_scan_plain: the recurrence of models/segment.py::_dp_fast_scan, all
-chains a step at a time) do the same IEEE f32 adds and exact comparisons,
-so they agree bit for bit. A wrapper sends CUDA tensors to the kernel and
-CPU tensors to the twin; any other device raises. `dp_scan.launches`
-counts its launches.
+(csrc/dp_scan.cu) has three bodies that its C entry picks by W alone
+(dp_plan reports it): "push", where a step's dependent path is the
+newest candidate's add and one max and every other candidate is pushed
+into the steps that read it ahead of the chain (then a second kernel
+takes each step's first maximum from M), and the first body's one warp
+per chain with M's ring in shared memory ("warp") or in a global scratch
+("warp global").
+The twin (dp_scan_plain: the recurrence of models/segment.py::
+_dp_fast_scan, all chains a step at a time) does the same IEEE f32 adds
+and exact comparisons, so they agree bit for bit. A wrapper sends CUDA
+tensors to the kernel and CPU tensors to the twin; any other device
+raises. `dp_scan.launches` counts its launches.
 """
+
+import ctypes
 
 import torch
 
 from .. import _kernels
 
-SMEM_W_MAX = 4096  # csrc/dp_scan.cu: the widest W whose ring is in shared
+BODIES = ("push", "warp", "warp global")  # csrc/dp_scan.cu's enum Body
 NEG = float("-inf")
+
+
+def dp_plan(n, W):
+    """The launch dp_scan makes for n steps of width W, as its C entry
+    chooses it (by W alone): {"body": one of BODIES, "scratch": floats of
+    global scratch per chain (the push body's M, the warp global body's
+    ring, else 0), "threads": per CTA, "smem": dynamic shared bytes}.
+    Needs the kernel library, not the card."""
+    out = (ctypes.c_int64 * 4)()
+    _kernels.check(_kernels.load().dp_scan_plan(int(n), int(W), out),
+                   "dp_scan_plan")
+    return {"body": BODIES[out[0]], "scratch": out[1], "threads": out[2],
+            "smem": out[3]}
 
 
 def _check(Crev, W):
@@ -43,8 +63,9 @@ def _check(Crev, W):
 def dp_scan(Crev, W):
     """ks (nb, n) int32 of the chains Crev (nb, n, W) f32.
 
-    Replaces sharded.py::_dp_scan. CUDA tensors launch the kernel, all
-    chains in one launch; CPU tensors take dp_scan_plain."""
+    Replaces sharded.py::_dp_scan. CUDA tensors launch the kernel (the body
+    dp_plan(n, W) names), all chains in one call; CPU tensors take
+    dp_scan_plain."""
     _check(Crev, W)
     if Crev.device.type == "cpu":
         return dp_scan_plain(Crev, W)
@@ -52,10 +73,13 @@ def dp_scan(Crev, W):
     ks = torch.empty((nb, n), dtype=torch.int32, device=Crev.device)
     if nb == 0 or n == 0:
         return ks
-    ring = (torch.empty((nb, W), dtype=torch.float32, device=Crev.device)
-            if W > SMEM_W_MAX else None)
+    _kernels.require_cuda("dp_scan", Crev.device)
+    floats = dp_plan(n, W)["scratch"]
+    scratch = (torch.empty((nb, floats), dtype=torch.float32,
+                           device=Crev.device) if floats else None)
     _kernels.launch("dp_scan", Crev.device, Crev.data_ptr(), ks.data_ptr(),
-                    None if ring is None else ring.data_ptr(), nb, n, W)
+                    None if scratch is None else scratch.data_ptr(), nb, n,
+                    W)
     dp_scan.launches += 1
     return ks
 
