@@ -6,7 +6,7 @@
 Phases, each printed as it runs; any failure exits nonzero and prints no
 result line:
   1. the card: `nvidia-smi` name and power limit; fails without CUDA.
-  2. build: nvcc compiles the six sources csrc/*.cu for sm_90a, in
+  2. build: nvcc compiles the nine sources csrc/*.cu for sm_90a, in
      parallel (seconds and ptxas register counts printed), and g++ the
      port's host library (host/wgbsio.cpp and host/segment_exact.cpp) that
      decoding, staging, exact segmentation and the oracle run; both must
@@ -151,9 +151,34 @@ result line:
      worker's launch line showing segment_exact_dp / maxplus_closure;
      flagship.entry() on the card (merged equals the host pileup plus the
      samples) and flagship.dryrun_multichip(4), each with its line.
+ 10. the block and read-level device ops at hg19 size, each command
+     through the port's CLI on cuda with the launch counters set to 0 just
+     before and read just after (its kernel must launch) and its stage
+     seconds: beta_to_blocks of phase 4's big.beta and phase 8's three
+     betas over phase 8's exact blocks (1,070,393), once more with
+     --lbeta, and over a non-nice copy of the blocks (every 10th block
+     duplicated and shifted into its neighbour), every .bin / .lbeta
+     equal to a numpy int64 prefix-sum oracle's bytes (block_sums);
+     reduce_data_to_blocks over 4 stand-in shards equal to one device's;
+     beta_to_table of phase 8's betas with a groups file equal to
+     --device cpu's text; pat2pairs of the big pat (pair_counts), its
+     table equal to the twin's on the card over the whole pat and to
+     numpy's bincount on the first generated slab's sites, with the
+     device's peak memory; homog of the big pat over the blocks as text
+     and --binary, each equal to --device cpu's bytes (homog_bins). Each
+     kernel is held to its twin at tolerance 0 on its main-path launch and
+     on hand-made edges (BLOCK_EDGE: a whole-genome block at coverage 255
+     past 2^31, NA blocks, s == e, blocks clipped past N, uint16 data;
+     pair_edge_batch: H and '.', start_rel < 0, the last site, length 1,
+     counts to 3000; HOMOG_EDGE: exact ties on the edges, meth 0 and 1,
+     inclusive, min_cpgs 1 / 3 / 4, reads over many blocks), and timed
+     with CUDA events on its main-path launch beside its bound (bytes over
+     3.35 TB/s; pair_counts with its atomics) and its twin's time
+     (block_sums also beside one index_add_ of the rows by block id).
 Then a summary (the card line again, build, end to end), one
 {"kernels": [...]} line (the 8 pileup kernels, maxplus_closure,
-segment_exact_dp and dp_scan), and last {"ok": true, "device": ...}.
+segment_exact_dp, dp_scan, block_sums, pair_counts and homog_bins), and
+last {"ok": true, "device": ...}.
 
 Scratch data goes to build/ (ignored by git) and is deleted at the end.
 """
@@ -204,7 +229,18 @@ KERNELS = {
     # and the analysis step's serial DP (a lax.scan)
     "dp_scan": ("dp_scan", _CSRC + "dp_scan.cu",
                 "wgbs_tools_tpu/parallel/sharded.py:105"),
+    # the block and read-level device ops: JAX's segment_sum of the block
+    # sums, the pair counts' scatter-add and homog's binning
+    "block_sums": ("reduceat", _CSRC + "reduceat.cu",
+                   "wgbs_tools_tpu/ops/reduceat.py:17"),
+    "pair_counts": ("pairs", _CSRC + "pairs.cu",
+                    "wgbs_tools_tpu/ops/pairs.py:57"),
+    "homog_bins": ("frag_ops", _CSRC + "homog.cu",
+                   "wgbs_tools_tpu/ops/frag_ops.py:204"),
 }
+# kernel -> its wrapper's name where the two differ (ops/pairs.py's
+# pair_counts is the one-shot count, pair_counts_add the kernel's wrapper)
+WRAPPERS = {"pair_counts": "pair_counts_add"}
 BGZF_EOF = bytes.fromhex("1f8b08040000000000ff0600424302001b0003000000000000"
                          "000000")
 
@@ -396,7 +432,7 @@ def _wrapper(name):
     """The kernel wrapper `name` (it carries the launch counter)."""
     module = importlib.import_module("wgbs_tools_tpu_torch.ops."
                                      + KERNELS[name][0])
-    return getattr(module, name)
+    return getattr(module, WRAPPERS.get(name, name))
 
 
 def _zero_launches():
@@ -2857,6 +2893,591 @@ def phase_parallel(work, big, seg_out):
         (step_line, win_line, procs_line))
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the block and read-level device ops at hg19 size
+# ---------------------------------------------------------------------------
+
+BLOCK_EDGE = ("whole_genome_255", "uint16")
+PAIR_EDGE_SITES = 50_000
+HOMOG_EDGE = tuple(f"{r}_{'inclusive' if inc else 'clipped'}_min{m}"
+                   for r in ("ties", "rlen3") for inc in (False, True)
+                   for m in (1, 3, 4))
+HOMOG_RANGES = {"ties": [0.0, 0.25, 0.5, 1.0],
+                "rlen3": [0.0, 0.334, 0.667, 1.0]}
+
+
+def block_edge_batch(name, n=N_SITES):
+    """block_sums' hand-made edges: (data (n, 2), starts, ends) with 1-based
+    blocks, base 1. "whole_genome_255": uint8 at coverage 255 on every
+    site, one block over all of them (its coverage passes 2^31), NA
+    blocks, s == e, blocks clipped past n, and seeded blocks of 1-300
+    sites; "uint16": an lbeta's uint16 table of 1,000,000 sites with
+    values up to 65,535 and the same kinds of blocks."""
+    import numpy as np
+
+    rng = np.random.default_rng(15)
+    if name == "uint16":
+        n = 1_000_000
+        data = rng.integers(0, 65536, size=(n, 2)).astype(np.uint16)
+    else:
+        data = np.full((n, 2), 255, np.uint8)
+        data[:, 0] = rng.integers(0, 256, size=n)
+    s = np.sort(rng.integers(1, n + 1, size=5000))
+    e = s + rng.integers(1, 300, size=5000)
+    s = np.concatenate([[1, -1, 7, n - 5, n + 3, 2], s])
+    e = np.concatenate([[n + 1, -1, 7, n + 100, n + 9, 1], e])
+    return data, s, e
+
+
+def pair_edge_batch():
+    """pair_counts' hand-made edges on a window of PAIR_EDGE_SITES sites:
+    (start_rel, length, count, codes (F, 40) uint8) with every call
+    T / C / H / '.', fragments starting up to 40 sites before the window
+    (start_rel < 0) and reaching past its end, one ending on the last
+    site, length-1 fragments, and counts up to 3000."""
+    import numpy as np
+
+    rng = np.random.default_rng(16)
+    F, L, n = 40_000, 40, PAIR_EDGE_SITES
+    start = rng.integers(-40, n + 5, size=F)
+    length = rng.integers(1, L + 1, size=F)
+    length[::7] = 1
+    start[:3], length[:3] = (n - 10, -30, n - 1), (10, 35, 1)
+    count = rng.integers(1, 3001, size=F)
+    codes = rng.integers(0, 4, size=(F, L)).astype(np.uint8)
+    codes[np.arange(L)[None, :] >= length[:, None]] = 3
+    return (start.astype(np.int32), length.astype(np.int32),
+            count.astype(np.int32), codes, n)
+
+
+def homog_edge_batch(name):
+    """homog_bins' hand-made edges: (frags, bstart, bend, ranges,
+    min_cpgs, inclusive) of case `name` (HOMOG_EDGE). 20,000 fragments of
+    1-60 sites (a quarter of them 4 calls of T / C / H, so meth ties the
+    edges 0.25 and 0.5 exactly, and meth 0 and 1 come up) over blocks of
+    1-6 sites (a read covers many blocks), '.' and H among the calls,
+    counts up to 3000."""
+    import numpy as np
+
+    from wgbs_tools_tpu_torch.formats.pat import PatFrags
+
+    ranges, clip, m = name.split("_")
+    rng = np.random.default_rng(17)
+    F, L, n = 20_000, 60, 30_000
+    start = np.sort(rng.integers(1, n, size=F)).astype(np.int32)
+    length = rng.integers(1, L + 1, size=F).astype(np.int32)
+    length[::4] = 4
+    codes = rng.choice(np.array([0, 1, 2, 3], np.uint8), size=(F, L),
+                       p=[0.4, 0.4, 0.1, 0.1])
+    codes[::4, :4] = rng.integers(0, 3, size=(len(codes[::4]), 4))
+    codes[np.arange(L)[None, :] >= length[:, None]] = 3
+    count = rng.integers(1, 3001, size=F).astype(np.int32)
+    frags = PatFrags(start, length, count, codes, np.zeros(F, np.int16),
+                     ["chr1"])
+    bend = np.cumsum(rng.integers(1, 7, size=n // 3)) + 1
+    bstart = np.concatenate([[1], bend[:-1]])
+    return (frags, bstart.astype(np.int64), bend.astype(np.int64),
+            HOMOG_RANGES[ranges], int(m[3:]), clip == "inclusive")
+
+
+def _homog_cols(frags, bstart, bend, ranges, dev):
+    """The tensors homog_bins takes for one slab, on `dev`: (codes,
+    fstart, flen, fcount, bstart, bend, fi, bi, ranges)."""
+    import numpy as np
+    import torch
+
+    from wgbs_tools_tpu_torch.ops.frag_ops import overlap_pairs
+
+    fi, bi = overlap_pairs(frags, bstart, bend)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        frags.codes, frags.start.astype(np.int32),
+        frags.length.astype(np.int32), frags.count.astype(np.int32),
+        np.asarray(bstart, np.int64), np.asarray(bend, np.int64),
+        fi.astype(np.int32), bi.astype(np.int32),
+        np.asarray(ranges, np.float32))]
+
+
+def _pair_cols(frags, s, dev):
+    """The tensors pair_counts_add takes for one slab (window start s)."""
+    import numpy as np
+    import torch
+
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        (frags.start.astype(np.int64) - s).astype(np.int32),
+        frags.length.astype(np.int32), frags.count.astype(np.int32),
+        frags.codes)]
+
+
+def _edge_checks(dev):
+    """Each of the phase's kernels against its twin on the card, tolerance
+    0, on its hand-made edge batch. Returns a summary line."""
+    import torch
+
+    from wgbs_tools_tpu_torch.ops import frag_ops, pairs, reduceat
+
+    parts = []
+    for name in BLOCK_EDGE:
+        data, s, e = block_edge_batch(name)
+        bd = torch.from_numpy(reduceat.block_bounds(s, e, 1, data.shape[0]))
+        d = torch.from_numpy(data).to(dev)
+        got = _launch_checked(reduceat.block_sums, d, bd.to(dev))
+        want = reduceat.block_sums_plain(d, bd.to(dev))
+        if not torch.equal(got, want):
+            raise RuntimeError(f"block_sums != twin on edge case {name}")
+        if name == "whole_genome_255" and int(got[0, 1]) <= 2 ** 31:
+            raise RuntimeError("the whole-genome block's coverage does not "
+                               "pass 2^31")
+        parts.append(f"block_sums {name} ({len(s)} blocks, whole-genome "
+                     f"coverage {int(got[0, 1]):,})")
+    start, length, count, codes, n = pair_edge_batch()
+    cols = [torch.from_numpy(a).to(dev) for a in (start, length, count,
+                                                  codes)]
+    table = torch.zeros((n, 4), dtype=torch.int32, device=dev)
+    got = _launch_checked(pairs.pair_counts_add, table.clone(), *cols)
+    if not torch.equal(got, pairs.pair_counts_add_plain(table, *cols)):
+        raise RuntimeError("pair_counts != twin on its edge batch")
+    parts.append(f"pair_counts ({len(start):,} frags, {int(got.sum()):,} "
+                 "in the table)")
+    for name in HOMOG_EDGE:
+        frags, bstart, bend, ranges, m, inclusive = homog_edge_batch(name)
+        cols = _homog_cols(frags, bstart, bend, ranges, dev)
+        out = torch.zeros((len(bstart), len(ranges) - 1), dtype=torch.int64,
+                          device=dev)
+        got = _launch_checked(frag_ops.homog_bins, out.clone(), *cols, m,
+                              inclusive)
+        want = frag_ops.homog_bins_plain(out, *cols, m, inclusive)
+        if not torch.equal(got, want) or int(got.sum()) == 0:
+            raise RuntimeError(f"homog_bins != twin on edge case {name}")
+    parts.append(f"homog_bins on {len(HOMOG_EDGE)} cases "
+                 f"({', '.join(HOMOG_EDGE)})")
+    return "; ".join(parts)
+
+
+def _first_gen_slab(n_frags):
+    """The first SLAB fragments of the big pat, drawn again from its seed as
+    write_pat_gz drew them: (start, length, count, codes, hi), its
+    fragments' starts in [1, hi), the next slab's from hi on."""
+    import numpy as np
+
+    rng = np.random.default_rng(20260820)
+    n_slabs = (n_frags + SLAB - 1) // SLAB
+    span = N_SITES - MAX_LEN - 1
+    hi = 1 + span // n_slabs
+    return (*make_slab(rng, min(SLAB, n_frags), 1, hi, 3), hi)
+
+
+def _pairs_oracle(n_frags):
+    """(rows, int64 (rows, 4)): the pair counts of the first generated
+    slab in numpy (np.bincount of the flat ids) at the sites no later
+    fragment reaches."""
+    import numpy as np
+
+    start, length, count, codes, hi = _first_gen_slab(n_frags)
+    p = np.arange(1, MAX_LEN)[None, :]
+    pre, cur = codes[:, :-1].astype(np.int64), codes[:, 1:].astype(np.int64)
+    row = start[:, None].astype(np.int64) - 1 + p
+    ok = (p < length[:, None]) & (pre <= 1) & (cur <= 1) & (row < hi - 1)
+    flat = (row * 4 + 2 * pre + cur)[ok]
+    w = np.broadcast_to(count[:, None], ok.shape)[ok]
+    rows = hi - 1
+    return rows, np.bincount(flat, weights=w, minlength=rows * 4)[
+        :rows * 4].astype(np.int64).reshape(rows, 4)
+
+
+def _run_cli(what, fn, argv, kernel=None):
+    """fn(argv, timings=...) with the launch counters set to 0 just before
+    and read just after; `kernel` must launch. Returns (wall, timings,
+    launches)."""
+    timings = {}
+    _zero_launches()
+    t0 = time.perf_counter()
+    if fn(argv, timings=timings):
+        raise RuntimeError(f"{what} failed")
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    if kernel is not None:
+        _require_launches(f"phase 10 {what}", launches, (kernel,))
+    return wall, timings, launches
+
+
+def _stages(timings):
+    return ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
+
+
+def _block_sums_timing(beta, s, e, dev, regs):
+    """block_sums on its main-path launch (one beta over the blocks),
+    timed beside its bound, the twin and one index_add_ of the rows by
+    block id. Returns the kernel's results."""
+    import numpy as np
+    import torch
+
+    from wgbs_tools_tpu_torch.ops import reduceat
+
+    data = np.fromfile(beta, np.uint8).reshape(-1, 2)
+    bounds = reduceat.block_bounds(s, e, 1, data.shape[0])
+    d = torch.from_numpy(data).to(dev)
+    bd = torch.from_numpy(bounds).to(dev)
+    ms = _device_ms(lambda: reduceat.block_sums(d, bd), 50)
+    call_ms = _time_ms(lambda: reduceat.block_sums(d, bd), 50)
+    plain_ms = _time_ms(lambda: reduceat.block_sums_plain(d, bd), 5)
+    # the yardstick: a block id per site (B where no block covers it), the
+    # int64 rows and the accumulator made outside the timed window
+    B = bounds.shape[0]
+    ids = torch.full((data.shape[0],), B, dtype=torch.int64, device=dev)
+    lens = bd[:, 1] - bd[:, 0]
+    pos = torch.repeat_interleave(bd[:, 0], lens) + (
+        torch.arange(int(lens.sum()), device=dev)
+        - torch.repeat_interleave(torch.cumsum(lens, 0) - lens, lens))
+    ids[pos] = torch.repeat_interleave(torch.arange(B, device=dev), lens)
+    rows = d.to(torch.int64)
+    acc = torch.zeros((B + 1, 2), dtype=torch.int64, device=dev)
+    library_ms = _time_ms(lambda: acc.index_add_(0, ids, rows), 20)
+    acc.zero_().index_add_(0, ids, rows)
+    got = reduceat.block_sums(d, bd)
+    if not (torch.equal(acc[:B], got)
+            and torch.equal(got, reduceat.block_sums_plain(d, bd))):
+        raise RuntimeError("block_sums != its twin or index_add_ on the "
+                           "main path's launch")
+    n_bytes = data.nbytes + 2 * bounds.nbytes
+    bound_ms, bound_by = _bound(n_bytes, 0)
+    log(f"phase 10: block_sums on {op.basename(beta)} over {B:,} blocks "
+        f"(one launch, == twin and index_add_): {n_bytes:,} bytes, bound "
+        f"{bound_ms:.4f} ms; kernel {ms:.4f} ms on the card ({bound_ms / ms:.1%}"
+        f" of its bound), {call_ms:.4f} per call; twin {plain_ms:.4f} ms; "
+        f"index_add_ {library_ms:.4f} ms; registers {regs.get('block_sums')}")
+    return {"max_abs_err": 0, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "bytes": n_bytes, "blocks": B}
+
+
+def _pair_counts_timing(slab, dev, regs):
+    """pair_counts on its main-path launch (the big pat's first streamed
+    slab into the hg19 table), timed beside its bound (the slab's bytes and
+    each table entry it reaches read and written once) with its atomics,
+    and the twin's time. Returns the kernel's results."""
+    import numpy as np
+    import torch
+
+    from wgbs_tools_tpu_torch.ops import pairs
+
+    sel = slab.slice_sites(1, N_SITES + 1)
+    cols = _pair_cols(sel, 1, dev)
+    table = torch.zeros((N_SITES, 4), dtype=torch.int32, device=dev)
+    pairs.pair_counts_add(table, *cols)
+    twin = pairs.pair_counts_add_plain(
+        torch.zeros_like(table), *cols)
+    if not torch.equal(table, twin):
+        raise RuntimeError("pair_counts != twin on the first slab")
+    touched = int((table != 0).sum())
+    F, L = sel.codes.shape
+    p = np.arange(1, L)[None, :]
+    ok = ((p < sel.length[:, None]) & (sel.codes[:, :-1] <= 1)
+          & (sel.codes[:, 1:] <= 1))
+    atomics = int(ok.sum())
+    ms = _device_ms(lambda: pairs.pair_counts_add(table, *cols), 20)
+    call_ms = _time_ms(lambda: pairs.pair_counts_add(table, *cols), 20)
+    plain_ms = _time_ms(lambda: pairs.pair_counts_add_plain(table, *cols), 3)
+    # the codes each row's pairs read (its first min(length, L) calls; a
+    # row of one call reads none), the three columns, each table entry
+    # reached read and written once
+    last = np.minimum(sel.length.astype(np.int64), L)
+    code_bytes = int(last[last >= 2].sum())
+    n_bytes = code_bytes + 12 * F + 8 * touched
+    bound_ms, bound_by = _bound(n_bytes, 0)
+    del table, twin
+    log(f"phase 10: pair_counts on the big pat's first slab ({F:,} frags, "
+        f"L {L}): {n_bytes:,} bytes ({code_bytes:,} of codes, {touched:,} "
+        f"table entries reached), "
+        f"{atomics:,} atomics, bound {bound_ms:.4f} ms; kernel {ms:.4f} ms "
+        f"on the card ({bound_ms / ms:.1%} of its bound, "
+        f"{atomics / ms / 1e6:.3f} G atomics/s), {call_ms:.4f} per call; "
+        f"twin {plain_ms:.4f} ms; registers {regs.get('pair_counts')}")
+    return {"max_abs_err": 0, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "bytes": n_bytes, "atomics": atomics,
+            "frags": F}
+
+
+def _homog_bins_timing(slab, bstart, bend, dev, regs):
+    """homog_bins on its main-path launch (the big pat's first slab over
+    the blocks, the CLI's default ranges at rlen 3), timed beside its
+    bound and the twin's time. Returns the kernel's results."""
+    import torch
+
+    from wgbs_tools_tpu_torch.ops import frag_ops
+
+    ranges = HOMOG_RANGES["rlen3"]
+    cols = _homog_cols(slab, bstart, bend, ranges, dev)
+    out = torch.zeros((len(bstart), 3), dtype=torch.int64, device=dev)
+    got = frag_ops.homog_bins(out.clone(), *cols, 3, False)
+    if not torch.equal(got, frag_ops.homog_bins_plain(out.clone(), *cols, 3,
+                                                      False)):
+        raise RuntimeError("homog_bins != twin on the first slab")
+    cells = int((got != 0).sum())
+    P = cols[6].numel()
+    ms = _device_ms(lambda: frag_ops.homog_bins(out, *cols, 3, False), 20)
+    call_ms = _time_ms(lambda: frag_ops.homog_bins(out, *cols, 3, False), 20)
+    plain_ms = _time_ms(
+        lambda: frag_ops.homog_bins_plain(out, *cols, 3, False), 3)
+    # what the launch reaches: each pair's clip of its row's codes where
+    # the clip passes the length gate (the blocks do not overlap, so no
+    # call is read twice), the three columns of each fragment and the two
+    # bounds of each block that a pair names, the pairs, the edges, and
+    # each (block, bin) cell that gets a count read and written once
+    _, fstart, flen, _, bs, be, fi, bi, rng = cols
+    fs = fstart[fi].long()
+    clip = (torch.minimum(fs + flen[fi].long(), be[bi])
+            - torch.maximum(fs, bs[bi]))
+    code_bytes = int(clip[clip >= 3].sum())
+    nf = int(torch.unique(fi).numel())
+    nb = int(torch.unique(bi).numel())
+    n_bytes = (code_bytes + 12 * nf + 16 * nb + 8 * P
+               + rng.numel() * rng.element_size() + 16 * cells)
+    bound_ms, bound_by = _bound(n_bytes, 0)
+    log(f"phase 10: homog_bins on the big pat's first slab "
+        f"({slab.nr_frags:,} frags, {P:,} pairs, {len(bstart):,} blocks): "
+        f"{n_bytes:,} bytes ({code_bytes:,} of codes in the clips, {nf:,} "
+        f"frags and {nb:,} blocks reached), bound {bound_ms:.4f} ms; "
+        f"kernel {ms:.4f} ms on "
+        f"the card ({bound_ms / ms:.1%} of its bound), {call_ms:.4f} per "
+        f"call; twin {plain_ms:.4f} ms; registers {regs.get('homog_bins')}")
+    del fs, clip
+    return {"max_abs_err": 0, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "bytes": n_bytes, "pairs": P}
+
+
+def _non_nice_bed(work, s, e):
+    """A copy of the blocks with every 10th block duplicated and shifted
+    into its neighbour (so beta_to_blocks takes JAX's per-block path).
+    Returns (path, starts, ends)."""
+    import numpy as np
+
+    from wgbs_tools_tpu_torch.formats.blocks import is_block_file_nice
+
+    idx = np.arange(0, s.shape[0], 10)
+    shift = (e[idx] - s[idx]) // 2 + 1
+    s2 = np.insert(s, idx + 1, s[idx] + shift)
+    e2 = np.insert(e, idx + 1, np.minimum(e[idx] + shift, N_SITES + 1))
+    if is_block_file_nice({"startCpG": s2, "endCpG": e2})[0]:
+        raise RuntimeError("the non-nice blocks came out nice")
+    path = op.join(work, "non_nice.bed")
+    with open(path, "w") as f:
+        f.write("".join(f"chr1\t{a}\t{b}\t{a}\t{b}\n"
+                        for a, b in zip(s2.tolist(), e2.tolist())))
+    return path, s2, e2
+
+
+def _blocks_oracle(beta, s, e, lbeta):
+    """The .bin / .lbeta bytes of one beta over [s, e) blocks, from numpy:
+    an int64 prefix sum, P[e - 1] - P[s - 1], then the port's saturation."""
+    import numpy as np
+
+    from wgbs_tools_tpu_torch.formats.beta import trim_to_uint
+
+    data = np.fromfile(beta, np.uint8).reshape(-1, 2).astype(np.int64)
+    n = data.shape[0]
+    P = np.zeros((n + 1, 2), np.int64)
+    np.cumsum(data, axis=0, out=P[1:])
+    sc = np.clip(s - 1, 0, n)
+    ec = np.maximum(np.clip(e - 1, 0, n), sc)
+    return trim_to_uint(P[ec] - P[sc], lbeta).tobytes()
+
+
+def phase_blocks(work, big, n_frags, seg_out, regs):
+    """Phase 10: beta_to_blocks, beta_to_table, pat2pairs and homog through
+    the port's CLI on cuda at hg19 size, each with the launch counters set
+    to 0 just before and read just after (its kernel must launch) and its
+    stage seconds; each output against its oracle; the sharded block sums
+    against one device's; the three kernels against their twins on the
+    main path and on hand-made edges, and timed. Returns ({kernel:
+    results}, {kernel: (path, launches)}, summary line)."""
+    import numpy as np
+    import torch
+
+    from wgbs_tools_tpu_torch import _kernels
+    from wgbs_tools_tpu_torch.cli import cmd_beta, cmd_homog, cmd_misc
+    from wgbs_tools_tpu_torch.formats.pat import iter_pat
+    from wgbs_tools_tpu_torch.ops import pairs, reduceat
+    from wgbs_tools_tpu_torch.parallel.mesh import shard_devices
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    out = op.join(work, "blocks_out")
+    os.makedirs(out)
+    bed = seg_out["exact_bed"]
+    s, e = _blocks_of(bed)
+    betas = [op.join(work, "gpu", "big.beta")] + list(seg_out["betas"])
+    lines, launches, res = [], {}, {}
+
+    # beta_to_blocks: the 4 betas, one of them with --lbeta, then a non-nice
+    # copy of the blocks; every file == the numpy oracle's bytes
+    wall, tm, ln = _run_cli("beta_to_blocks", cmd_beta.main_beta_to_blocks,
+                            betas + ["-b", bed, "-o", out, "--device",
+                                     "cuda"], "block_sums")
+    launches["block_sums"] = ("phase 10 beta_to_blocks CLI", ln)
+    lwall, ltm, _ = _run_cli("beta_to_blocks --lbeta",
+                             cmd_beta.main_beta_to_blocks,
+                             betas[:1] + ["-b", bed, "-o", out, "--lbeta",
+                                          "--device", "cuda"],
+                             "block_sums")
+    nn_bed, s2, e2 = _non_nice_bed(work, s, e)
+    nn_out = op.join(work, "blocks_non_nice")
+    os.makedirs(nn_out)
+    nwall, ntm, _ = _run_cli("beta_to_blocks (non-nice)",
+                             cmd_beta.main_beta_to_blocks,
+                             betas + ["-b", nn_bed, "-o", nn_out,
+                                      "--device", "cuda"],
+                             "block_sums")
+    t0 = time.perf_counter()
+    for beta in betas:
+        name = op.splitext(op.basename(beta))[0]
+        checks = [(op.join(out, name + ".bin"), s, e, False),
+                  (op.join(nn_out, name + ".bin"), s2, e2, False)]
+        if beta == betas[0]:
+            checks.append((op.join(out, name + ".lbeta"), s, e, True))
+        for path, bs, be, lb in checks:
+            with open(path, "rb") as f:
+                if f.read() != _blocks_oracle(beta, bs, be, lb):
+                    raise RuntimeError(f"{path} != the numpy oracle")
+    line = (f"beta_to_blocks on cuda: {len(betas)} betas over {len(s):,} "
+            f"blocks {wall:.3f} s ({_stages(tm)}), block_sums launches "
+            f"{ln['block_sums']}; --lbeta on 1 {lwall:.3f} s; non-nice "
+            f"({len(s2):,} blocks) {nwall:.3f} s ({_stages(ntm)}); every "
+            f".bin / .lbeta == the numpy oracle (checked in "
+            f"{time.perf_counter() - t0:.3f} s)")
+    log("phase 10: " + line)
+    lines.append(line)
+
+    # the block sums over 4 stand-in shards == one device's
+    data = np.fromfile(betas[0], np.uint8).reshape(-1, 2)
+    t0 = time.perf_counter()
+    one = reduceat.reduce_data_to_blocks(data, s2, e2, device=dev)
+    t1 = time.perf_counter()
+    four = reduceat.reduce_data_to_blocks(
+        data, s2, e2, device=shard_devices("cuda", n_shards=4))
+    t2 = time.perf_counter()
+    if not np.array_equal(one, four):
+        raise RuntimeError("the block sums over 4 stand-in shards != one "
+                           "device's")
+    line = (f"reduce_data_to_blocks over 4 stand-in shards == one device's "
+            f"({len(s2):,} non-nice blocks of big.beta; {t2 - t1:.3f} s "
+            f"against {t1 - t0:.3f} s)")
+    log("phase 10: " + line)
+    lines.append(line)
+    del data
+    res["block_sums"] = _block_sums_timing(betas[0], s, e, dev, regs)
+
+    # beta_to_table over phase 8's betas with a groups file: cuda == cpu
+    groups = op.join(work, "groups.csv")
+    names = [op.splitext(op.basename(b))[0] for b in seg_out["betas"]]
+    with open(groups, "w") as f:
+        f.write("name,group\n" + "".join(
+            f"{n},{'g1' if k < 2 else 'g2'}\n" for k, n in enumerate(names)))
+    tables = []
+    for device in ("cuda", "cpu"):
+        table = op.join(work, f"table_{device}.tsv")
+        twall, ttm, tln = _run_cli(
+            f"beta_to_table --device {device}", cmd_beta.main_beta_to_table,
+            [bed, "--betas"] + list(seg_out["betas"]) + ["-g", groups, "-o",
+                                                          table,
+                                                          "--device", device],
+            "block_sums" if device == "cuda" else None)
+        tables.append((table, twall, ttm, tln))
+    if not _same(tables[0][0], tables[1][0]):
+        raise RuntimeError("beta_to_table on cuda != --device cpu")
+    line = (f"beta_to_table on cuda: {len(names)} betas, 2 groups, "
+            f"{len(s):,} blocks {tables[0][1]:.3f} s ({_stages(tables[0][2])}"
+            f"), block_sums launches {tables[0][3]['block_sums']}; --device "
+            f"cpu {tables[1][1]:.3f} s; the same bytes "
+            f"({op.getsize(tables[0][0]):,})")
+    log("phase 10: " + line)
+    lines.append(line)
+
+    # pat2pairs on the big pat: the kernel's table == the twin's on the card
+    # over the whole pat, and == numpy on the first generated slab's sites
+    torch.cuda.reset_peak_memory_stats(dev)
+    pwall, ptm, pln = _run_cli("pat2pairs", cmd_misc.main_pat2pairs,
+                               [big, "-o", out, "--device", "cuda"],
+                               "pair_counts")
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches["pair_counts"] = ("phase 10 pat2pairs CLI", pln)
+    got = np.fromfile(op.join(out, "big.pairs"), np.uint32).view(
+        np.int32).reshape(-1, 4)
+    if got.shape[0] != N_SITES:
+        raise RuntimeError(f"big.pairs has {got.shape[0]:,} rows")
+    t0 = time.perf_counter()
+    twin = torch.zeros((N_SITES, 4), dtype=torch.int32, device=dev)
+    for frags in iter_pat(big):
+        pairs.pair_counts_add_plain(
+            twin, *_pair_cols(frags.slice_sites(1, N_SITES + 1), 1, dev))
+    same = np.array_equal(twin.cpu().numpy(), got)
+    twin_s = time.perf_counter() - t0
+    del twin
+    torch.cuda.empty_cache()
+    if not same:
+        raise RuntimeError("pat2pairs' table != the twin's on the card")
+    rows, oracle = _pairs_oracle(n_frags)
+    if not np.array_equal(got[:rows], oracle):
+        raise RuntimeError("pat2pairs' table != numpy on the first slab's "
+                           "sites")
+    line = (f"pat2pairs on cuda: {n_frags:,} frags {pwall:.3f} s "
+            f"({_stages(ptm)}), pair_counts launches {pln['pair_counts']}, "
+            f"device peak {peak / 1e9:.3f} GB; table == the twin's on the "
+            f"card over the whole pat (tolerance 0; the twin's pass "
+            f"{twin_s:.3f} s) and == numpy's bincount on the first "
+            f"{rows:,} sites; {int(got.astype(np.int64).sum()):,} pairs")
+    log("phase 10: " + line)
+    lines.append(line)
+
+    # homog on the big pat over the blocks, text and --binary: cuda == cpu
+    hwalls = {}
+    for form in ("text", "binary"):
+        outs = []
+        for device in ("cuda", "cpu"):
+            d = op.join(work, f"homog_{form}_{device}")
+            hwall, htm, hln = _run_cli(
+                f"homog {form} --device {device}", cmd_homog.main,
+                [big, "-b", bed, "-o", d, "--device", device]
+                + (["--binary"] if form == "binary" else []),
+                "homog_bins" if device == "cuda" else None)
+            hwalls[(form, device)] = (hwall, htm)
+            if (form, device) == ("text", "cuda"):
+                launches["homog_bins"] = ("phase 10 homog CLI", hln)
+            outs.append(op.join(d, "big.uxm" + ("" if form == "binary"
+                                                else ".bed.gz")))
+        if not _same(*outs):
+            raise RuntimeError(f"homog {form}: cuda != --device cpu")
+    line = "homog on cuda over the blocks: " + "; ".join(
+        f"{form} {hwalls[(form, 'cuda')][0]:.3f} s "
+        f"({_stages(hwalls[(form, 'cuda')][1])}) against --device cpu "
+        f"{hwalls[(form, 'cpu')][0]:.3f} s" for form in ("text", "binary")) \
+        + (f", homog_bins launches "
+           f"{launches['homog_bins'][1]['homog_bins']}; the same bytes")
+    log("phase 10: " + line)
+    lines.append(line)
+
+    # the kernels on the main path's first slab, timed, then the edges
+    slab = next(iter_pat(big))
+    res["pair_counts"] = _pair_counts_timing(slab, dev, regs)
+    torch.cuda.empty_cache()
+    res["homog_bins"] = _homog_bins_timing(slab, s, e, dev, regs)
+    del slab
+    torch.cuda.empty_cache()
+    line = "edges == twins (tolerance 0): " + _edge_checks(dev)
+    log("phase 10: " + line)
+    lines.append(line)
+    torch.cuda.empty_cache()
+    _, spills = _ptxas_registers(_kernels.BUILD_LOG)
+    for name in res:
+        res[name]["spill_bytes"] = spills.get(name)
+    log("phase 10: ptxas registers " + ", ".join(
+        f"{name} {regs.get(name)}" for name in res) + "; spill bytes "
+        + ", ".join(f"{name} {spills.get(name)}" for name in res))
+    log(f"phase 10: took {time.perf_counter() - t_phase:.3f} s")
+    return res, launches, "; ".join(lines)
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--frags", type=int, default=20_000_000,
@@ -2885,6 +3506,9 @@ def main():
                                                             seg_out)
         kernels.update(par_kernels)
         seg_launches.update(par_launches)
+        blk_kernels, blk_launches, e2e_blk = phase_blocks(
+            work, big, args.frags, seg_out, regs)
+        kernels.update(blk_kernels)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if torch.cuda.current_device() != 0:
@@ -2902,7 +3526,8 @@ def main():
                 "segment_exact_dp": ("phase 8 segment --mode exact CLI "
                                      "on cuda",
                                      seg_launches["segment_exact_dp"]),
-                "dp_scan": ("phase 9 analysis step", seg_launches["dp_scan"])}
+                "dp_scan": ("phase 9 analysis step", seg_launches["dp_scan"]),
+                **blk_launches}
     # a summary at the end, which a log that keeps only its tail still shows
     print(smi, flush=True)
     log("end to end: " + e2e)
@@ -2911,6 +3536,7 @@ def main():
     log("end to end: " + e2e_forms)
     log("end to end: " + e2e_seg)
     log("end to end: " + e2e_par)
+    log("end to end: " + e2e_blk)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name][1][name],

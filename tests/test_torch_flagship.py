@@ -77,4 +77,4 @@ def test_dryrun_multichip_4(capsys):
     assert "[dryrun_multichip] ok: mesh={'samples': 2, 'sites': 2} " \
         "counts=(1024, 2) total_cov=" in out
     assert "seg_windows=5 " in out and "multiproc_beta_ok frags=7495" in out
-    assert "reduce_data_to_blocks: not ported yet" in out
+    assert "reduce_blocks=2047 reduce_cov=" in out and "not ported" not in out

@@ -311,6 +311,64 @@ def test_utils_equal_jax(tmp_path, capsys):
         putils.validate_single_file(str(out), ".pat.gz")
 
 
+def test_pretty_name_and_mkdirp_equal_jax(tmp_path):
+    from wgbs_tools_tpu.utils import mkdirp as jax_mkdirp
+    from wgbs_tools_tpu.utils import pretty_name as jax_pretty_name
+
+    for name in ("a.pat.gz", "x/y.beta", "/p/q/b.lbeta", "c.tar.gz", "plain",
+                 "d.uxm", "e.uxm.bed.gz"):
+        assert putils.pretty_name(name) == jax_pretty_name(name)
+    for mk, who in ((putils.mkdirp, "p"), (jax_mkdirp, "j")):
+        d = str(tmp_path / who / "a" / "b")
+        assert mk(d) == d and op.isdir(d)
+        assert mk(d) == d  # exists already
+        assert mk("") == "" and mk(None) is None
+
+
+def test_beta2vec_equals_jax():
+    from wgbs_tools_tpu.formats.beta import beta2vec as jax_beta2vec
+    from wgbs_tools_tpu_torch.formats.beta import beta2vec
+
+    rng = np.random.default_rng(14)
+    cov = rng.integers(0, 12, size=3000)
+    data = np.stack([rng.integers(0, cov + 1), cov], axis=1)
+    for min_cov in (1, 4):
+        for na in (np.nan, -1.0):
+            got = beta2vec(data, min_cov=min_cov, na=na)
+            want = jax_beta2vec(data, min_cov=min_cov, na=na)
+            assert got.dtype == want.dtype
+            assert np.array_equal(got, want, equal_nan=True)
+
+
+@pytest.mark.parametrize("case", ["nice", "na", "empty_block", "unsorted",
+                                  "ends_unsorted", "duplicate", "overlap",
+                                  "one"])
+def test_is_block_file_nice_equals_jax(case):
+    from wgbs_tools_tpu.formats.blocks import is_block_file_nice as jax_nice
+    from wgbs_tools_tpu_torch.formats.blocks import is_block_file_nice
+
+    s = np.arange(1, 400, 4, dtype=np.int64)
+    e = s + 3
+    if case == "na":
+        s[7] = e[7] = -1
+    elif case == "empty_block":
+        e[3] = s[3]
+    elif case == "unsorted":
+        s[[4, 5]] = s[[5, 4]]
+    elif case == "ends_unsorted":
+        e[10] = e[11] + 1
+    elif case == "duplicate":
+        s[6], e[6] = s[5], e[5]
+    elif case == "overlap":
+        e[8] = s[9] + 1
+    elif case == "one":
+        s, e = s[:1], e[:1]
+    blocks = {"startCpG": s, "endCpG": e}
+    got = is_block_file_nice(blocks)
+    assert got == jax_nice(blocks)
+    assert got[0] == (case in ("nice", "one"))
+
+
 # ---------------------------------------------------------------------------
 # the host copies that segment reads: file checks, beta IO, BGZF writer and
 # compressor, blocks bed, .tbi, CpGIndex, GenomicRegion

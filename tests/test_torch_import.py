@@ -47,7 +47,7 @@ def test_port_imports_without_jax():
     assert r.returncode == 0, r.stderr
     # every module of the port was imported, not an empty walk
     names = set(r.stdout.split())
-    assert len(names) >= 34
+    assert len(names) >= 41
     assert {"wgbs_tools_tpu_torch.parallel.mesh",
             "wgbs_tools_tpu_torch.parallel.sharded",
             "wgbs_tools_tpu_torch.parallel.multihost",
@@ -69,7 +69,14 @@ def test_port_imports_without_jax():
             "wgbs_tools_tpu_torch.models.segment_exact_device",
             "wgbs_tools_tpu_torch.ops.segment_exact",
             "wgbs_tools_tpu_torch.ops.dp_scan",
-            "wgbs_tools_tpu_torch.flagship"} <= names
+            "wgbs_tools_tpu_torch.flagship",
+            "wgbs_tools_tpu_torch.ops.reduceat",
+            "wgbs_tools_tpu_torch.ops.pairs",
+            "wgbs_tools_tpu_torch.ops.frag_ops",
+            "wgbs_tools_tpu_torch.pipeline.pat_stream",
+            "wgbs_tools_tpu_torch.cli.cmd_beta",
+            "wgbs_tools_tpu_torch.cli.cmd_misc",
+            "wgbs_tools_tpu_torch.cli.cmd_homog"} <= names
 
 
 def _imported_modules(path):
@@ -178,6 +185,30 @@ def test_dp_scan_refuses_other_devices():
     with pytest.raises(ValueError, match="CUDA"):
         dp_scan(torch.zeros((2, 100, 64), device="meta"), 64)
     assert dp_scan.launches == 0
+
+
+def test_block_and_read_wrappers_refuse_other_devices():
+    """block_sums, pair_counts_add and homog_bins, like the others: tensors
+    on a device other than the CPU go to the launcher, which raises."""
+    from wgbs_tools_tpu_torch.ops.frag_ops import homog_bins
+    from wgbs_tools_tpu_torch.ops.pairs import pair_counts_add
+    from wgbs_tools_tpu_torch.ops.reduceat import block_sums
+
+    def z(*shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device="meta")
+
+    with pytest.raises(ValueError, match="CUDA"):
+        block_sums(z(100, 2, dtype=torch.uint8), z(5, 2, dtype=torch.int64))
+    with pytest.raises(ValueError, match="CUDA"):
+        pair_counts_add(z(100, 4), z(7), z(7), z(7), z(7, 5,
+                                                       dtype=torch.uint8))
+    with pytest.raises(ValueError, match="CUDA"):
+        homog_bins(z(5, 3, dtype=torch.int64), z(7, 5, dtype=torch.uint8),
+                   z(7), z(7), z(7), z(5, dtype=torch.int64),
+                   z(5, dtype=torch.int64), z(9), z(9),
+                   z(4, dtype=torch.float32), 3, False)
+    assert block_sums.launches == 0 and pair_counts_add.launches == 0
+    assert homog_bins.launches == 0
 
 
 def test_new_kernel_wrappers_refuse_other_devices():

@@ -123,7 +123,15 @@ def _bind(lib):
             # Wb, max_bp, tbl_size)
             ("segment_exact_dp", 6, 6),
             # the analysis step's serial DP: (C, ks, scratch), (nb, n, W)
-            ("dp_scan", 3, 3)):
+            ("dp_scan", 3, 3),
+            # block sums: (data, bounds, out), (B, itemsize)
+            ("block_sums", 3, 2),
+            # pair counts: (start_rel, length, count, codes, table), (F, L,
+            # n)
+            ("pair_counts", 5, 3),
+            # homog bins: (codes, fstart, flen, fcount, bstart, bend, fi,
+            # bi, ranges, out), (P, L, nbins, min_cpgs, inclusive)
+            ("homog_bins", 10, 5)):
         fn = getattr(lib, name)
         fn.argtypes = [vp] * n_ptr + [i64] * n_int + [vp]
         fn.restype = i32

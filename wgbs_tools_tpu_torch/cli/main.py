@@ -4,14 +4,27 @@
         [--procs N]
     python -m wgbs_tools_tpu_torch segment --betas a.beta ... [-o blocks.bed]
         [--mode exact|fast] [--device cpu]
+    python -m wgbs_tools_tpu_torch beta_to_blocks a.beta ... -b blocks.bed
+        [-o out/] [--lbeta] [--bedGraph] [--device cpu]
+    python -m wgbs_tools_tpu_torch beta_to_table blocks.bed --betas a.beta
+        ... [-g groups.csv] [-o table.tsv] [--device cpu]
+    python -m wgbs_tools_tpu_torch pat2pairs x.pat.gz [-o out/]
+        [--device cpu]
+    python -m wgbs_tools_tpu_torch homog x.pat.gz -b blocks.bed [-o out/ |
+        -p prefix] [--binary] [--device cpu]
 
-Flags match wgbs_tools_tpu's pat2beta (cli/cmd_pat.py::main_pat2beta) and
-segment (cli/cmd_segment.py), plus --device. The device defaults to cuda
+Flags match wgbs_tools_tpu's pat2beta (cli/cmd_pat.py::main_pat2beta),
+segment (cli/cmd_segment.py), beta_to_blocks and beta_to_table
+(cli/cmd_beta.py), pat2pairs (cli/cmd_misc.py) and homog
+(cli/cmd_homog.py), plus --device. The device defaults to cuda
 and raises when CUDA is absent: the host path runs only when asked for.
 With more than one visible card pat2beta's table is sharded over the
 cards; --procs N (N > 1) runs N worker processes, one site range each
 (parallel/multihost.py). segment runs both its modes on --device too;
 its exact mode's --device cpu is the host DP (cli/cmd_segment.py).
+beta_to_blocks and beta_to_table sum blocks in the block_sums kernel,
+pat2pairs counts pairs in pair_counts and homog bins reads in homog_bins;
+--device cpu runs each kernel's plain twin.
 """
 
 import argparse
@@ -23,6 +36,9 @@ from ..device import resolve_device
 from ..genome.refdir import Genome
 from ..parallel.multihost import run_pat2beta_multiprocess
 from ..pipeline.pat2beta import pat2beta
+from .cmd_beta import main_beta_to_blocks, main_beta_to_table
+from .cmd_homog import main as main_homog
+from .cmd_misc import main_pat2pairs
 from ..utils import (
     IllegalArgumentError,
     delete_or_skip,
@@ -90,14 +106,18 @@ def add_gr_args(parser, bed_file=False):
     return parser
 
 
-COMMANDS = {"pat2beta": main_pat2beta, "segment": main_segment}
+COMMANDS = {"pat2beta": main_pat2beta, "segment": main_segment,
+            "beta_to_blocks": main_beta_to_blocks,
+            "beta_to_table": main_beta_to_table,
+            "pat2pairs": main_pat2pairs, "homog": main_homog}
 
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     parser = argparse.ArgumentParser(
         prog="wgbstools-torch",
-        description="wgbs_tools on PyTorch + CUDA (pat2beta, segment)")
+        description="wgbs_tools on PyTorch + CUDA (" + ", ".join(COMMANDS)
+        + ")")
     parser.add_argument("command", nargs="?", help="|".join(COMMANDS))
     parser.add_argument("--version", action="store_true")
     args, _ = parser.parse_known_args(argv[:1])

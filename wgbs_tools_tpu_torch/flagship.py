@@ -94,14 +94,16 @@ def dryrun_multichip(n_devices, device="cuda"):
     """Run ONE sharded analysis step on an n_devices mesh, then the
     parallel layer's other paths, each checked as JAX's dry run checks it:
     segment_windows_sharded over n_devices + 1 windows, sharded pat2beta
-    against one device, fast segment_ranges, ShardedPileupV3 against one
-    device's pileup, and 2-process pat2beta against one process. Prints
-    one summary line. JAX's dry run also checks reduce_data_to_blocks,
-    which the port does not have yet (ROADMAP.md queue 1 item 7)."""
-    from .formats.beta import save_beta
+    against one device, fast segment_ranges, reduce_data_to_blocks over
+    n_devices site shards (blocks of 64 sites: the coverage column sums to
+    the beta's, and the shards' sums equal one device's), ShardedPileupV3
+    against one device's pileup, and 2-process pat2beta against one
+    process. Prints one summary line."""
+    from .formats.beta import load_beta, save_beta
     from .formats.pat import PatFrags
     from .models.segment import SegmentConfig, segment_ranges
     from .ops.pileup import pileup_frags
+    from .ops.reduceat import reduce_data_to_blocks
     from .parallel.mesh import make_mesh, shard_devices
     from .parallel.multihost import run_pat2beta_multiprocess
     from .parallel.sharded import (AnalysisStep, ShardedPileupV3,
@@ -185,6 +187,15 @@ def dryrun_multichip(n_devices, device="cuda"):
                                 [(1, n_cli + 1)], _G.index, cfg)
         assert len(st) > 0 and (en > st).all()
 
+        # the block sums over the shards (JAX's sharded segment_sum)
+        data = load_beta(op.join(td, "s0.beta"))
+        bs = np.arange(1, n_cli - 64, 64, dtype=np.int64)
+        red = reduce_data_to_blocks(data, bs, bs + 64, device=shards)
+        assert int(red[:, 1].sum()) == int(
+            data[: int(bs[-1] + 63), 1].sum())
+        assert np.array_equal(red, reduce_data_to_blocks(
+            data, bs, bs + 64, device=dev)), "sharded block sums != single"
+
     # the v3 kernels per site shard (pat2beta's sharded path) against one
     # device's v3 pileup, bit for bit
     accv3 = ShardedPileupV3(shards, (1, n_cli + 1))
@@ -210,8 +221,8 @@ def dryrun_multichip(n_devices, device="cuda"):
         f"[dryrun_multichip] ok: mesh={dict(mesh.shape)} "
         f"counts={tuple(counts.shape)} total_cov={int(total_cov)} "
         f"seg_windows={nw} cli_blocks={len(st)} cli_beta_bytes={len(b1)} "
-        f"multiproc_beta_ok frags={mh_frags} (reduce_data_to_blocks: not "
-        "ported yet, ROADMAP.md queue 1 item 7)", flush=True)
+        f"reduce_blocks={red.shape[0]} reduce_cov={int(red[:, 1].sum())} "
+        f"multiproc_beta_ok frags={mh_frags}", flush=True)
 
 
 def main(argv=None):

@@ -4,7 +4,8 @@ Format (ref: docs/beta_format.md): a raw binary (NR_SITES x 2) matrix of
 (#meth, #coverage) per CpG site, uint8 for .beta/.bin, uint16 for .lbeta.
 Random access by seeking to (site-1)*2*itemsize (ref: utils_wgbs.py:307-330).
 The port's copy of wgbs_tools_tpu/formats/beta.py's `beta_dtype`,
-`load_beta`, `save_beta`, `trim_to_uint` and `beta_sanity_check`.
+`load_beta`, `save_beta`, `trim_to_uint`, `beta2vec` and
+`beta_sanity_check`.
 """
 
 import os.path as op
@@ -64,6 +65,17 @@ def trim_to_uint(data, lbeta=False):
         ).astype(np.int64)
         data[big, 1] = max_val
     return data.astype(dtype)
+
+
+def beta2vec(data, min_cov=1, na=np.nan):
+    """Per-site methylation fraction with NaN below min coverage
+    (ref: utils_wgbs.py:270-274)."""
+    data = np.asarray(data, dtype=np.float64)
+    cond = data[:, 1] >= min_cov
+    with np.errstate(divide="ignore", invalid="ignore"):
+        vec = data[:, 0] / data[:, 1]
+    vec[~cond] = na
+    return vec
 
 
 def beta_sanity_check(path, nr_sites):

@@ -2,7 +2,8 @@
 
 ref: docs/bed_format.md, src/python/beta_to_blocks.py:23-91. The port's
 copy of wgbs_tools_tpu/formats/blocks.py's `load_blocks`, `index_bed`,
-`write_blocks` and `sites_blocks`, with the same names. `index_bed`
+`is_block_file_nice`, `write_blocks` and `sites_blocks`, with the same
+names. `index_bed`
 compresses through the port's host library (native.py), which raises
 when it cannot be built: there is no Python compressor to fall back to.
 """
@@ -140,6 +141,26 @@ def index_bed(path, level=6):
               np.asarray(ends, dtype=np.int64),
               voffs_all[keep], voffs_all[keep + 1])
     return out_path
+
+
+def is_block_file_nice(blocks):
+    """Sorted / non-empty / non-overlapping validation
+    (exact rule set of ref: beta_to_blocks.py:23-47)."""
+    s, e = blocks["startCpG"], blocks["endCpG"]
+    if (s < 0).any() or (e < 0).any():
+        return False, "Some blocks are empty (NA)"
+    if not (e - s > 0).all():
+        return False, "Some blocks are empty (startCpG==endCpG)"
+    if not (np.diff(s) >= 0).all():
+        return False, "startCpG is not monotonically increasing"
+    if not (np.diff(e) >= 0).all():
+        return False, "endCpG is not monotonically increasing"
+    stacked = np.stack([s, e])
+    if np.unique(stacked, axis=1).shape[1] != s.shape[0]:
+        return False, "Some blocks are duplicated"
+    if s.shape[0] > 1 and not (s[1:] - e[:-1] >= 0).all():
+        return False, "Some blocks overlap"
+    return True, ""
 
 
 def write_blocks(blocks, path):

@@ -1,0 +1,212 @@
+"""Fragment-level operations of homog: per-block U/X/M read counting.
+
+The port's copy of what homog calls from wgbs_tools_tpu/ops/frag_ops.py:
+`overlap_pairs` (host numpy, :72) and `homog_counts` (:125), whose
+`device` takes the place of JAX's `backend`. The (read, block) overlap
+pairs are found on the host; each pair's clip, call counts, gates, bin
+and add run in `homog_bins`: CUDA tensors launch the kernel
+(csrc/homog.cu, one thread a pair, the slab's codes read through the
+pairs' fragment ids), CPU tensors take its twin `homog_bins_plain`.
+`homog_bins.launches` counts the kernel's launches. `HomogBins` keeps
+the (B, nbins) int64 counts on the device across a pat's slabs and
+fetches them once.
+
+Semantics (ref: homog.cpp:154-196): H counts as C; a pair counts when the
+clip's length (the whole read's with `inclusive`) and nrC + nrT are both
+>= min_cpgs; its bin b has ranges[b] <= nrC / (nrC + nrT) < ranges[b+1]
+(an IEEE float32 division, numpy's searchsorted side="right"), the last
+bin right-inclusive.
+"""
+
+import numpy as np
+import torch
+
+from .. import _kernels
+from ..device import resolve_device, timed
+from ..formats.pat import CODE_C, CODE_H, CODE_T, PatFrags
+from ..utils import IllegalArgumentError
+
+TWIN_PAIRS = 1 << 22  # pairs per slice of the twin's (pairs, L) masks
+
+
+def overlap_pairs(frags: PatFrags, bstart, bend):
+    """(frag_idx, block_idx) pairs for every fragment/block overlap.
+
+    Blocks must be sorted by startCpG (ends may be non-monotonic; we use a
+    running-max bound like the reference's deque scan, homog.cpp:246-258).
+    """
+    bstart = np.asarray(bstart, dtype=np.int64)
+    bend = np.asarray(bend, dtype=np.int64)
+    s = frags.start.astype(np.int64)
+    e = s + frags.length
+    be_max = np.maximum.accumulate(bend)
+    lo = np.searchsorted(be_max, s, side="right")  # first block with end > start
+    hi = np.searchsorted(bstart, e, side="left")  # blocks starting before read end
+    counts = np.maximum(hi - lo, 0)
+    fi = np.repeat(np.arange(frags.nr_frags), counts)
+    offs = np.repeat(lo - np.concatenate([[0], np.cumsum(counts)[:-1]]), counts)
+    bi = np.arange(fi.shape[0], dtype=np.int64) + offs
+    # exact overlap check (running-max bound may over-include)
+    ok = (bstart[bi] < e[fi]) & (bend[bi] > s[fi])
+    return fi[ok], bi[ok]
+
+
+def _check_ranges(ranges):
+    """ranges as float32, as JAX casts them; raises unless they start at
+    0, end at 1 and increase."""
+    ranges = np.asarray(ranges, dtype=np.float32)
+    if ranges[0] != 0 or ranges[-1] != 1 or (np.diff(ranges) <= 0).any():
+        raise IllegalArgumentError("Invalid range - must start with 0, end with 1")
+    return ranges
+
+
+def _check(out, codes, fstart, flen, fcount, bstart, bend, fi, bi, ranges):
+    F, P = codes.shape[0], fi.shape[0]
+    B, nbins = out.shape
+    want = ((out, torch.int64, (B, nbins)),
+            (fstart, torch.int32, (F,)), (flen, torch.int32, (F,)),
+            (fcount, torch.int32, (F,)), (bstart, torch.int64, (B,)),
+            (bend, torch.int64, (B,)), (fi, torch.int32, (P,)),
+            (bi, torch.int32, (P,)),
+            (ranges, torch.float32, (nbins + 1,)))
+    if codes.dim() != 2 or codes.dtype != torch.uint8:
+        raise ValueError(f"codes: got {codes.dtype} {tuple(codes.shape)}, "
+                         "want torch.uint8 (F, L)")
+    for t, dtype, shape in want:
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"got {t.dtype} {tuple(t.shape)}, want {dtype} "
+                             f"{tuple(shape)}")
+    for t in (codes,) + tuple(w[0] for w in want):
+        if not t.is_contiguous() or t.device != out.device:
+            raise ValueError(f"every tensor must be contiguous on "
+                             f"{out.device} (one is on {t.device})")
+    if nbins < 1:
+        raise ValueError(f"nbins={nbins} must be >= 1")
+
+
+def homog_bins(out, codes, fstart, flen, fcount, bstart, bend, fi, bi,
+               ranges, min_cpgs, inclusive):
+    """out (B, nbins) int64 += the binned counts of the overlap pairs (fi,
+    bi) of one slab (codes (F, L) uint8; fstart, flen, fcount int32 (F,);
+    bstart, bend int64 (B,); fi, bi int32 (P,); ranges float32
+    (nbins + 1,)), in place. CUDA tensors launch the kernel; CPU tensors
+    take homog_bins_plain. Returns out."""
+    _check(out, codes, fstart, flen, fcount, bstart, bend, fi, bi, ranges)
+    if out.device.type == "cpu":
+        return homog_bins_plain(out, codes, fstart, flen, fcount, bstart,
+                                bend, fi, bi, ranges, min_cpgs, inclusive)
+    P = fi.shape[0]
+    if P == 0:
+        return out
+    _kernels.launch("homog_bins", out.device, codes.data_ptr(),
+                    fstart.data_ptr(), flen.data_ptr(), fcount.data_ptr(),
+                    bstart.data_ptr(), bend.data_ptr(), fi.data_ptr(),
+                    bi.data_ptr(), ranges.data_ptr(), out.data_ptr(), P,
+                    codes.shape[1], out.shape[1], int(min_cpgs),
+                    int(bool(inclusive)))
+    homog_bins.launches += 1
+    return out
+
+
+homog_bins.launches = 0
+
+
+def homog_bins_plain(out, codes, fstart, flen, fcount, bstart, bend, fi, bi,
+                     ranges, min_cpgs, inclusive):
+    """Twin of the kernel in plain PyTorch (numpy's homog_counts after
+    overlap_pairs), in slices of TWIN_PAIRS pairs: the clip, the call
+    counts as float32, the gates, the float32 division, searchsorted and
+    an index_add_ into out."""
+    _check(out, codes, fstart, flen, fcount, bstart, bend, fi, bi, ranges)
+    nbins = out.shape[1]
+    L = codes.shape[1]
+    cols = torch.arange(L, device=out.device)[None, :]
+    flat_out = out.view(-1)
+    for lo in range(0, fi.shape[0], TWIN_PAIRS):
+        f = fi[lo:lo + TWIN_PAIRS].to(torch.int64)
+        b = bi[lo:lo + TWIN_PAIRS].to(torch.int64)
+        s = fstart[f].to(torch.int64)
+        ln = flen[f].to(torch.int64)
+        if inclusive:
+            off = torch.zeros_like(s)
+            length = ln
+        else:
+            os_ = torch.maximum(s, bstart[b])
+            length = torch.minimum(s + ln, bend[b]) - os_
+            off = os_ - s
+        c = codes[f]
+        in_clip = (cols >= off[:, None]) & (cols < (off + length)[:, None])
+        nrC = (((c == CODE_C) | (c == CODE_H)) & in_clip).sum(dim=1).to(
+            torch.float32)
+        nrT = ((c == CODE_T) & in_clip).sum(dim=1).to(torch.float32)
+        informative = nrC + nrT
+        keep = ((length >= min_cpgs) & (informative >= min_cpgs)
+                & (informative > 0))
+        meth = nrC[keep] / informative[keep]
+        bins = torch.clamp(torch.searchsorted(ranges, meth, right=True) - 1,
+                           max=nbins - 1)
+        flat_out.index_add_(0, b[keep] * nbins + bins,
+                            fcount[f][keep].to(torch.int64))
+    return out
+
+
+class HomogBins:
+    """homog's counts of one job on `device` ("cuda" raises without CUDA;
+    "cpu" runs the twin): the blocks (sorted by start) and ranges go up
+    once, each slab's fragments and overlap pairs per `add`, and `result`
+    fetches the int64 (B, nbins) counts once. With `timings`, the seconds
+    of overlap, h2d, kernel and fetch accumulate there."""
+
+    def __init__(self, bstart, bend, ranges, min_cpgs=5, inclusive=False,
+                 device="cuda", timings=None):
+        self.device = dev = resolve_device(device)
+        self.ranges = _check_ranges(ranges)
+        self.bstart = np.asarray(bstart, dtype=np.int64)
+        self.bend = np.asarray(bend, dtype=np.int64)
+        self.min_cpgs = min_cpgs
+        self.inclusive = inclusive
+        self.timings = timings
+        with timed(timings, "h2d", dev):
+            self._blocks = [torch.from_numpy(a.copy()).to(dev) for a in
+                            (self.bstart, self.bend, self.ranges)]
+        self.out = torch.zeros((self.bstart.shape[0],
+                                self.ranges.shape[0] - 1),
+                               dtype=torch.int64, device=dev)
+
+    def add(self, frags):
+        if frags.nr_frags == 0 or self.bstart.shape[0] == 0:
+            return
+        with timed(self.timings, "overlap", None):
+            fi, bi = overlap_pairs(frags, self.bstart, self.bend)
+        if fi.shape[0] == 0:
+            return
+        dev = self.device
+        with timed(self.timings, "h2d", dev):
+            t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in (frags.codes, frags.start.astype(np.int32),
+                           frags.length.astype(np.int32),
+                           frags.count.astype(np.int32),
+                           fi.astype(np.int32), bi.astype(np.int32))]
+        codes, fstart, flen, fcount, fi_t, bi_t = t
+        bstart, bend, ranges = self._blocks
+        with timed(self.timings, "kernel", dev):
+            homog_bins(self.out, codes, fstart, flen, fcount, bstart, bend,
+                       fi_t, bi_t, ranges, self.min_cpgs, self.inclusive)
+
+    def result(self):
+        with timed(self.timings, "fetch", None):
+            return self.out.cpu().numpy()
+
+
+def homog_counts(frags: PatFrags, bstart, bend, ranges, min_cpgs=5,
+                 inclusive=False, device="cuda"):
+    """Per-block counts of reads binned by their methylation fraction.
+
+    ranges: monotone float boundaries starting at 0 and ending at 1, e.g.
+    [0, 0.34, 0.66, 1] -> 3 bins U/X/M. Blocks sorted by startCpG. Runs on
+    `device` ("cuda": the kernel; "cpu": its twin). Returns int64
+    (n_blocks, len(ranges)-1) on the host.
+    """
+    hb = HomogBins(bstart, bend, ranges, min_cpgs, inclusive, device)
+    hb.add(frags)
+    return hb.result()

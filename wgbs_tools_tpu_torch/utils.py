@@ -3,13 +3,15 @@
 The port's own copy of what it calls from wgbs_tools_tpu/utils/
 (`__init__.py`, `log.py`, `files.py`; ref: src/python/utils_wgbs.py),
 with the same names: the CLI's input checks (`validate_single_file`,
-`validate_file_list`) among them.
+`validate_file_list`) and output names (`pretty_name`, `mkdirp`) among
+them.
 """
 
 import logging
 import os
 import os.path as op
 import sys
+from pathlib import Path
 
 logger = logging.getLogger("wgbs_tpu_torch")
 if not logger.handlers:
@@ -34,6 +36,16 @@ def splitextgz(input_file):
         b, suff2 = op.splitext(b)
         suff = suff2 + suff
     return b, suff
+
+
+def pretty_name(fpath):
+    return splitextgz(op.basename(fpath))[0]
+
+
+def mkdirp(dpath):
+    if dpath:
+        Path(dpath).mkdir(parents=True, exist_ok=True)
+    return dpath
 
 
 def delete_or_skip(output_file, force):
