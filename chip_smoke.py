@@ -374,7 +374,9 @@ def phase_card():
 FUNCTIONS = {**{name + "_kernel": name for name in KERNELS},
              "segment_exact_dp_ahead_kernel": "segment_exact_dp",
              "dp_scan_push_kernel": "dp_scan",
-             "dp_scan_argmax_kernel": "dp_scan"}
+             "dp_scan_argmax_kernel": "dp_scan",
+             "block_runs_kernel": "block_sums",
+             "block_pieces_kernel": "block_sums"}
 # segment_exact_dp's kernel functions -> its bodies
 SEGX_BODIES = {"segment_exact_dp_ahead_kernel": "ahead",
                "segment_exact_dp_kernel": "single"}
@@ -383,6 +385,10 @@ SEGX_BODIES = {"segment_exact_dp_ahead_kernel": "ahead",
 DPS_BODIES = {"dp_scan_push_kernel": "push",
               "dp_scan_argmax_kernel": "push argmax",
               "dp_scan_kernel": "warp"}
+# block_sums' kernel functions -> its launches (and the earlier single
+# warp-a-block kernel's name, for an older tree's build log)
+BLK_BODIES = {"block_runs_kernel": "runs", "block_pieces_kernel": "pieces",
+              "block_sums_kernel": "warp a block"}
 
 
 def _ptxas_registers(build_log, functions=None):
@@ -2897,7 +2903,9 @@ def phase_parallel(work, big, seg_out):
 # phase 10: the block and read-level device ops at hg19 size
 # ---------------------------------------------------------------------------
 
-BLOCK_EDGE = ("whole_genome_255", "uint16")
+BLOCK_EDGE = ("whole_genome_255", "uint16", "unsorted", "overlapping",
+              "over_budget", "mixed_run")
+PAIR_EDGE = ("unsorted", "long_rows")
 PAIR_EDGE_SITES = 50_000
 HOMOG_EDGE = tuple(f"{r}_{'inclusive' if inc else 'clipped'}_min{m}"
                    for r in ("ties", "rlen3") for inc in (False, True)
@@ -2906,14 +2914,39 @@ HOMOG_RANGES = {"ties": [0.0, 0.25, 0.5, 1.0],
                 "rlen3": [0.0, 0.334, 0.667, 1.0]}
 
 
+def _tiling(rng, n_blocks, first, max_len=60):
+    """Blocks of 1-max_len sites tiling [first, ...): 1-based (s, e)."""
+    import numpy as np
+
+    lens = rng.integers(1, max_len + 1, size=n_blocks)
+    e = first + np.cumsum(lens)
+    return e - lens, e
+
+
 def block_edge_batch(name, n=N_SITES):
     """block_sums' hand-made edges: (data (n, 2), starts, ends) with 1-based
-    blocks, base 1. "whole_genome_255": uint8 at coverage 255 on every
-    site, one block over all of them (its coverage passes 2^31), NA
-    blocks, s == e, blocks clipped past n, and seeded blocks of 1-300
-    sites; "uint16": an lbeta's uint16 table of 1,000,000 sites with
-    values up to 65,535 and the same kinds of blocks."""
+    blocks, base 1. Each starts with one block over all n sites (long: its
+    pieces are summed across the card), an NA block, s == e, blocks
+    clipped past n. "whole_genome_255": uint8 at coverage 255 on every
+    site (the whole block's coverage passes 2^31 from n = 8,500,000 on),
+    then seeded blocks of 1-300 sites over the table (wide hulls: a warp a
+    block); "uint16": an lbeta's uint16 table of 1,000,000 sites with
+    values up to 65,535 and the same kinds of blocks. On the coverage-255
+    table: "unsorted", 128 runs of ops/reduceat.py::RUN blocks tiling
+    sites from 1,001 on, the first half permuted within each run (staged
+    runs out of order), the second over the half (wide hulls);
+    "overlapping", 3,000 blocks of 1-300 sites starting 0-29 sites apart,
+    every 17th a copy of its neighbour (staged, overlapping); "over_budget",
+    blocks of SPAN_ROWS - 1, SPAN_ROWS (the staged budget: staged),
+    SPAN_ROWS + 1, 2 SPAN_ROWS, PIECE_ROWS, PIECE_ROWS + 1 and 3
+    PIECE_ROWS + 5 sites (long: 1-4 pieces), each followed by 300 blocks
+    tiling the sites after it; "mixed_run", 48 runs of RUN blocks in turn
+    tiling (staged), scattered over the table (a warp a block), and tiling
+    with one block of SPAN_ROWS + 1 sites among them (staged and a long
+    block)."""
     import numpy as np
+
+    from wgbs_tools_tpu_torch.ops.reduceat import PIECE_ROWS, RUN, SPAN_ROWS
 
     rng = np.random.default_rng(15)
     if name == "uint16":
@@ -2922,30 +2955,83 @@ def block_edge_batch(name, n=N_SITES):
     else:
         data = np.full((n, 2), 255, np.uint8)
         data[:, 0] = rng.integers(0, 256, size=n)
-    s = np.sort(rng.integers(1, n + 1, size=5000))
-    e = s + rng.integers(1, 300, size=5000)
+    if name in ("whole_genome_255", "uint16"):
+        s = np.sort(rng.integers(1, n + 1, size=5000))
+        e = s + rng.integers(1, 300, size=5000)
+    elif name == "unsorted":
+        s, e = _tiling(rng, 128 * RUN, 1001)
+        p = np.concatenate([k + rng.permutation(RUN)
+                            for k in range(0, 64 * RUN, RUN)]
+                           + [64 * RUN + rng.permutation(64 * RUN)])
+        s, e = s[p], e[p]
+    elif name == "overlapping":
+        s = 1001 + np.cumsum(rng.integers(0, 30, size=3000))
+        e = s + rng.integers(1, 301, size=3000)
+        s[5::17], e[5::17] = s[4::17][:len(s[5::17])], e[4::17][:len(
+            e[5::17])]
+    elif name == "over_budget":
+        parts, at = [], 1001
+        for size in (SPAN_ROWS - 1, SPAN_ROWS, SPAN_ROWS + 1, 2 * SPAN_ROWS,
+                     PIECE_ROWS, PIECE_ROWS + 1, 3 * PIECE_ROWS + 5):
+            ts, te = _tiling(rng, 300, at + size)
+            parts.append((np.concatenate([[at], ts]),
+                          np.concatenate([[at + size], te])))
+            at = int(te[-1]) + 100
+        s, e = (np.concatenate(x) for x in zip(*parts))
+    elif name == "mixed_run":
+        parts, at = [], 1001
+        for k in range(48):
+            if k % 3 == 1:  # scattered over the table
+                ss = np.sort(rng.integers(1, n - 400, size=RUN))
+                parts.append((ss, ss + rng.integers(1, 300, size=RUN)))
+                continue
+            ts, te = _tiling(rng, RUN, at)
+            if k % 3 == 2:  # a long block among the tiling ones
+                ts[RUN // 2], te[RUN // 2] = at, at + SPAN_ROWS + 1
+            parts.append((ts, te))
+            at = int(te.max()) + 50
+        s, e = (np.concatenate(x) for x in zip(*parts))
+    else:
+        raise KeyError(name)
     s = np.concatenate([[1, -1, 7, n - 5, n + 3, 2], s])
     e = np.concatenate([[n + 1, -1, 7, n + 100, n + 9, 1], e])
     return data, s, e
 
 
-def pair_edge_batch():
+def pair_edge_batch(name="unsorted"):
     """pair_counts' hand-made edges on a window of PAIR_EDGE_SITES sites:
-    (start_rel, length, count, codes (F, 40) uint8) with every call
-    T / C / H / '.', fragments starting up to 40 sites before the window
+    (start_rel, length, count, codes (F, L) uint8, n) with every call
+    T / C / H / '.', fragments starting up to L sites before the window
     (start_rel < 0) and reaching past its end, one ending on the last
-    site, length-1 fragments, and counts up to 3000."""
+    site, length-1 fragments, and counts up to 3000. "unsorted": 40,000
+    fragments of up to 40 sites in no order (the wrapper sorts them);
+    "long_rows": 20,000 fragments of up to L = 200 sites sorted by start
+    (the rows of more than ops/pairs.py::ROW_MAX calls walked by a warp),
+    some of them across the kernel's tile edges."""
     import numpy as np
 
-    rng = np.random.default_rng(16)
-    F, L, n = 40_000, 40, PAIR_EDGE_SITES
-    start = rng.integers(-40, n + 5, size=F)
+    from wgbs_tools_tpu_torch.ops.pairs import TILE
+
+    rng = np.random.default_rng(16 if name == "unsorted" else 17)
+    if name not in PAIR_EDGE:
+        raise KeyError(name)
+    F, L, n = ((40_000, 40, PAIR_EDGE_SITES) if name == "unsorted"
+               else (20_000, 200, PAIR_EDGE_SITES))
+    start = rng.integers(-L, n + 5, size=F)
     length = rng.integers(1, L + 1, size=F)
     length[::7] = 1
     start[:3], length[:3] = (n - 10, -30, n - 1), (10, 35, 1)
+    if name == "long_rows":
+        start[3:9] = (TILE - 1, TILE - 150, 2 * TILE - 199, 3 * TILE - 1,
+                      -L + 1, n - L)
+        length[3:9] = L
     count = rng.integers(1, 3001, size=F)
     codes = rng.integers(0, 4, size=(F, L)).astype(np.uint8)
     codes[np.arange(L)[None, :] >= length[:, None]] = 3
+    if name == "long_rows":
+        order = np.argsort(start, kind="stable")
+        start, length, count, codes = (a[order] for a in (start, length,
+                                                          count, codes))
     return (start.astype(np.int32), length.astype(np.int32),
             count.astype(np.int32), codes, n)
 
@@ -3022,22 +3108,41 @@ def _edge_checks(dev):
         d = torch.from_numpy(data).to(dev)
         got = _launch_checked(reduceat.block_sums, d, bd.to(dev))
         want = reduceat.block_sums_plain(d, bd.to(dev))
-        if not torch.equal(got, want):
+        if not torch.equal(got, want) or not torch.equal(
+                _launch_checked(reduceat.block_sums, d, bd.to(dev), False),
+                want):
             raise RuntimeError(f"block_sums != twin on edge case {name}")
         if name == "whole_genome_255" and int(got[0, 1]) <= 2 ** 31:
             raise RuntimeError("the whole-genome block's coverage does not "
                                "pass 2^31")
         parts.append(f"block_sums {name} ({len(s)} blocks, whole-genome "
                      f"coverage {int(got[0, 1]):,})")
-    start, length, count, codes, n = pair_edge_batch()
-    cols = [torch.from_numpy(a).to(dev) for a in (start, length, count,
-                                                  codes)]
-    table = torch.zeros((n, 4), dtype=torch.int32, device=dev)
-    got = _launch_checked(pairs.pair_counts_add, table.clone(), *cols)
-    if not torch.equal(got, pairs.pair_counts_add_plain(table, *cols)):
-        raise RuntimeError("pair_counts != twin on its edge batch")
-    parts.append(f"pair_counts ({len(start):,} frags, {int(got.sum()):,} "
-                 "in the table)")
+        if name == "whole_genome_255":
+            # the whole-genome block alone: its pieces over the card
+            one = bd[:1].to(dev)
+            ms = _device_ms(lambda: reduceat.block_sums(d, one), 20)
+            bound_ms, _ = _bound(data.nbytes + 2 * one.nbytes, 0)
+            log(f"phase 10: block_sums on the whole-genome block alone "
+                f"({data.shape[0]:,} sites of coverage 255): kernel "
+                f"{ms:.4f} ms on the card, bound {bound_ms:.4f} ms "
+                f"({bound_ms / ms:.1%})")
+            parts[-1] += f", the whole-genome block alone {ms:.4f} ms"
+    for name in PAIR_EDGE:
+        start, length, count, codes, n = pair_edge_batch(name)
+        cols = [torch.from_numpy(a).to(dev) for a in (start, length, count,
+                                                      codes)]
+        table = torch.zeros((n, 4), dtype=torch.int32, device=dev)
+        want = pairs.pair_counts_add_plain(table.clone(), *cols)
+        hints = (None, False) + ((True,) if name == "long_rows" else ())
+        for hint in hints:
+            got = _launch_checked(pairs.pair_counts_add, table.clone(),
+                                  *cols, is_sorted=hint)
+            if not torch.equal(got, want):
+                raise RuntimeError(f"pair_counts != twin on edge case {name} "
+                                   f"(is_sorted={hint})")
+        parts.append(f"pair_counts {name} ({len(start):,} frags, L "
+                     f"{codes.shape[1]}, {int(got.sum()):,} in the table; "
+                     f"is_sorted {', '.join(map(str, hints))})")
     for name in HOMOG_EDGE:
         frags, bstart, bend, ranges, m, inclusive = homog_edge_batch(name)
         cols = _homog_cols(frags, bstart, bend, ranges, dev)
@@ -3104,6 +3209,28 @@ def _stages(timings):
     return ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
 
 
+def run_bodies(bounds, long_blocks=True):
+    """How csrc/reduceat.cu's runs kernel takes the runs of `bounds` (host
+    (B, 2) rows): {"staged": runs, "wide": runs, "none": runs, "long":
+    blocks}, by its rule (a run is ops/reduceat.py::RUN blocks, staged when
+    the hull of its used blocks fits SPAN_ROWS rows)."""
+    import numpy as np
+
+    from wgbs_tools_tpu_torch.ops.reduceat import RUN, SPAN_ROWS
+
+    B = bounds.shape[0]
+    pad = np.zeros((-B % RUN, 2), np.int64)
+    s, e = np.concatenate([bounds, pad]).T.reshape(2, -1, RUN)
+    long_ = (e - s > SPAN_ROWS) & long_blocks
+    used = (e > s) & ~long_
+    lo = np.where(used, s, np.iinfo(np.int64).max).min(axis=1)
+    hi = np.where(used, e, -1).max(axis=1)
+    none = hi <= lo
+    wide = ~none & (hi - lo > SPAN_ROWS)
+    return {"staged": int((~none & ~wide).sum()), "wide": int(wide.sum()),
+            "none": int(none.sum()), "long": int(long_.sum())}
+
+
 def _block_sums_timing(beta, s, e, dev, regs):
     """block_sums on its main-path launch (one beta over the blocks),
     timed beside its bound, the twin and one index_add_ of the rows by
@@ -3117,8 +3244,13 @@ def _block_sums_timing(beta, s, e, dev, regs):
     bounds = reduceat.block_bounds(s, e, 1, data.shape[0])
     d = torch.from_numpy(data).to(dev)
     bd = torch.from_numpy(bounds).to(dev)
-    ms = _device_ms(lambda: reduceat.block_sums(d, bd), 50)
-    call_ms = _time_ms(lambda: reduceat.block_sums(d, bd), 50)
+    # the main path's call (reduce_data_to_blocks: the pieces launch only
+    # where a block is longer than SPAN_ROWS), then with it
+    long_blocks = bool((bounds[:, 1] - bounds[:, 0]
+                        > reduceat.SPAN_ROWS).any())
+    ms = _device_ms(lambda: reduceat.block_sums(d, bd, long_blocks), 50)
+    call_ms = _time_ms(lambda: reduceat.block_sums(d, bd, long_blocks), 50)
+    pieces_ms = _device_ms(lambda: reduceat.block_sums(d, bd, True), 50)
     plain_ms = _time_ms(lambda: reduceat.block_sums_plain(d, bd), 5)
     # the yardstick: a block id per site (B where no block covers it), the
     # int64 rows and the accumulator made outside the timed window
@@ -3133,9 +3265,10 @@ def _block_sums_timing(beta, s, e, dev, regs):
     acc = torch.zeros((B + 1, 2), dtype=torch.int64, device=dev)
     library_ms = _time_ms(lambda: acc.index_add_(0, ids, rows), 20)
     acc.zero_().index_add_(0, ids, rows)
-    got = reduceat.block_sums(d, bd)
+    got = reduceat.block_sums(d, bd, long_blocks)
     if not (torch.equal(acc[:B], got)
-            and torch.equal(got, reduceat.block_sums_plain(d, bd))):
+            and torch.equal(got, reduceat.block_sums_plain(d, bd))
+            and torch.equal(got, reduceat.block_sums(d, bd, True))):
         raise RuntimeError("block_sums != its twin or index_add_ on the "
                            "main path's launch")
     n_bytes = data.nbytes + 2 * bounds.nbytes
@@ -3143,9 +3276,13 @@ def _block_sums_timing(beta, s, e, dev, regs):
     log(f"phase 10: block_sums on {op.basename(beta)} over {B:,} blocks "
         f"(one launch, == twin and index_add_): {n_bytes:,} bytes, bound "
         f"{bound_ms:.4f} ms; kernel {ms:.4f} ms on the card ({bound_ms / ms:.1%}"
-        f" of its bound), {call_ms:.4f} per call; twin {plain_ms:.4f} ms; "
-        f"index_add_ {library_ms:.4f} ms; registers {regs.get('block_sums')}")
+        f" of its bound; long_blocks={long_blocks}, the main path's; runs "
+        f"{run_bodies(bounds, long_blocks)}), "
+        f"{call_ms:.4f} per call; with the pieces launch {pieces_ms:.4f} ms; "
+        f"twin {plain_ms:.4f} ms; index_add_ {library_ms:.4f} ms; registers "
+        f"{regs.get('block_sums')}")
     return {"max_abs_err": 0, "ms": ms, "call_ms": call_ms,
+            "pieces_ms": pieces_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "bytes": n_bytes, "blocks": B}
 
@@ -3163,19 +3300,29 @@ def _pair_counts_timing(slab, dev, regs):
     sel = slab.slice_sites(1, N_SITES + 1)
     cols = _pair_cols(sel, 1, dev)
     table = torch.zeros((N_SITES, 4), dtype=torch.int32, device=dev)
-    pairs.pair_counts_add(table, *cols)
+    # the main path's call (StreamingPairs.add: a pat slab is sorted)
+    pairs.pair_counts_add(table, *cols, is_sorted=True)
     twin = pairs.pair_counts_add_plain(
         torch.zeros_like(table), *cols)
     if not torch.equal(table, twin):
         raise RuntimeError("pair_counts != twin on the first slab")
+    again = pairs.pair_counts_add(torch.zeros_like(table), *cols,
+                                  is_sorted=True)
+    if not torch.equal(again, table):
+        raise RuntimeError("pair_counts gave another table on a second run")
+    del again
     touched = int((table != 0).sum())
     F, L = sel.codes.shape
     p = np.arange(1, L)[None, :]
     ok = ((p < sel.length[:, None]) & (sel.codes[:, :-1] <= 1)
           & (sel.codes[:, 1:] <= 1))
     atomics = int(ok.sum())
-    ms = _device_ms(lambda: pairs.pair_counts_add(table, *cols), 20)
-    call_ms = _time_ms(lambda: pairs.pair_counts_add(table, *cols), 20)
+    ms = _device_ms(
+        lambda: pairs.pair_counts_add(table, *cols, is_sorted=True), 20)
+    call_ms = _time_ms(
+        lambda: pairs.pair_counts_add(table, *cols, is_sorted=True), 20)
+    # without the hint: the wrapper's sortedness check on the card
+    check_ms = _time_ms(lambda: pairs.pair_counts_add(table, *cols), 20)
     plain_ms = _time_ms(lambda: pairs.pair_counts_add_plain(table, *cols), 3)
     # the codes each row's pairs read (its first min(length, L) calls; a
     # row of one call reads none), the three columns, each table entry
@@ -3188,11 +3335,14 @@ def _pair_counts_timing(slab, dev, regs):
     log(f"phase 10: pair_counts on the big pat's first slab ({F:,} frags, "
         f"L {L}): {n_bytes:,} bytes ({code_bytes:,} of codes, {touched:,} "
         f"table entries reached), "
-        f"{atomics:,} atomics, bound {bound_ms:.4f} ms; kernel {ms:.4f} ms "
-        f"on the card ({bound_ms / ms:.1%} of its bound, "
-        f"{atomics / ms / 1e6:.3f} G atomics/s), {call_ms:.4f} per call; "
-        f"twin {plain_ms:.4f} ms; registers {regs.get('pair_counts')}")
+        f"{atomics:,} shared atomics, bound {bound_ms:.4f} ms; kernel "
+        f"{ms:.4f} ms on the card ({bound_ms / ms:.1%} of its bound, "
+        f"{atomics / ms / 1e6:.3f} G pairs/s), {call_ms:.4f} per call "
+        f"(is_sorted=True, the main path's), {check_ms:.4f} per call with "
+        f"the sortedness check; the same table on two runs; twin "
+        f"{plain_ms:.4f} ms; registers {regs.get('pair_counts')}")
     return {"max_abs_err": 0, "ms": ms, "call_ms": call_ms,
+            "check_call_ms": check_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "bytes": n_bytes, "atomics": atomics,
             "frags": F}
@@ -3471,9 +3621,12 @@ def phase_blocks(work, big, n_frags, seg_out, regs):
     _, spills = _ptxas_registers(_kernels.BUILD_LOG)
     for name in res:
         res[name]["spill_bytes"] = spills.get(name)
+    body_regs, body_spills = _ptxas_registers(_kernels.BUILD_LOG, BLK_BODIES)
     log("phase 10: ptxas registers " + ", ".join(
         f"{name} {regs.get(name)}" for name in res) + "; spill bytes "
-        + ", ".join(f"{name} {spills.get(name)}" for name in res))
+        + ", ".join(f"{name} {spills.get(name)}" for name in res)
+        + f"; block_sums by kernel: registers {body_regs}, spill bytes "
+        f"{body_spills}")
     log(f"phase 10: took {time.perf_counter() - t_phase:.3f} s")
     return res, launches, "; ".join(lines)
 

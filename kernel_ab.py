@@ -49,8 +49,22 @@ W 64, from chip_smoke.seg_data's samples and loci): "chains", 2 chains of
 DPS_STEPS steps in one launch (one rep a turn), and "cut", their first
 8,192 sites; both trees' ks must be equal on every step (and the twin's on
 the cut slab); each tree's registers and spills per body and, where its
-source has dp_scan_plan, the body it takes are printed. --kernels picks the
-kernels (default: all). Prints the card's
+source has dp_scan_plan, the body it takes are printed. block_sums and
+pair_counts: each tree's csrc/reduceat.cu / csrc/pairs.cu is compiled
+alone, and both are called in the same turns on phase 10's launches, made
+from chip_smoke.py's seeds: block_sums on "big.beta" (phase 4's beta of
+the big pat, the port's pat2beta on cuda) over "exact blocks" (phase 8's
+1,070,393 blocks, the port's exact segment on cuda of
+chip_smoke.write_seg_data's betas), on chip_smoke.block_edge_batch
+("whole_genome_255"), the edge batch, and on its whole-genome block alone;
+pair_counts on the big pat's first slab into the hg19 table (the main
+path's call: sorted, as a pat slab is). This tree's block_sums is called
+as the main path calls it (the pieces launch only where a block is longer
+than SPAN_ROWS); a tree whose entry takes no long-block list (the earlier
+warp-a-block kernel's) is
+called without it. Every output must equal
+the twin's; each tree's registers and spills per kernel function are
+printed. --kernels picks the kernels (default: all). Prints the card's
 name and power limit, one line per kernel, slab and run, and last one
 JSON object with every run's times and each tree's ptxas registers (the
 most any template instance uses, and each instance's).
@@ -464,6 +478,164 @@ def ab_dps(trees, reps, rounds):
     return runs, summary, bodies
 
 
+BLK, PAIRS = "block_sums", "pair_counts"
+BLK_SRC = "wgbs_tools_tpu_torch/csrc/reduceat.cu"
+PAIRS_SRC = "wgbs_tools_tpu_torch/csrc/pairs.cu"
+PAIRS_BODIES = {"pair_counts_kernel": "pair_counts"}
+
+
+def build_blk(tree, out_dir):
+    """The tree's reduceat.cu alone (build_alone); returns (library, regs,
+    spills, whether its entry takes the long-block list (scratch, N,
+    list_long) as this tree's does)."""
+    lib, regs, spills = build_alone(tree, BLK_SRC, out_dir,
+                                     chip_smoke.BLK_BODIES)
+    with open(op.join(tree, BLK_SRC)) as f:
+        listing = "int64_t list_long" in f.read()
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.block_sums.argtypes = ([vp] * 4 + [i64] * 4 if listing
+                               else [vp] * 3 + [i64] * 2) + [vp]
+    lib.block_sums.restype = ctypes.c_int
+    return lib, regs, spills, listing
+
+
+def build_pairs(tree, out_dir):
+    """The tree's pairs.cu alone (build_alone)."""
+    lib, regs, spills = build_alone(tree, PAIRS_SRC, out_dir, PAIRS_BODIES)
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.pair_counts.argtypes = [vp] * 5 + [i64] * 3 + [vp]
+    lib.pair_counts.restype = ctypes.c_int
+    return lib, regs, spills
+
+
+def phase10_inputs(work, frags, which):
+    """Phase 10's main-path inputs from chip_smoke.py's seeds: {"pat": the
+    big pat, "beta": its beta (the port's pat2beta on cuda), "bounds":
+    phase 8's exact blocks as block_bounds rows (the port's exact segment
+    on cuda)}; the beta and blocks only if block_sums is in `which`."""
+    from wgbs_tools_tpu_torch.cli import cmd_segment
+    from wgbs_tools_tpu_torch.ops import reduceat
+    from wgbs_tools_tpu_torch.pipeline.pat2beta import pat2beta
+
+    big, _ = chip_smoke.phase_data(work, frags)
+    out = {"pat": big}
+    if BLK not in which:
+        return out
+    out["beta"] = pat2beta(big, out_path=op.join(work, "big.beta"),
+                           device="cuda")
+    betas, _ = chip_smoke.write_seg_data(work, os.environ["WGBS_TPU_REFDIR"])
+    bed = op.join(work, "exact.bed")
+    args = chip_smoke.SEG_ARGS
+    if cmd_segment.main(["--betas"] + betas + [
+            "--genome", chip_smoke.SEG_GENOME, "--max_cpg",
+            str(args["max_cpg"]), "--max_bp", str(args["max_bp"]), "-p",
+            str(args["pcount"]), "-o", bed]):
+        raise RuntimeError("segment --mode exact on cuda failed")
+    s, e = chip_smoke._blocks_of(bed)
+    out["bounds"] = reduceat.block_bounds(s, e, 1, chip_smoke.N_SITES)
+    return out
+
+
+def _ab_turns(kernel, slab, calls, reps, rounds, runs, summary, what):
+    """calls {tree: launch} in turns other, this, this, other (rounds
+    times), each timed by chip_smoke._device_ms; fills runs and summary."""
+    order = (list(calls) + list(calls)[::-1]) * rounds
+    for i, tree in enumerate(order):
+        ms = chip_smoke._device_ms(calls[tree], reps)
+        runs.append({"kernel": kernel, "slab": slab, "tree": tree,
+                     "turn": i, "ms": ms})
+        chip_smoke.log(f"A/B {kernel} on {slab} ({what}) turn {i} {tree}: "
+                       f"{ms:.4f} ms == twin")
+    med = summary[f"{kernel} {slab}"] = {
+        tree: statistics.median(x["ms"] for x in runs if x["tree"] == tree
+                                and x["slab"] == slab
+                                and x["kernel"] == kernel)
+        for tree in calls}
+    chip_smoke.log(f"A/B {kernel} on {slab}: median " + ", ".join(
+        f"{tree} {v:.4f} ms ({med['other'] / v:.2f}x)"
+        for tree, v in med.items()))
+
+
+def ab_blocks_pairs(btrees, ptrees, inputs, reps, rounds):
+    """Both trees' block_sums and pair_counts on phase 10's launches, in
+    turns; returns (runs, {kernel slab: {tree: median ms}})."""
+    import numpy as np
+    import torch
+
+    from wgbs_tools_tpu_torch.formats.pat import iter_pat
+    from wgbs_tools_tpu_torch.ops import pairs, reduceat
+
+    dev = torch.device("cuda")
+    runs, summary = [], {}
+    if btrees:
+        data = np.fromfile(inputs["beta"], np.uint8).reshape(-1, 2)
+        edge, es, ee = chip_smoke.block_edge_batch("whole_genome_255")
+        eb = reduceat.block_bounds(es, ee, 1, edge.shape[0])
+        slabs = {"big.beta over the exact blocks": (data, inputs["bounds"]),
+                 "whole_genome_255": (edge, eb),
+                 "the whole-genome block alone": (edge, eb[:1])}
+        for slab, (d, b) in slabs.items():
+            d = torch.from_numpy(d).to(dev)
+            b = torch.from_numpy(b).to(dev)
+            want = reduceat.block_sums_plain(d, b)
+            B = b.shape[0]
+            calls = {}
+            # the main path's long_blocks (ops/reduceat.py::_sums_on)
+            lens = b[:, 1] - b[:, 0]
+            list_long = int(bool((lens > reduceat.SPAN_ROWS).any()))
+            for tree, (lib, _, _, listing) in btrees.items():
+                out = torch.empty((B, 2), dtype=torch.int64, device=dev)
+                scratch = torch.empty(B + 1, dtype=torch.int64, device=dev)
+                args = ([d.data_ptr(), b.data_ptr(), out.data_ptr(),
+                         scratch.data_ptr(), B, d.shape[0], 1, list_long]
+                        if listing else
+                        [d.data_ptr(), b.data_ptr(), out.data_ptr(), B, 1])
+
+                def launch(fn=lib.block_sums, args=args):
+                    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"block_sums: CUDA error {err}")
+
+                launch()
+                torch.cuda.synchronize()
+                if not torch.equal(out, want):
+                    raise RuntimeError(f"{tree} block_sums on {slab}: kernel "
+                                       "!= twin")
+                calls[tree] = launch
+            _ab_turns(BLK, slab, calls, reps, rounds, runs, summary,
+                      f"{d.shape[0]:,} rows, {B:,} blocks; this tree's runs "
+                      f"{chip_smoke.run_bodies(b.cpu().numpy(), list_long)}")
+            del d, b, want
+    if ptrees:
+        frags = next(iter_pat(inputs["pat"])).slice_sites(
+            1, chip_smoke.N_SITES + 1)
+        cols = chip_smoke._pair_cols(frags, 1, dev)
+        F, L = frags.codes.shape
+        n = chip_smoke.N_SITES
+        want = pairs.pair_counts_add_plain(
+            torch.zeros((n, 4), dtype=torch.int32, device=dev), *cols)
+        calls = {}
+        for tree, (lib, _, _) in ptrees.items():
+            table = torch.zeros((n, 4), dtype=torch.int32, device=dev)
+            ptrs = [c.data_ptr() for c in cols] + [table.data_ptr()]
+
+            def launch(fn=lib.pair_counts, ptrs=ptrs):
+                err = fn(*ptrs, F, L, n,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"pair_counts: CUDA error {err}")
+
+            launch()
+            torch.cuda.synchronize()
+            if not torch.equal(table, want):
+                raise RuntimeError(f"{tree} pair_counts on the first slab: "
+                                   "kernel != twin")
+            calls[tree] = launch
+        _ab_turns(PAIRS, "the big pat's first slab", calls, reps, rounds,
+                  runs, summary, f"{F:,} frags, L {L}")
+    return runs, summary
+
+
 PROBE = """#include "{src}"
 """
 PROBE_ENTRY = """extern "C" int pileup_tiles_v1_listed_b{b}(
@@ -571,12 +743,13 @@ def main():
                    help="maxplus_closure's squaring counts (comma-separated; "
                         "default 7, the DP's)")
     p.add_argument("--kernels",
-                   default=",".join(list(KERNELS) + [MAXPLUS, SEGX, DPS]),
+                   default=",".join(list(KERNELS)
+                                    + [MAXPLUS, SEGX, DPS, BLK, PAIRS]),
                    help="the kernels to A/B (comma-separated; default all)")
     args = p.parse_args()
     listed = [int(b) for b in args.listed.split(",") if b]
     picked = args.kernels.split(",")
-    unknown = set(picked) - set(KERNELS) - {MAXPLUS, SEGX, DPS}
+    unknown = set(picked) - set(KERNELS) - {MAXPLUS, SEGX, DPS, BLK, PAIRS}
     if unknown:
         p.error(f"unknown kernels {sorted(unknown)}")
     pileups = [name for name in KERNELS if name in picked]
@@ -633,6 +806,26 @@ def main():
                                                "body": bodies.get(t)}
                 chip_smoke.log(f"dp_scan {t}: ptxas registers {r}, spill "
                                f"bytes {sp}, body at W 64 {bodies.get(t)}")
+        if BLK in picked or PAIRS in picked:
+            btrees = {t: build_blk(tree, op.join(work, "b" + t[0]))
+                      for t, tree in (("other", op.abspath(args.other)),
+                                      ("this", REPO))} \
+                if BLK in picked else {}
+            ptrees = {t: build_pairs(tree, op.join(work, "p" + t[0]))
+                      for t, tree in (("other", op.abspath(args.other)),
+                                      ("this", REPO))} \
+                if PAIRS in picked else {}
+            inputs = phase10_inputs(work, args.frags, picked)
+            bruns, med = ab_blocks_pairs(btrees, ptrees, inputs, args.reps,
+                                         args.rounds)
+            runs += bruns
+            summary.update(med)
+            for kernel, trees in ((BLK, btrees), (PAIRS, ptrees)):
+                for t, built in trees.items():
+                    regs.setdefault(t, {})[kernel] = {
+                        "registers": built[1], "spills": built[2]}
+                    chip_smoke.log(f"{kernel} {t}: ptxas registers "
+                                   f"{built[1]}, spill bytes {built[2]}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(smi, flush=True)

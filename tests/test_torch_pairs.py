@@ -196,3 +196,34 @@ def test_cuda_pair_counts_equals_twin(cuda_device, window, max_len):
     assert pairs.pair_counts_add.launches == before + 1
     assert torch.equal(got.cpu(), pairs.pair_counts_add_plain(acc0.clone(),
                                                               *cols))
+
+
+# (edge case, is_sorted): None checks on the card, False sorts, True (a
+# sorted batch only) skips both
+PAIR_EDGE_HINTS = [(name, hint) for name in chip_smoke.PAIR_EDGE
+                   for hint in ((None, False) if name == "unsorted"
+                                else (None, True, False))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,hint", PAIR_EDGE_HINTS)
+def test_cuda_pair_edge_equals_twin(cuda_device, monkeypatch, name, hint):
+    """chip_smoke.py's edge batches (unsorted rows of up to 40 calls; a
+    sorted slab of rows up to 200 calls across the tile edges) on the
+    card == the twin, twice the same table; a sorted batch is not sorted
+    again."""
+    start, length, count, codes, n = chip_smoke.pair_edge_batch(name)
+    cols = [torch.from_numpy(a) for a in (start, length, count, codes)]
+    want = pairs.pair_counts_add_plain(torch.zeros((n, 4), dtype=torch.int32),
+                                       *cols)
+    dcols = [c.to(cuda_device) for c in cols]
+    if name == "long_rows" and hint is not False:
+        def no_sort(*args, **kwargs):
+            raise AssertionError("a sorted batch was sorted")
+        monkeypatch.setattr(torch, "sort", no_sort)
+    for _ in range(2):
+        got = pairs.pair_counts_add(
+            torch.zeros((n, 4), dtype=torch.int32, device=cuda_device),
+            *dcols, is_sorted=hint)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)

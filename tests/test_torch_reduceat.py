@@ -291,3 +291,23 @@ def test_cuda_block_sums_equals_twin(cuda_device, case, dtype):
         reduceat.reduce_data_to_blocks(data, s, e, base=base,
                                        device=cuda_device),
         jred.reduce_data_to_blocks(data, s, e, base=base))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("name", chip_smoke.BLOCK_EDGE)
+def test_cuda_block_edge_equals_twin(cuda_device, name, offset):
+    """chip_smoke.py's edge batches (cut to 2,000,000 sites: the
+    whole-genome block's pieces, unsorted, overlapping, over-budget blocks
+    and runs of both bodies) on the card == the twin, with the table's
+    first row `offset` rows into its allocation (the staged hull's and
+    the pieces' 16-byte ends move)."""
+    data, s, e = chip_smoke.block_edge_batch(name, n=2_000_000)
+    bounds = torch.from_numpy(reduceat.block_bounds(s, e, 1, data.shape[0]))
+    d = torch.from_numpy(data)
+    held = torch.zeros((data.shape[0] + offset, 2), dtype=d.dtype,
+                       device=cuda_device)
+    held[offset:] = d.to(cuda_device)
+    got = reduceat.block_sums(held[offset:], bounds.to(cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), reduceat.block_sums_plain(d, bounds))

@@ -124,8 +124,9 @@ def _bind(lib):
             ("segment_exact_dp", 6, 6),
             # the analysis step's serial DP: (C, ks, scratch), (nb, n, W)
             ("dp_scan", 3, 3),
-            # block sums: (data, bounds, out), (B, itemsize)
-            ("block_sums", 3, 2),
+            # block sums: (data, bounds, out, scratch), (B, N, itemsize,
+            # list_long)
+            ("block_sums", 4, 4),
             # pair counts: (start_rel, length, count, codes, table), (F, L,
             # n)
             ("pair_counts", 5, 3),

@@ -7,13 +7,18 @@ is not counted), table[start + p - window start][2 (pre == C) + (cur ==
 C)] += count, inside the window only. `StreamingPairs` folds pat slabs
 into a device-resident int32 (n, 4) table (451 MB at hg19) and fetches
 it once; `pair_counts` is one slab on a zeroed table. The fold is
-`pair_counts_add`: CUDA tensors launch the kernel (csrc/pairs.cu, 32-bit
-atomics into the table), CPU tensors take its twin `pair_counts_add_plain`
-(an index_add_ of the masked flat ids). `pair_counts_add.launches` counts
-the kernel's launches. Pairs are intra-read, so the slabs' contributions
-add: streaming is bit-identical to one pass. JAX pads each slab to a
-bucket of shapes to limit recompiles; nothing here compiles per shape, so
-the slabs go up as they are.
+`pair_counts_add`: CUDA tensors launch the kernel (csrc/pairs.cu: a CTA
+owns a tile of TILE sites in shared memory, finds the fragments that
+reach it by a search on the sorted starts, and adds the tile into the
+table once), CPU tensors take its twin `pair_counts_add_plain` (an
+index_add_ of the masked flat ids). The kernel takes fragments sorted by
+start: a batch that is not (`is_sorted` False, or found so on the device
+when it is None) is sorted first, stably, on the device.
+`pair_counts_add.launches` counts the kernel's launches. Pairs are
+intra-read, so the slabs' contributions add: streaming is bit-identical
+to one pass. JAX pads each slab to a bucket of shapes to limit
+recompiles; nothing here compiles per shape, so the slabs go up as they
+are.
 """
 
 import numpy as np
@@ -24,6 +29,10 @@ from ..device import resolve_device, timed
 from ..formats.pat import CODE_C, CODE_T
 
 TWIN_FRAGS = 1 << 20  # fragments per slice of the twin's masks
+# csrc/pairs.cu's geometry (its TILE and ROW_MAX), for the tests' model of
+# its order of work
+TILE = 2048     # sites a CTA owns at a time
+ROW_MAX = 32    # the longest row (min(length, L) calls) one thread walks
 
 
 def _check(table, start_rel, length, count, codes):
@@ -48,17 +57,32 @@ def _check(table, start_rel, length, count, codes):
                              f"{table.device}")
 
 
-def pair_counts_add(table, start_rel, length, count, codes):
+def pair_counts_add(table, start_rel, length, count, codes, is_sorted=None):
     """table (n, 4) int32 += the pair counts of one batch of fragments
     (start_rel: first site minus the window's first; length, count; codes
     (F, L) uint8), in place. CUDA tensors launch the kernel; CPU tensors
-    take pair_counts_add_plain. Returns table."""
+    take pair_counts_add_plain. The kernel takes start_rel in ascending
+    order: `is_sorted` True vouches for that (a pat slab is sorted by
+    start), None checks it on the device (a synchronizing read), and a
+    batch that is not sorted goes to the kernel as a copy sorted by a
+    stable device sort. Returns table."""
     _check(table, start_rel, length, count, codes)
     if table.device.type == "cpu":
         return pair_counts_add_plain(table, start_rel, length, count, codes)
     F, L = codes.shape
     if F == 0 or L < 2 or table.shape[0] == 0:
         return table
+    _kernels.require_cuda("pair_counts", table.device)
+    if table.data_ptr() % 16:
+        raise ValueError("table: each site's 4 counts are added as one "
+                         "16-byte vector; the table must be 16-byte aligned")
+    if is_sorted is None:
+        is_sorted = bool((start_rel[1:] >= start_rel[:-1]).all())
+    if not is_sorted:
+        order = torch.sort(start_rel, stable=True).indices
+        start_rel, length, count, codes = (
+            t.index_select(0, order) for t in (start_rel, length, count,
+                                               codes))
     _kernels.launch("pair_counts", table.device, start_rel.data_ptr(),
                     length.data_ptr(), count.data_ptr(), codes.data_ptr(),
                     table.data_ptr(), F, L, table.shape[0])
@@ -117,7 +141,8 @@ class StreamingPairs:
                         np.int32), sel.length.astype(np.int32),
                         sel.count.astype(np.int32), sel.codes)]
         with timed(self.timings, "kernel", dev):
-            pair_counts_add(self.acc, *cols)
+            # slice_sites already takes the slab to be sorted by start
+            pair_counts_add(self.acc, *cols, is_sorted=True)
 
     def result(self):
         with timed(self.timings, "fetch", None):

@@ -8,9 +8,15 @@ block, start < 0, sums to zeros) and sums it in int64. One kernel,
 or uint16 for lbeta) and each block's clipped [s, e), so JAX's two paths,
 the segment_sum over sorted non-overlapping blocks (:53-67) and the
 per-block numpy sums (:68-71), are one here: each block sums its own
-range. Its twin, `block_sums_plain`, is an int64 prefix sum and P[e] -
-P[s]. A wrapper sends CUDA tensors to the kernel and CPU tensors to the
-twin; `block_sums.launches` counts the kernel's launches.
+range: a warp takes a run of RUN blocks and, where their hull fits in
+SPAN_ROWS rows, stages it in shared memory and answers each block from
+chunk prefix sums; a wider hull is summed a warp a block from global
+memory; with `long_blocks`, a block of more than SPAN_ROWS rows is cut
+into pieces of PIECE_ROWS rows that a second launch sums over the whole
+card (without, its warp sums it). Its twin, `block_sums_plain`, is an
+int64 prefix sum and P[e] - P[s]. A wrapper sends CUDA tensors to the
+kernel and CPU tensors to the twin; `block_sums.launches` counts the
+kernel's calls (one a call, with or without the pieces launch).
 
 JAX's sums are int32 and wrap past 2^31 (a block over a whole chromosome
 at coverage 255); numpy's and these do not.
@@ -25,6 +31,12 @@ import torch
 
 from .. import _kernels
 from ..device import resolve_device, timed
+
+# csrc/reduceat.cu's geometry, for the tests' model of its order of work
+RUN = 32             # blocks a warp takes
+SPAN_ROWS = 2040     # rows of a staged hull at most; a longer block is long
+STAGE_ROWS = 2048    # rows of a warp's stage
+PIECE_ROWS = 65536   # rows of a long block's piece
 
 
 def block_bounds(starts, ends, base, n):
@@ -53,12 +65,14 @@ def _check(data, bounds):
         raise ValueError(f"bounds on {bounds.device}, data on {data.device}")
 
 
-def block_sums(data, bounds):
+def block_sums(data, bounds, long_blocks=True):
     """int64 (B, C) sums of data[s:e] per row [s, e) of `bounds`.
 
     data: (N, 2) uint8 or uint16 on CUDA (the kernel), or (N, C) of any
     integer type on the CPU (block_sums_plain). bounds: int64 (B, 2), 0 <=
-    s <= e <= N (block_bounds), on data's device."""
+    s <= e <= N (block_bounds), on data's device. long_blocks False (the
+    caller knows no block is longer than SPAN_ROWS rows) skips the pieces
+    launch: a longer block is then still summed, by one warp."""
     _check(data, bounds)
     if data.device.type == "cpu":
         return block_sums_plain(data, bounds)
@@ -74,8 +88,13 @@ def block_sums(data, bounds):
     out = torch.empty((B, 2), dtype=torch.int64, device=data.device)
     if B == 0:
         return out
+    # the long blocks' list: a count, then up to B indices
+    scratch = (torch.empty(B + 1, dtype=torch.int64, device=data.device)
+               if long_blocks else None)
     _kernels.launch("block_sums", data.device, data.data_ptr(),
-                    bounds.data_ptr(), out.data_ptr(), B, itemsize)
+                    bounds.data_ptr(), out.data_ptr(),
+                    None if scratch is None else scratch.data_ptr(), B,
+                    data.shape[0], itemsize, int(bool(long_blocks)))
     block_sums.launches += 1
     return out
 
@@ -98,11 +117,12 @@ def block_sums_plain(data, bounds):
 
 def _sums_on(rows, bounds, dev, timings):
     """block_sums of the host table `rows` over host `bounds` on `dev`."""
+    long_blocks = bool((bounds[:, 1] - bounds[:, 0] > SPAN_ROWS).any())
     with timed(timings, "h2d", dev):
         d = torch.from_numpy(rows).to(dev)
         bd = torch.from_numpy(bounds).to(dev)
     with timed(timings, "kernel", dev):
-        return block_sums(d, bd)
+        return block_sums(d, bd, long_blocks)
 
 
 def reduce_data_to_blocks(data, starts, ends, base=1, device="cuda",
