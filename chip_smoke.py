@@ -171,10 +171,16 @@ result line:
      past 2^31, NA blocks, s == e, blocks clipped past N, uint16 data;
      pair_edge_batch: H and '.', start_rel < 0, the last site, length 1,
      counts to 3000; HOMOG_EDGE: exact ties on the edges, meth 0 and 1,
-     inclusive, min_cpgs 1 / 3 / 4, reads over many blocks), and timed
-     with CUDA events on its main-path launch beside its bound (bytes over
-     3.35 TB/s; pair_counts with its atomics) and its twin's time
-     (block_sums also beside one index_add_ of the rows by block id).
+     inclusive, min_cpgs 1 / 3 / 4, reads over many blocks, and the
+     shapes hot_block, wide_span, permuted_pairs, long_rows, big_counts,
+     hundred and mask_rows, each with the kernel's chunk stats), and timed
+     with CUDA events on its main-path launch beside its bound (bytes
+     over 3.35 TB/s; pair_counts with its atomics; homog_bins the same
+     counts on two runs, with its global atomics against the (chunk,
+     cell) pairs its passing pairs touch, and the same counts and its
+     time on rows of 25, 41 and 72 calls, HOMOG_ROW_FORMS) and its twin's
+     time (block_sums also beside one index_add_ of the rows by block
+     id).
 Then a summary (the card line again, build, end to end), one
 {"kernels": [...]} line (the 8 pileup kernels, maxplus_closure,
 segment_exact_dp, dp_scan, block_sums, pair_counts and homog_bins), and
@@ -2907,11 +2913,23 @@ BLOCK_EDGE = ("whole_genome_255", "uint16", "unsorted", "overlapping",
               "over_budget", "mixed_run")
 PAIR_EDGE = ("unsorted", "long_rows")
 PAIR_EDGE_SITES = 50_000
+# homog_bins' edge cases: ranges x clip x min_cpgs over the same reads, and
+# shapes of their own -> (ranges, inclusive, min_cpgs) (homog_edge_batch)
+HOMOG_SHAPES = {"hot_block": ("ties", False, 3),
+                "wide_span": ("rlen3", False, 3),
+                "permuted_pairs": ("ties", False, 3),
+                "long_rows": ("rlen3", False, 3),
+                "big_counts": ("rlen3", False, 3),
+                "hundred": ("hundred", False, 1),
+                "mask_rows": ("rlen3", False, 3)}
+# the shapes where some pairs fall outside their chunk's window
+HOMOG_DIRECT = ("wide_span", "permuted_pairs", "long_rows", "hundred")
 HOMOG_EDGE = tuple(f"{r}_{'inclusive' if inc else 'clipped'}_min{m}"
                    for r in ("ties", "rlen3") for inc in (False, True)
-                   for m in (1, 3, 4))
+                   for m in (1, 3, 4)) + tuple(HOMOG_SHAPES)
 HOMOG_RANGES = {"ties": [0.0, 0.25, 0.5, 1.0],
-                "rlen3": [0.0, 0.334, 0.667, 1.0]}
+                "rlen3": [0.0, 0.334, 0.667, 1.0],
+                "hundred": [k / 100 for k in range(101)]}
 
 
 def _tiling(rng, n_blocks, first, max_len=60):
@@ -3038,18 +3056,35 @@ def pair_edge_batch(name="unsorted"):
 
 def homog_edge_batch(name):
     """homog_bins' hand-made edges: (frags, bstart, bend, ranges,
-    min_cpgs, inclusive) of case `name` (HOMOG_EDGE). 20,000 fragments of
-    1-60 sites (a quarter of them 4 calls of T / C / H, so meth ties the
-    edges 0.25 and 0.5 exactly, and meth 0 and 1 come up) over blocks of
-    1-6 sites (a read covers many blocks), '.' and H among the calls,
-    counts up to 3000."""
+    min_cpgs, inclusive) of case `name` (HOMOG_EDGE). "<ranges>_<clip>_
+    min<m>": 20,000 fragments of 1-60 sites (a quarter of them 4 calls of
+    T / C / H, so meth ties the edges 0.25 and 0.5 exactly, and meth 0 and
+    1 come up) over blocks of 1-6 sites (a read covers many blocks), '.'
+    and H among the calls, counts up to 3000. The shapes (HOMOG_SHAPES):
+    "hot_block", the same reads inside one 100-site block (every pair
+    into one block's cells); "wide_span", the same reads over blocks of
+    10-40 sites, every 10th doubled half a block on (overlapping), and
+    one over the whole range first (ends not sorted: a chunk's window fits
+    only near the start); "permuted_pairs", the same reads and blocks, their pairs
+    shuffled (homog_edge_pairs); "long_rows", 5,000 reads of up to L = 200
+    sites over many blocks; "big_counts", the same reads with counts
+    within 3000 of 2^31 - 1 (cells past 2^32); "hundred", 100 bins (a
+    binary search) at min_cpgs 1; "mask_rows", 20,000 reads of up to L =
+    64 sites (clips past the kernel's prefetched words) with 1 % of the
+    calls bytes above 3 (neither T nor C or H)."""
     import numpy as np
 
     from wgbs_tools_tpu_torch.formats.pat import PatFrags
 
-    ranges, clip, m = name.split("_")
+    if name in HOMOG_SHAPES:
+        ranges, inclusive, m = HOMOG_SHAPES[name]
+    else:
+        ranges, clip, m = name.split("_")
+        inclusive, m = clip == "inclusive", int(m[3:])
     rng = np.random.default_rng(17)
-    F, L, n = 20_000, 60, 30_000
+    F, L, n = {"long_rows": (5_000, 200, 30_000),
+               "mask_rows": (20_000, 64, 30_000)}.get(name,
+                                                      (20_000, 60, 30_000))
     start = np.sort(rng.integers(1, n, size=F)).astype(np.int32)
     length = rng.integers(1, L + 1, size=F).astype(np.int32)
     length[::4] = 4
@@ -3058,23 +3093,88 @@ def homog_edge_batch(name):
     codes[::4, :4] = rng.integers(0, 3, size=(len(codes[::4]), 4))
     codes[np.arange(L)[None, :] >= length[:, None]] = 3
     count = rng.integers(1, 3001, size=F).astype(np.int32)
-    frags = PatFrags(start, length, count, codes, np.zeros(F, np.int16),
-                     ["chr1"])
     bend = np.cumsum(rng.integers(1, 7, size=n // 3)) + 1
     bstart = np.concatenate([[1], bend[:-1]])
+    if name == "hot_block":  # every read inside [hot, hot + 100)
+        k = int(np.searchsorted(bstart, 1000))
+        hot = int(bstart[k])
+        after = bstart >= hot + 100
+        bstart = np.concatenate([bstart[:k], [hot], bstart[after]])
+        bend = np.concatenate([bend[:k], [hot + 100], bend[after]])
+        start = hot + rng.integers(0, 100 - length + 1)
+        order = np.argsort(start, kind="stable")
+        start, length, codes, count = (a[order] for a in (start, length,
+                                                          codes, count))
+        start = start.astype(np.int32)
+    elif name == "wide_span":  # blocks of 10-40 sites, every 10th doubled
+        # half a block on, and one block over the whole range
+        bend = np.cumsum(rng.integers(10, 41, size=n // 25)) + 1
+        bstart = np.concatenate([[1], bend[:-1]])
+        idx = np.arange(0, bstart.shape[0], 10)
+        shift = (bend[idx] - bstart[idx]) // 2 + 1
+        bstart = np.concatenate([[1], np.insert(bstart, idx + 1,
+                                                bstart[idx] + shift)])
+        bend = np.concatenate([[n + L], np.insert(bend, idx + 1,
+                                                  bend[idx] + shift)])
+    elif name == "big_counts":
+        count = (2**31 - 1 - rng.integers(0, 3001, size=F)).astype(np.int32)
+    elif name == "mask_rows":
+        hit = rng.random((F, L)) < 0.01
+        codes[hit] = rng.integers(4, 256, size=int(hit.sum()))
+    frags = PatFrags(start, length, count, codes, np.zeros(F, np.int16),
+                     ["chr1"])
     return (frags, bstart.astype(np.int64), bend.astype(np.int64),
-            HOMOG_RANGES[ranges], int(m[3:]), clip == "inclusive")
+            HOMOG_RANGES[ranges], m, inclusive)
 
 
-def _homog_cols(frags, bstart, bend, ranges, dev):
+def homog_edge_pairs(name, frags, bstart, bend):
+    """The overlap pairs (fi, bi) homog_bins takes on edge case `name`:
+    overlap_pairs', by fragment then block, shuffled for
+    "permuted_pairs"."""
+    import numpy as np
+
+    from wgbs_tools_tpu_torch.ops.frag_ops import overlap_pairs
+
+    fi, bi = overlap_pairs(frags, bstart, bend)
+    if name == "permuted_pairs":
+        perm = np.random.default_rng(18).permutation(fi.shape[0])
+        fi, bi = fi[perm], bi[perm]
+    return fi, bi
+
+
+# '.' calls put before each row of the main path's slab (24 calls): rows of
+# 25 (no longer a multiple of 8), 41 (clips across the kernel's prefetched
+# words) and 72 calls (clips past them, more than 64 calls)
+HOMOG_ROW_FORMS = (1, 17, 48)
+
+
+def homog_row_form(cols, k):
+    """homog_bins' tensors of one slab (_homog_cols' order) with k '.'
+    calls (code 3) put before each row, each fragment starting k sites
+    earlier and k sites longer, and the same pairs: each clip holds the
+    same calls k bytes further into a row of L + k, and the gates pass the
+    same pairs (a clip that gains sites gains only '.', and informative,
+    which counts only calls, is at most the clip's length), so the counts
+    are the same."""
+    import torch
+
+    codes, fstart, flen, *rest = cols
+    wide = torch.full((codes.shape[0], codes.shape[1] + k), 3,
+                      dtype=torch.uint8, device=codes.device)
+    wide[:, k:] = codes
+    return [wide, fstart - k, flen + k] + rest
+
+
+def _homog_cols(frags, bstart, bend, ranges, dev, pairs=None):
     """The tensors homog_bins takes for one slab, on `dev`: (codes,
-    fstart, flen, fcount, bstart, bend, fi, bi, ranges)."""
+    fstart, flen, fcount, bstart, bend, fi, bi, ranges); `pairs` (fi, bi)
+    or overlap_pairs'."""
     import numpy as np
     import torch
 
     from wgbs_tools_tpu_torch.ops.frag_ops import overlap_pairs
 
-    fi, bi = overlap_pairs(frags, bstart, bend)
+    fi, bi = overlap_pairs(frags, bstart, bend) if pairs is None else pairs
     return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
         frags.codes, frags.start.astype(np.int32),
         frags.length.astype(np.int32), frags.count.astype(np.int32),
@@ -3143,18 +3243,37 @@ def _edge_checks(dev):
         parts.append(f"pair_counts {name} ({len(start):,} frags, L "
                      f"{codes.shape[1]}, {int(got.sum()):,} in the table; "
                      f"is_sorted {', '.join(map(str, hints))})")
+    shapes = []
     for name in HOMOG_EDGE:
         frags, bstart, bend, ranges, m, inclusive = homog_edge_batch(name)
-        cols = _homog_cols(frags, bstart, bend, ranges, dev)
+        cols = _homog_cols(frags, bstart, bend, ranges, dev,
+                           homog_edge_pairs(name, frags, bstart, bend))
         out = torch.zeros((len(bstart), len(ranges) - 1), dtype=torch.int64,
                           device=dev)
+        stats = torch.zeros(4, dtype=torch.int64, device=dev)
         got = _launch_checked(frag_ops.homog_bins, out.clone(), *cols, m,
-                              inclusive)
+                              inclusive, stats=stats)
         want = frag_ops.homog_bins_plain(out, *cols, m, inclusive)
         if not torch.equal(got, want) or int(got.sum()) == 0:
             raise RuntimeError(f"homog_bins != twin on edge case {name}")
+        chunks, direct, passing, atomics = stats.tolist()
+        P = cols[6].numel()
+        if chunks != -(-P // frag_ops.CHUNK) or passing != int(
+                (frag_ops.homog_cells_plain(*cols[:3], *cols[4:], m,
+                                            inclusive) >= 0).sum()):
+            raise RuntimeError(f"homog_bins' stats on {name}: {chunks} "
+                               f"chunks, {passing} passing pairs")
+        if (name in HOMOG_DIRECT) != (direct > 0):
+            raise RuntimeError(f"homog_bins added {direct} pairs straight "
+                               f"into out on {name}")
+        if name == "big_counts" and int(got.max()) <= 2**32:
+            raise RuntimeError("big_counts has no cell past 2^32")
+        if name in HOMOG_SHAPES:
+            shapes.append(f"{name} {P:,} pairs: {chunks:,} chunks, "
+                          f"{passing:,} passing, {direct:,} straight into "
+                          f"out, {atomics:,} global atomics")
     parts.append(f"homog_bins on {len(HOMOG_EDGE)} cases "
-                 f"({', '.join(HOMOG_EDGE)})")
+                 f"({', '.join(HOMOG_EDGE)}; {'; '.join(shapes)})")
     return "; ".join(parts)
 
 
@@ -3363,12 +3482,45 @@ def _homog_bins_timing(slab, bstart, bend, dev, regs):
     if not torch.equal(got, frag_ops.homog_bins_plain(out.clone(), *cols, 3,
                                                       False)):
         raise RuntimeError("homog_bins != twin on the first slab")
+    stats = torch.zeros(4, dtype=torch.int64, device=dev)
+    if not torch.equal(frag_ops.homog_bins(out.clone(), *cols, 3, False,
+                                           stats=stats), got):
+        raise RuntimeError("homog_bins gave other counts on a second run")
     cells = int((got != 0).sum())
     P = cols[6].numel()
+    # the global atomics against the (chunk, cell) pairs the passing pairs
+    # touch (the flush: at most one each; a pair outside its chunk's window
+    # one of its own) and the passing pairs (the earlier body's one each)
+    codes, fstart, flen, _, bs, be, fi, bi, rng = cols
+    cell = frag_ops.homog_cells_plain(codes, fstart, flen, bs, be, fi, bi,
+                                      rng, 3, False)
+    kept = cell >= 0
+    chunk = torch.arange(P, device=dev)[kept] // frag_ops.CHUNK
+    touched = int(torch.unique(chunk * got.numel() + cell[kept]).numel())
+    passing = int(kept.sum())
+    del cell, kept, chunk
+    n_chunks, direct, n_pass, atomics = stats.tolist()
+    if n_pass != passing or atomics - direct > touched:
+        raise RuntimeError(f"homog_bins: {n_pass:,} passing pairs (the "
+                           f"twin's {passing:,}), {direct:,} straight into "
+                           f"out, {atomics:,} global atomics for {touched:,} "
+                           f"(chunk, cell) pairs")
     ms = _device_ms(lambda: frag_ops.homog_bins(out, *cols, 3, False), 20)
     call_ms = _time_ms(lambda: frag_ops.homog_bins(out, *cols, 3, False), 20)
     plain_ms = _time_ms(
         lambda: frag_ops.homog_bins_plain(out, *cols, 3, False), 3)
+    # the same launch on rows of other lengths (homog_row_form): the same
+    # counts, timed
+    forms = {}
+    for k in HOMOG_ROW_FORMS:
+        wide = homog_row_form(cols, k)
+        if not torch.equal(frag_ops.homog_bins(torch.zeros_like(out),
+                                               *wide, 3, False), got):
+            raise RuntimeError(f"homog_bins on rows of {24 + k} calls "
+                               "gave other counts")
+        forms[int(wide[0].shape[1])] = _device_ms(
+            lambda w=wide: frag_ops.homog_bins(out, *w, 3, False), 20)
+        del wide
     # what the launch reaches: each pair's clip of its row's codes where
     # the clip passes the length gate (the blocks do not overlap, so no
     # call is read twice), the three columns of each fragment and the two
@@ -3390,11 +3542,20 @@ def _homog_bins_timing(slab, bstart, bend, dev, regs):
         f"frags and {nb:,} blocks reached), bound {bound_ms:.4f} ms; "
         f"kernel {ms:.4f} ms on "
         f"the card ({bound_ms / ms:.1%} of its bound), {call_ms:.4f} per "
-        f"call; twin {plain_ms:.4f} ms; registers {regs.get('homog_bins')}")
+        f"call; the same counts on two runs; {n_chunks:,} chunks of "
+        f"{frag_ops.CHUNK} pairs, {direct:,} pairs straight into out; "
+        f"{atomics:,} global atomics for {touched:,} "
+        f"(chunk, cell) pairs touched and {passing:,} passing pairs; twin "
+        f"{plain_ms:.4f} ms; registers {regs.get('homog_bins')}; the same "
+        f"launch on rows of other lengths (the same counts): " + ", ".join(
+            f"L {n} {t:.4f} ms" for n, t in forms.items()))
     del fs, clip
     return {"max_abs_err": 0, "ms": ms, "call_ms": call_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "bytes": n_bytes, "pairs": P}
+            "library_ms": None, "bytes": n_bytes, "pairs": P,
+            "global_atomics": atomics, "chunk_cells": touched,
+            "passing_pairs": passing, "direct_pairs": direct,
+            "row_forms_ms": forms}
 
 
 def _non_nice_bed(work, s, e):

@@ -4,8 +4,10 @@ tiled_classic) and the fragment-row kernels (tiles_v2, tiles_v1) of two
 source trees, on one GPU, on the slabs that chip_smoke.py's phase 3 gives
 them (tiles_v1 also on its long slab), of the max-plus closure
 (maxplus_closure) on fast segmentation's batch, of exact
-segmentation's DP (segment_exact_dp) on phase 8's batch, and of the
-analysis step's serial DP (dp_scan) on phase 9's cost shape.
+segmentation's DP (segment_exact_dp) on phase 8's batch, of the
+analysis step's serial DP (dp_scan) on phase 9's cost shape, and of the
+block and read-level kernels (block_sums, pair_counts, homog_bins) on
+phase 10's launches.
 
     python3 kernel_ab.py OTHER_TREE [--frags N] [--reps R] [--rounds K]
                          [--listed B[,B...]] [--kernels NAME[,NAME...]]
@@ -64,10 +66,19 @@ than SPAN_ROWS); a tree whose entry takes no long-block list (the earlier
 warp-a-block kernel's) is
 called without it. Every output must equal
 the twin's; each tree's registers and spills per kernel function are
-printed. --kernels picks the kernels (default: all). Prints the card's
-name and power limit, one line per kernel, slab and run, and last one
-JSON object with every run's times and each tree's ptxas registers (the
-most any template instance uses, and each instance's).
+printed. homog_bins: each tree's csrc/homog.cu is compiled alone, and
+both are called in the same turns on its main-path launch: the big pat's
+first slab over phase 8's exact blocks (made as for block_sums; no beta),
+the CLI's default ranges at rlen 3, min_cpgs 3, and on that launch with
+rows of 25, 41 and 72 calls (chip_smoke.homog_row_form: '.' calls before
+each row, the same counts); every output must equal the twin's. Where the
+other tree's homog.cu is the thread-a-pair body, a probe of it without
+its global atomic (HOMOG_NO_ATOMIC) is timed beside them on the main-path
+rows, its output unchecked. --kernels picks the kernels (default: all).
+Prints the card's name and power limit, one line per kernel, slab and
+run, and last one JSON object with every run's times and each tree's
+ptxas registers (the most any template instance uses, and each
+instance's).
 """
 
 import argparse
@@ -478,10 +489,21 @@ def ab_dps(trees, reps, rounds):
     return runs, summary, bodies
 
 
-BLK, PAIRS = "block_sums", "pair_counts"
+BLK, PAIRS, HOMOG = "block_sums", "pair_counts", "homog_bins"
 BLK_SRC = "wgbs_tools_tpu_torch/csrc/reduceat.cu"
 PAIRS_SRC = "wgbs_tools_tpu_torch/csrc/pairs.cu"
+HOMOG_SRC = "wgbs_tools_tpu_torch/csrc/homog.cu"
 PAIRS_BODIES = {"pair_counts_kernel": "pair_counts"}
+HOMOG_BODIES = {"homog_bins_kernel": "homog_bins"}
+# the probe of the thread-a-pair body (a tree whose homog.cu has that body):
+# its global atomicAdd under a test no pair passes (fcount >= 1 and bin >=
+# -1, so the sum is never min_cpgs - 100 at the A/B's min_cpgs 3), so every
+# load and the bin stay
+HOMOG_ATOMIC = re.compile(r"atomicAdd\(out \+ b \* nbins \+ bin,\s*"
+                          r"\(unsigned long long\)\(long long\)"
+                          r"fcount\[f\]\);")
+HOMOG_NO_ATOMIC = ("if ((long long)fcount[f] + bin == min_cpgs - 100) "
+                   "out[0] = 0;")
 
 
 def build_blk(tree, out_dir):
@@ -508,21 +530,45 @@ def build_pairs(tree, out_dir):
     return lib, regs, spills
 
 
+def build_homog(tree, out_dir, no_atomic=False):
+    """The tree's homog.cu alone (build_alone); its homog_bins entry takes
+    the same arguments in every tree. With `no_atomic`, the thread-a-pair
+    body's global atomic is taken out (HOMOG_NO_ATOMIC; None for a tree
+    with another body)."""
+    if no_atomic:
+        with open(op.join(tree, HOMOG_SRC)) as f:
+            src, n = HOMOG_ATOMIC.subn(HOMOG_NO_ATOMIC, f.read())
+        if n != 1:
+            return None
+        tree = op.join(out_dir, "tree")
+        os.makedirs(op.dirname(op.join(tree, HOMOG_SRC)), exist_ok=True)
+        with open(op.join(tree, HOMOG_SRC), "w") as f:
+            f.write(src)
+    lib, regs, spills = build_alone(tree, HOMOG_SRC, out_dir, HOMOG_BODIES)
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.homog_bins.argtypes = [vp] * 10 + [i64] * 5 + [vp]
+    lib.homog_bins.restype = ctypes.c_int
+    return lib, regs, spills
+
+
 def phase10_inputs(work, frags, which):
     """Phase 10's main-path inputs from chip_smoke.py's seeds: {"pat": the
-    big pat, "beta": its beta (the port's pat2beta on cuda), "bounds":
-    phase 8's exact blocks as block_bounds rows (the port's exact segment
-    on cuda)}; the beta and blocks only if block_sums is in `which`."""
+    big pat, "beta": its beta (the port's pat2beta on cuda), "blocks":
+    phase 8's exact blocks (s, e) (the port's exact segment on cuda),
+    "bounds": them as block_bounds rows}; the blocks only if block_sums
+    or homog_bins is in `which`, the beta and bounds only for
+    block_sums."""
     from wgbs_tools_tpu_torch.cli import cmd_segment
     from wgbs_tools_tpu_torch.ops import reduceat
     from wgbs_tools_tpu_torch.pipeline.pat2beta import pat2beta
 
     big, _ = chip_smoke.phase_data(work, frags)
     out = {"pat": big}
-    if BLK not in which:
+    if BLK not in which and HOMOG not in which:
         return out
-    out["beta"] = pat2beta(big, out_path=op.join(work, "big.beta"),
-                           device="cuda")
+    if BLK in which:
+        out["beta"] = pat2beta(big, out_path=op.join(work, "big.beta"),
+                               device="cuda")
     betas, _ = chip_smoke.write_seg_data(work, os.environ["WGBS_TPU_REFDIR"])
     bed = op.join(work, "exact.bed")
     args = chip_smoke.SEG_ARGS
@@ -532,20 +578,25 @@ def phase10_inputs(work, frags, which):
             str(args["pcount"]), "-o", bed]):
         raise RuntimeError("segment --mode exact on cuda failed")
     s, e = chip_smoke._blocks_of(bed)
-    out["bounds"] = reduceat.block_bounds(s, e, 1, chip_smoke.N_SITES)
+    out["blocks"] = (s, e)
+    if BLK in which:
+        out["bounds"] = reduceat.block_bounds(s, e, 1, chip_smoke.N_SITES)
     return out
 
 
-def _ab_turns(kernel, slab, calls, reps, rounds, runs, summary, what):
+def _ab_turns(kernel, slab, calls, reps, rounds, runs, summary, what,
+              unchecked=()):
     """calls {tree: launch} in turns other, this, this, other (rounds
-    times), each timed by chip_smoke._device_ms; fills runs and summary."""
+    times), each timed by chip_smoke._device_ms; fills runs and summary.
+    Every tree's output was held to the twin but those in `unchecked`."""
     order = (list(calls) + list(calls)[::-1]) * rounds
     for i, tree in enumerate(order):
         ms = chip_smoke._device_ms(calls[tree], reps)
         runs.append({"kernel": kernel, "slab": slab, "tree": tree,
                      "turn": i, "ms": ms})
         chip_smoke.log(f"A/B {kernel} on {slab} ({what}) turn {i} {tree}: "
-                       f"{ms:.4f} ms == twin")
+                       f"{ms:.4f} ms"
+                       + (" (a probe)" if tree in unchecked else " == twin"))
     med = summary[f"{kernel} {slab}"] = {
         tree: statistics.median(x["ms"] for x in runs if x["tree"] == tree
                                 and x["slab"] == slab
@@ -633,6 +684,58 @@ def ab_blocks_pairs(btrees, ptrees, inputs, reps, rounds):
             calls[tree] = launch
         _ab_turns(PAIRS, "the big pat's first slab", calls, reps, rounds,
                   runs, summary, f"{F:,} frags, L {L}")
+    return runs, summary
+
+
+def ab_homog(htrees, inputs, reps, rounds):
+    """Both trees' homog_bins on its main-path launch (the big pat's first
+    slab over phase 8's exact blocks, the CLI's default ranges at rlen 3)
+    and on it with rows of other lengths (chip_smoke.homog_row_form: the
+    same counts), in turns; every output == the twin's. The "probe" tree
+    (the other tree's body without its global atomic) is timed beside
+    them on the main-path rows, its output unchecked. Returns (runs,
+    {kernel slab: {tree: median ms}})."""
+    import torch
+
+    from wgbs_tools_tpu_torch.formats.pat import iter_pat
+    from wgbs_tools_tpu_torch.ops import frag_ops
+
+    dev = torch.device("cuda")
+    runs, summary = [], {}
+    s, e = inputs["blocks"]
+    slab = next(iter_pat(inputs["pat"]))
+    cols = chip_smoke._homog_cols(slab, s, e, chip_smoke.HOMOG_RANGES["rlen3"],
+                                  dev)
+    B, P, L = len(s), cols[6].numel(), cols[0].shape[1]
+    want = frag_ops.homog_bins_plain(
+        torch.zeros((B, 3), dtype=torch.int64, device=dev), *cols, 3, False)
+    for k in (0,) + chip_smoke.HOMOG_ROW_FORMS:
+        form = chip_smoke.homog_row_form(cols, k) if k else cols
+        calls = {}
+        for tree, (lib, _, _) in htrees.items():
+            if k and tree == "probe":
+                continue
+            out = torch.zeros((B, 3), dtype=torch.int64, device=dev)
+            ptrs = [c.data_ptr() for c in form] + [out.data_ptr()]
+
+            def launch(fn=lib.homog_bins, ptrs=ptrs):
+                err = fn(*ptrs, P, L + k, 3, 3, 0,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"homog_bins: CUDA error {err}")
+
+            launch()
+            torch.cuda.synchronize()
+            if tree != "probe" and not torch.equal(out, want):
+                raise RuntimeError(f"{tree} homog_bins on the first slab "
+                                   f"(rows of {L + k}): kernel != twin")
+            calls[tree] = launch
+        where = "the big pat's first slab" + (f", rows of {L + k}" if k
+                                              else "")
+        _ab_turns(HOMOG, where, calls, reps, rounds, runs, summary,
+                  f"{slab.nr_frags:,} frags, {P:,} pairs, {B:,} blocks, L "
+                  f"{L + k}", unchecked=("probe",))
+        del form
     return runs, summary
 
 
@@ -744,12 +847,14 @@ def main():
                         "default 7, the DP's)")
     p.add_argument("--kernels",
                    default=",".join(list(KERNELS)
-                                    + [MAXPLUS, SEGX, DPS, BLK, PAIRS]),
+                                    + [MAXPLUS, SEGX, DPS, BLK, PAIRS,
+                                       HOMOG]),
                    help="the kernels to A/B (comma-separated; default all)")
     args = p.parse_args()
     listed = [int(b) for b in args.listed.split(",") if b]
     picked = args.kernels.split(",")
-    unknown = set(picked) - set(KERNELS) - {MAXPLUS, SEGX, DPS, BLK, PAIRS}
+    unknown = set(picked) - set(KERNELS) - {MAXPLUS, SEGX, DPS, BLK, PAIRS,
+                                            HOMOG}
     if unknown:
         p.error(f"unknown kernels {sorted(unknown)}")
     pileups = [name for name in KERNELS if name in picked]
@@ -806,21 +911,30 @@ def main():
                                                "body": bodies.get(t)}
                 chip_smoke.log(f"dp_scan {t}: ptxas registers {r}, spill "
                                f"bytes {sp}, body at W 64 {bodies.get(t)}")
-        if BLK in picked or PAIRS in picked:
+        if BLK in picked or PAIRS in picked or HOMOG in picked:
+            both = (("other", op.abspath(args.other)), ("this", REPO))
             btrees = {t: build_blk(tree, op.join(work, "b" + t[0]))
-                      for t, tree in (("other", op.abspath(args.other)),
-                                      ("this", REPO))} \
-                if BLK in picked else {}
+                      for t, tree in both} if BLK in picked else {}
             ptrees = {t: build_pairs(tree, op.join(work, "p" + t[0]))
-                      for t, tree in (("other", op.abspath(args.other)),
-                                      ("this", REPO))} \
-                if PAIRS in picked else {}
+                      for t, tree in both} if PAIRS in picked else {}
+            htrees = {t: build_homog(tree, op.join(work, "h" + t[0]))
+                      for t, tree in both} if HOMOG in picked else {}
+            probe = build_homog(op.abspath(args.other),
+                                op.join(work, "hp"), True) if htrees \
+                else None
+            if probe:
+                htrees["probe"] = probe
             inputs = phase10_inputs(work, args.frags, picked)
             bruns, med = ab_blocks_pairs(btrees, ptrees, inputs, args.reps,
                                          args.rounds)
             runs += bruns
             summary.update(med)
-            for kernel, trees in ((BLK, btrees), (PAIRS, ptrees)):
+            if htrees:
+                hruns, med = ab_homog(htrees, inputs, args.reps, args.rounds)
+                runs += hruns
+                summary.update(med)
+            for kernel, trees in ((BLK, btrees), (PAIRS, ptrees),
+                                  (HOMOG, htrees)):
                 for t, built in trees.items():
                     regs.setdefault(t, {})[kernel] = {
                         "registers": built[1], "spills": built[2]}

@@ -240,3 +240,39 @@ def test_cuda_homog_bins_equals_twin(cuda_device, inclusive, ranges):
     assert np.array_equal(got, frag_ops.homog_counts(
         f, s, e, RANGES[ranges], min_cpgs=3, inclusive=inclusive,
         device="cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 7])
+@pytest.mark.parametrize("name", chip_smoke.HOMOG_EDGE)
+def test_cuda_homog_edge_equals_twin(cuda_device, name, offset):
+    """The kernel on chip_smoke.py's HOMOG_EDGE batches (the pairs the
+    smoke hands it, shuffled for permuted_pairs), the codes at byte
+    `offset` of their buffer (0: rows at one offset mod 8 where L is a
+    multiple of 8; 7: rows across word edges): == the twin, tolerance 0,
+    and its stats (chunks, pairs added
+    straight into out, passing pairs, global atomics) == the numpy
+    model's of its order of work."""
+    from test_torch_homog_chunks import model_counts
+
+    frags, bstart, bend, ranges, m, inclusive = chip_smoke.homog_edge_batch(
+        name)
+    fi, bi = chip_smoke.homog_edge_pairs(name, frags, bstart, bend)
+    cols = chip_smoke._homog_cols(frags, bstart, bend, ranges, cuda_device,
+                                  (fi, bi))
+    F, L = frags.codes.shape
+    buf = torch.empty(F * L + 16, dtype=torch.uint8, device=cuda_device)
+    cols[0] = buf[offset:offset + F * L].view(F, L)
+    cols[0].copy_(torch.from_numpy(frags.codes))
+    out = torch.zeros((len(bstart), len(ranges) - 1), dtype=torch.int64,
+                      device=cuda_device)
+    stats = torch.zeros(4, dtype=torch.int64, device=cuda_device)
+    got = frag_ops.homog_bins(out.clone(), *cols, m, inclusive, stats=stats)
+    torch.cuda.synchronize()
+    assert torch.equal(got, frag_ops.homog_bins_plain(out, *cols, m,
+                                                      inclusive))
+    want, st = model_counts(frags, bstart, bend, ranges, m, inclusive, fi,
+                            bi, align=cols[0].data_ptr() % 16)
+    assert np.array_equal(got.cpu().numpy(), want)
+    assert stats.tolist() == [st["chunks"], st["direct"], st["passing"],
+                              st["atomics"]]

@@ -482,6 +482,90 @@ def test_blocks_bed_io_equals_jax(tmp_path, blocks_bed):
         small["endCpG"][:7].tolist()
 
 
+def _bed_rows(n=300, seed=21):
+    """n wgbstools bed rows (no line ends) over two chromosomes."""
+    rng = np.random.default_rng(seed)
+    e = np.cumsum(rng.integers(1, 9, size=n)) + 1
+    s = np.concatenate([[1], e[:-1]])
+    return [f"{'chr1' if i < n // 2 else 'chrX'}\t{10 * a}\t{10 * b}\t{a}"
+            f"\t{b}".encode() for i, (a, b) in enumerate(zip(s, e))]
+
+
+def _bed_form(form):
+    """(file bytes, nrows, gz) of a blocks bed in form `form`."""
+    rows = _bed_rows()
+    nrows, gz = None, False
+    if form == "gz":
+        gz = True
+    elif form == "header":
+        rows.insert(0, b"chr\tstart\tend\tstartCpG\tendCpG")
+        rows.insert(120, b"chr\tstart\tend\tstartCpG\tendCpG")
+    elif form == "comments":
+        rows[0:0] = [b"#a comment", b"#\tx\ty"]
+        rows.insert(77, b"# mid-file")
+    elif form == "blank_lines":
+        rows[0:0] = [b""]
+        rows.insert(40, b"")
+        rows.insert(41, b"")
+    elif form == "na_nan":
+        for i, tok in ((3, b"NA"), (9, b"NaN"), (15, b"nan"), (21, b"")):
+            t = rows[i].split(b"\t")
+            rows[i] = b"\t".join(t[:3] + [tok, tok])
+    elif form == "more_columns":
+        rows = [r + b"\t0.5\tx\t" for r in rows]
+    elif form == "nrows":
+        nrows = 117
+        rows.insert(200, b"chr1\t5\t6")  # past nrows: never read
+    elif form == "crlf":
+        rows = [r + b"\r" for r in rows]
+    elif form == "odd_tokens":  # the loop's int() and strip() on these
+        rows[5] = b"chr1\t50\t +60 \t 5\t6 "
+        rows[6] = b"chr1\t60\t7_0\t0006\t\tNA"
+        rows[7] = b"chr1\t" + b"0" * 12 + b"1234567\t1\t2\t3"  # 19 digits
+    elif form == "short_line":
+        rows.insert(150, b"chr1\t5\t6\t7")
+    elif form == "bad_int":
+        rows[30] = b"chr1\t10\tx\t1\t2"
+    elif form == "non_utf8":
+        rows[40] = b"\xffchr\t10\t20\t1\t2"
+    data = b"\n".join(rows) + b"\n"
+    return (gzip.compress(data) if gz else data), nrows, gz
+
+
+BED_FORMS = ("gz", "header", "comments", "blank_lines", "na_nan",
+             "more_columns", "nrows", "crlf", "odd_tokens", "short_line",
+             "bad_int", "non_utf8")
+
+
+@pytest.mark.parametrize("form", BED_FORMS)
+def test_load_blocks_forms_equal_jax(tmp_path, form):
+    """The one-pass load_blocks on each bed form: JAX's line loop's arrays
+    and dtypes, or its error (type and message)."""
+    from wgbs_tools_tpu.formats import blocks as jblocks
+    from wgbs_tools_tpu_torch.formats import blocks as pblocks
+
+    data, nrows, gz = _bed_form(form)
+    path = str(tmp_path / ("b.bed.gz" if gz else "b.bed"))
+    with open(path, "wb") as f:
+        f.write(data)
+    outcome = []
+    for mod in (jblocks, pblocks):  # the result, or the error's name and text
+        try:
+            outcome.append(mod.load_blocks(path, nrows=nrows))
+        except Exception as e:  # noqa: BLE001 (compared by name and text)
+            outcome.append((type(e).__name__, str(e)))
+    want, got = outcome
+    if isinstance(want, tuple):
+        assert got == want
+        assert form in ("short_line", "bad_int", "non_utf8")
+        return
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype
+        assert np.array_equal(got[k], want[k]), k
+    assert len(want["start"]) == (117 if form == "nrows" else 300)
+
+
 @pytest.mark.parametrize("form", ["plain", "gzip", "bgzf"])
 def test_index_bed_equals_jax(tmp_path, blocks_bed, form):
     """bgzip + .tbi of a blocks bed (unsorted rows, comment, header, NA),

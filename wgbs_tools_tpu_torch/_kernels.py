@@ -131,8 +131,8 @@ def _bind(lib):
             # n)
             ("pair_counts", 5, 3),
             # homog bins: (codes, fstart, flen, fcount, bstart, bend, fi,
-            # bi, ranges, out), (P, L, nbins, min_cpgs, inclusive)
-            ("homog_bins", 10, 5)):
+            # bi, ranges, out[, stats]), (P, L, nbins, min_cpgs, inclusive)
+            ("homog_bins", 10, 5), ("homog_bins_stats", 11, 5)):
         fn = getattr(lib, name)
         fn.argtypes = [vp] * n_ptr + [i64] * n_int + [vp]
         fn.restype = i32

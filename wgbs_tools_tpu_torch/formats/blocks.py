@@ -13,7 +13,7 @@ import os
 
 import numpy as np
 
-from ..native import bgzf_compress_native
+from ..native import bed_scan_native, bgzf_compress_native
 from ..utils import IllegalArgumentError
 from .bgzf import BgzfWriter, decompress_file, is_gzip
 from .csi import write_tbi
@@ -28,35 +28,54 @@ def load_blocks(path, nrows=None):
     Accepts optional header, comments, gz compression. Returns
     {chr: object[n], start,end,startCpG,endCpG: int64[n]}; NA CpG columns
     become -1.
+
+    One pass over the file by the host library (native.bed_scan_native),
+    by the rules of JAX's line loop: lines split on "\n"; an empty line
+    or one that starts with "#" is skipped; one of fewer than 5
+    tab-separated columns raises; one whose second column is not all
+    digits (a header) is skipped; at most `nrows` rows (at least one). A
+    row with a column the scan leaves (a sign, an underscore, more than 18
+    digits) or a name that is not UTF-8 is converted by the loop's own
+    code, in file order, so it gives the loop's value or its error.
     """
     opener = gzip.open if is_gzip(path) else open
-    chroms, starts, ends, scpg, ecpg = [], [], [], [], []
     with opener(path, "rb") as f:
-        for i, line in enumerate(f):
-            line = line.rstrip(b"\n")
-            if not line or line.startswith(b"#"):
-                continue
-            tokens = line.split(b"\t")
-            if len(tokens) < 5:
-                raise IllegalArgumentError(
-                    f"Invalid blocks file: {path}. less than 5 columns. "
-                    "Run convert -L to add the CpG columns"
-                )
-            if not tokens[1].isdigit():  # header line
-                continue
-            chroms.append(tokens[0].decode())
-            starts.append(int(tokens[1]))
-            ends.append(int(tokens[2]))
-            scpg.append(_int_or_na(tokens[3]))
-            ecpg.append(_int_or_na(tokens[4]))
-            if nrows is not None and len(chroms) >= nrows:
-                break
+        buf = np.frombuffer(f.read(), dtype=np.uint8)
+    vals, name, line, flags, short_at = bed_scan_native(
+        buf, None if nrows is None else max(int(nrows), 1))
+    # one str a run of rows with the same name
+    heads = np.flatnonzero(flags & 2)
+    names = []
+    for i in heads.tolist():
+        try:
+            names.append(buf[name[i, 0]:name[i, 1]].tobytes().decode())
+        except UnicodeDecodeError:
+            names.append(None)
+    chroms = np.empty(len(names), dtype=object)
+    chroms[:] = names
+    chroms = chroms[np.cumsum(flags & 2 > 0) - 1]
+    odd = np.flatnonzero((flags & 1) | np.equal(chroms, None))
+    cols = [vals[:, k] for k in range(4)]
+    if odd.size:  # the loop's own conversions, in file order
+        cols = [c.astype(object) for c in cols]
+        for i in odd.tolist():
+            tokens = buf[line[i, 0]:line[i, 1]].tobytes().split(b"\t")
+            chroms[i] = tokens[0].decode()
+            cols[0][i] = int(tokens[1])
+            cols[1][i] = int(tokens[2])
+            cols[2][i] = _int_or_na(tokens[3])
+            cols[3][i] = _int_or_na(tokens[4])
+    if short_at >= 0:
+        raise IllegalArgumentError(
+            f"Invalid blocks file: {path}. less than 5 columns. "
+            "Run convert -L to add the CpG columns"
+        )
     return {
-        "chr": np.array(chroms, dtype=object),
-        "start": np.array(starts, dtype=np.int64),
-        "end": np.array(ends, dtype=np.int64),
-        "startCpG": np.array(scpg, dtype=np.int64),
-        "endCpG": np.array(ecpg, dtype=np.int64),
+        "chr": chroms,
+        "start": np.array(cols[0], dtype=np.int64),
+        "end": np.array(cols[1], dtype=np.int64),
+        "startCpG": np.array(cols[2], dtype=np.int64),
+        "endCpG": np.array(cols[3], dtype=np.int64),
     }
 
 

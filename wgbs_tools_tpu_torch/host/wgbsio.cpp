@@ -6,8 +6,9 @@
 //
 // The port's own copy of the functions it calls from native/wgbsio.cpp,
 // unchanged, with the same C names, so that a reader finds each one's
-// counterpart there. wgbs_tools_tpu_torch/native.py builds this file with
-// g++ at first use and binds it with ctypes.
+// counterpart there; bed_scan (the blocks bed's one pass) is the port's
+// own. wgbs_tools_tpu_torch/native.py builds this file with g++ at first
+// use and binds it with ctypes.
 //
 // Build: g++ -O3 -shared -fPIC -o libwgbs_host.so wgbsio.cpp segment_exact.cpp \
 //            -lz -lpthread
@@ -541,6 +542,103 @@ int64_t place_vals_rows(const uint8_t* codes, int64_t W, int64_t P,
         }
     }
     return P;
+}
+
+// ---------------------------------------------------------------------------
+// blocks bed scanning (formats/blocks.py::load_blocks)
+// ---------------------------------------------------------------------------
+
+// What bytes.strip() and int() strip.
+static inline bool bed_white(uint8_t c) {
+    return c == ' ' || c == '\t' || c == '\n' || c == '\r' || c == 0x0b ||
+           c == 0x0c;
+}
+
+// buf[s, e) as 1-18 plain digits into *v (such a value fits int64).
+static inline bool bed_plain(const uint8_t* buf, int64_t s, int64_t e,
+                             int64_t* v) {
+    if (e <= s || e - s > 18) return false;
+    int64_t x = 0;
+    for (int64_t i = s; i < e; i++) {
+        const unsigned d = (unsigned)buf[i] - '0';
+        if (d > 9) return false;
+        x = x * 10 + d;
+    }
+    *v = x;
+    return true;
+}
+
+// One pass over a blocks bed by the rules of the line loop of
+// wgbs_tools_tpu/formats/blocks.py::load_blocks: lines split on '\n'; an
+// empty line or one that starts with '#' is skipped; at a line of fewer
+// than 5 tab-separated columns the scan stops (*short_at = its offset; the
+// caller raises); a line whose second column is not all digits (a header)
+// is skipped; the scan stops after max_rows rows. Per row r: vals[4r ..
+// 4r + 3] = start, end, startCpG, endCpG (the last two -1 for NA / NaN /
+// nan / empty; columns 2-4 stripped of whitespace first); name[2r, 2r + 1]
+// = the first column's bounds; line[2r, 2r + 1] = the line's; flags[r] bit
+// 0 set where a column is not 1-18 plain digits (its value is then the
+// caller's to convert), bit 1 where the name differs from the last row's.
+// Returns the rows; the outputs hold max_rows (at most the lines) rows.
+int64_t bed_scan(const uint8_t* buf, int64_t len, int64_t max_rows,
+                 int64_t* vals, int64_t* name, int64_t* line, uint8_t* flags,
+                 int64_t* short_at) {
+    int64_t pos = 0, n = 0;
+    *short_at = -1;
+    while (pos < len && n < max_rows) {
+        const uint8_t* nl =
+            (const uint8_t*)memchr(buf + pos, '\n', (size_t)(len - pos));
+        const int64_t ls = pos, le = nl ? nl - buf : len;
+        pos = nl ? le + 1 : len;
+        if (le == ls || buf[ls] == '#') continue;
+        int64_t tab[5];
+        int nt = 0;
+        for (int64_t i = ls; i < le && nt < 5; i++)
+            if (buf[i] == '\t') tab[nt++] = i;
+        if (nt < 4) {
+            *short_at = ls;
+            break;
+        }
+        const int64_t cs[5] = {ls, tab[0] + 1, tab[1] + 1, tab[2] + 1,
+                               tab[3] + 1};
+        const int64_t ce[5] = {tab[0], tab[1], tab[2], tab[3],
+                               nt == 5 ? tab[4] : le};
+        bool header = ce[1] <= cs[1];
+        for (int64_t i = cs[1]; i < ce[1] && !header; i++)
+            header = (unsigned)buf[i] - '0' > 9;
+        if (header) continue;
+        int64_t* v = vals + 4 * n;
+        bool odd = !bed_plain(buf, cs[1], ce[1], v);
+        for (int k = 2; k <= 4; k++) {
+            int64_t s = cs[k], e = ce[k];
+            while (s < e && bed_white(buf[s])) s++;
+            while (e > s && bed_white(buf[e - 1])) e--;
+            const uint8_t* t = buf + s;
+            const bool na =
+                k >= 3 && (e == s || (e - s == 2 && t[0] == 'N' && t[1] == 'A') ||
+                           (e - s == 3 && t[1] == 'a' &&
+                            ((t[0] == 'N' && t[2] == 'N') ||
+                             (t[0] == 'n' && t[2] == 'n'))));
+            if (na)
+                v[k - 1] = -1;
+            else if (!bed_plain(buf, s, e, v + k - 1)) {
+                v[k - 1] = 0;
+                odd = true;
+            }
+        }
+        bool fresh = n == 0;
+        if (!fresh) {
+            const int64_t w = ce[0] - cs[0], pw = name[2 * n - 1] - name[2 * n - 2];
+            fresh = w != pw || memcmp(buf + cs[0], buf + name[2 * n - 2], (size_t)w);
+        }
+        name[2 * n] = cs[0];
+        name[2 * n + 1] = ce[0];
+        line[2 * n] = ls;
+        line[2 * n + 1] = le;
+        flags[n] = (uint8_t)(odd | (fresh << 1));
+        n++;
+    }
+    return n;
 }
 
 }  // extern "C"

@@ -76,6 +76,8 @@ def _bind(lib):
     lib.bgzf_decompress_mt.restype = ctypes.c_int
     lib.bgzf_decompress_mt.argtypes = [ctypes.c_char_p, i64, vp, vp, i64,
                                        ctypes.c_char_p, ctypes.c_int]
+    lib.bed_scan.restype = i64
+    lib.bed_scan.argtypes = [vp, i64, i64] + [vp] * 4 + [ctypes.POINTER(i64)]
     lib.pat_pileup.restype = None
     lib.pat_pileup.argtypes = [vp] * 4 + [i64] * 4 + [vp, ctypes.c_int]
     lib.pack_rows128.restype = i64
@@ -209,6 +211,29 @@ def parse_pat_native(data: bytes, threads=None):
             [data[a:b] if b > a else None for a, b in eo.tolist()],
             dtype=object)
     return starts, lengths, counts, codes, chrom_ids, chrom_names, extras
+
+
+def bed_scan_native(buf, max_rows=None):
+    """One pass over a blocks bed's bytes (a uint8 array) by host/
+    wgbsio.cpp::bed_scan: (vals int64 (n, 4): start, end, startCpG,
+    endCpG; name int64 (n, 2) and line int64 (n, 2): the first column's
+    and the line's bounds; flags uint8 (n,): bit 0 a column left to the
+    caller, bit 1 a new name; short_at: the offset of a line of fewer
+    than 5 columns that stopped the scan, or -1)."""
+    lib = get_lib()
+    buf = _c(buf, np.uint8)
+    cap = int(np.count_nonzero(buf == ord("\n"))) + 1
+    if max_rows is not None:
+        cap = min(cap, max_rows)
+    vals = np.empty((cap, 4), np.int64)
+    name = np.empty((cap, 2), np.int64)
+    line = np.empty((cap, 2), np.int64)
+    flags = np.empty(cap, np.uint8)
+    short_at = ctypes.c_int64(-1)
+    n = lib.bed_scan(buf.ctypes.data, buf.size, cap, vals.ctypes.data,
+                     name.ctypes.data, line.ctypes.data, flags.ctypes.data,
+                     ctypes.byref(short_at))
+    return vals[:n], name[:n], line[:n], flags[:n], short_at.value
 
 
 def bgzf_decompress_native(data: bytes, n_threads=None):

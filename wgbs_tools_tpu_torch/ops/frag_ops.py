@@ -5,11 +5,14 @@ The port's copy of what homog calls from wgbs_tools_tpu/ops/frag_ops.py:
 `device` takes the place of JAX's `backend`. The (read, block) overlap
 pairs are found on the host; each pair's clip, call counts, gates, bin
 and add run in `homog_bins`: CUDA tensors launch the kernel
-(csrc/homog.cu, one thread a pair, the slab's codes read through the
-pairs' fragment ids), CPU tensors take its twin `homog_bins_plain`.
-`homog_bins.launches` counts the kernel's launches. `HomogBins` keeps
-the (B, nbins) int64 counts on the device across a pat's slabs and
-fetches them once.
+(csrc/homog.cu: chunks of CHUNK pairs a warp, each counting into a
+shared-memory window of (block, bin) cells flushed by one global atomic
+a cell, a pair outside the window straight into out; each clip counted
+by T and C-or-H bit flags over its row's aligned 8-byte words, the same
+body for every row length and alignment), CPU tensors take
+its twin `homog_bins_plain`. `homog_bins.launches` counts the kernel's
+launches. `HomogBins` keeps the (B, nbins) int64 counts on the device
+across a pat's slabs and fetches them once.
 
 Semantics (ref: homog.cpp:154-196): H counts as C; a pair counts when the
 clip's length (the whole read's with `inclusive`) and nrC + nrT are both
@@ -27,6 +30,17 @@ from ..formats.pat import CODE_C, CODE_H, CODE_T, PatFrags
 from ..utils import IllegalArgumentError
 
 TWIN_PAIRS = 1 << 22  # pairs per slice of the twin's (pairs, L) masks
+# csrc/homog.cu's geometry: pairs a warp's chunk, (block, bin) cells of its
+# window, edges kept in shared memory, the most bins whose bin is a linear
+# count of the edges (a binary search above), the most informative calls
+# whose bin is looked up in a table, the 8-byte words of a row loaded with
+# its pair
+CHUNK = 256
+WINDOW_CELLS = 256
+EDGES_MAX = 256
+LINEAR_BINS = 8
+TABLE_CALLS = 64
+PREFETCH_WORDS = 4
 
 
 def overlap_pairs(frags: PatFrags, bstart, bend):
@@ -85,25 +99,39 @@ def _check(out, codes, fstart, flen, fcount, bstart, bend, fi, bi, ranges):
 
 
 def homog_bins(out, codes, fstart, flen, fcount, bstart, bend, fi, bi,
-               ranges, min_cpgs, inclusive):
+               ranges, min_cpgs, inclusive, stats=None):
     """out (B, nbins) int64 += the binned counts of the overlap pairs (fi,
     bi) of one slab (codes (F, L) uint8; fstart, flen, fcount int32 (F,);
-    bstart, bend int64 (B,); fi, bi int32 (P,); ranges float32
-    (nbins + 1,)), in place. CUDA tensors launch the kernel; CPU tensors
-    take homog_bins_plain. Returns out."""
+    bstart, bend int64 (B,); fi, bi int32 (P,), in any order; ranges
+    float32 (nbins + 1,), increasing from 0 to 1 as HomogBins checks
+    them), in place. CUDA tensors launch the kernel; CPU tensors take
+    homog_bins_plain. With `stats` (int64 (4,) on out's device, CUDA
+    only) the kernel adds its [chunks, pairs added straight into out,
+    passing pairs, global atomics] there. Returns out."""
     _check(out, codes, fstart, flen, fcount, bstart, bend, fi, bi, ranges)
     if out.device.type == "cpu":
+        if stats is not None:
+            raise ValueError("stats counts the kernel's work: CUDA only")
         return homog_bins_plain(out, codes, fstart, flen, fcount, bstart,
                                 bend, fi, bi, ranges, min_cpgs, inclusive)
+    if stats is not None and (stats.dtype != torch.int64
+                              or tuple(stats.shape) != (4,)
+                              or not stats.is_contiguous()
+                              or stats.device != out.device):
+        raise ValueError(f"stats: got {stats.dtype} {tuple(stats.shape)} "
+                         f"on {stats.device}, want torch.int64 (4,) on "
+                         f"{out.device}")
     P = fi.shape[0]
     if P == 0:
         return out
-    _kernels.launch("homog_bins", out.device, codes.data_ptr(),
-                    fstart.data_ptr(), flen.data_ptr(), fcount.data_ptr(),
-                    bstart.data_ptr(), bend.data_ptr(), fi.data_ptr(),
-                    bi.data_ptr(), ranges.data_ptr(), out.data_ptr(), P,
-                    codes.shape[1], out.shape[1], int(min_cpgs),
-                    int(bool(inclusive)))
+    ptrs = [codes.data_ptr(), fstart.data_ptr(), flen.data_ptr(),
+            fcount.data_ptr(), bstart.data_ptr(), bend.data_ptr(),
+            fi.data_ptr(), bi.data_ptr(), ranges.data_ptr(), out.data_ptr()]
+    if stats is not None:
+        ptrs.append(stats.data_ptr())
+    _kernels.launch("homog_bins" if stats is None else "homog_bins_stats",
+                    out.device, *ptrs, P, codes.shape[1], out.shape[1],
+                    int(min_cpgs), int(bool(inclusive)))
     homog_bins.launches += 1
     return out
 
@@ -118,36 +146,59 @@ def homog_bins_plain(out, codes, fstart, flen, fcount, bstart, bend, fi, bi,
     counts as float32, the gates, the float32 division, searchsorted and
     an index_add_ into out."""
     _check(out, codes, fstart, flen, fcount, bstart, bend, fi, bi, ranges)
-    nbins = out.shape[1]
-    L = codes.shape[1]
-    cols = torch.arange(L, device=out.device)[None, :]
     flat_out = out.view(-1)
     for lo in range(0, fi.shape[0], TWIN_PAIRS):
         f = fi[lo:lo + TWIN_PAIRS].to(torch.int64)
-        b = bi[lo:lo + TWIN_PAIRS].to(torch.int64)
-        s = fstart[f].to(torch.int64)
-        ln = flen[f].to(torch.int64)
-        if inclusive:
-            off = torch.zeros_like(s)
-            length = ln
-        else:
-            os_ = torch.maximum(s, bstart[b])
-            length = torch.minimum(s + ln, bend[b]) - os_
-            off = os_ - s
-        c = codes[f]
-        in_clip = (cols >= off[:, None]) & (cols < (off + length)[:, None])
-        nrC = (((c == CODE_C) | (c == CODE_H)) & in_clip).sum(dim=1).to(
-            torch.float32)
-        nrT = ((c == CODE_T) & in_clip).sum(dim=1).to(torch.float32)
-        informative = nrC + nrT
-        keep = ((length >= min_cpgs) & (informative >= min_cpgs)
-                & (informative > 0))
-        meth = nrC[keep] / informative[keep]
-        bins = torch.clamp(torch.searchsorted(ranges, meth, right=True) - 1,
-                           max=nbins - 1)
-        flat_out.index_add_(0, b[keep] * nbins + bins,
-                            fcount[f][keep].to(torch.int64))
+        cell = _cells(codes, fstart, flen, bstart, bend, f,
+                      bi[lo:lo + TWIN_PAIRS].to(torch.int64), ranges,
+                      out.shape[1], min_cpgs, inclusive)
+        keep = cell >= 0
+        flat_out.index_add_(0, cell[keep], fcount[f][keep].to(torch.int64))
     return out
+
+
+def homog_cells_plain(codes, fstart, flen, bstart, bend, fi, bi, ranges,
+                      min_cpgs, inclusive):
+    """The twin's (block, bin) cell of each pair, b * nbins + bin, int64
+    (P,), -1 where the pair does not count."""
+    nbins = ranges.shape[0] - 1
+    return torch.cat([_cells(codes, fstart, flen, bstart, bend,
+                             fi[lo:lo + TWIN_PAIRS].to(torch.int64),
+                             bi[lo:lo + TWIN_PAIRS].to(torch.int64), ranges,
+                             nbins, min_cpgs, inclusive)
+                      for lo in range(0, fi.shape[0], TWIN_PAIRS)]
+                     or [torch.zeros(0, dtype=torch.int64,
+                                     device=fi.device)])
+
+
+def _cells(codes, fstart, flen, bstart, bend, f, b, ranges, nbins, min_cpgs,
+           inclusive):
+    """The cells of the pairs (f, b) (int64), -1 where a pair does not
+    count."""
+    s = fstart[f].to(torch.int64)
+    ln = flen[f].to(torch.int64)
+    if inclusive:
+        off = torch.zeros_like(s)
+        length = ln
+    else:
+        os_ = torch.maximum(s, bstart[b])
+        length = torch.minimum(s + ln, bend[b]) - os_
+        off = os_ - s
+    c = codes[f]
+    cols = torch.arange(codes.shape[1], device=codes.device)[None, :]
+    in_clip = (cols >= off[:, None]) & (cols < (off + length)[:, None])
+    nrC = (((c == CODE_C) | (c == CODE_H)) & in_clip).sum(dim=1).to(
+        torch.float32)
+    nrT = ((c == CODE_T) & in_clip).sum(dim=1).to(torch.float32)
+    informative = nrC + nrT
+    keep = ((length >= min_cpgs) & (informative >= min_cpgs)
+            & (informative > 0))
+    meth = nrC[keep] / informative[keep]
+    bins = torch.clamp(torch.searchsorted(ranges, meth, right=True) - 1,
+                       max=nbins - 1)
+    cell = torch.full_like(b, -1)
+    cell[keep] = b[keep] * nbins + bins
+    return cell
 
 
 class HomogBins:
