@@ -6,7 +6,7 @@
 Phases, each printed as it runs; any failure exits nonzero and prints no
 result line:
   1. the card: `nvidia-smi` name and power limit; fails without CUDA.
-  2. build: nvcc compiles the nine sources csrc/*.cu for sm_90a, in
+  2. build: nvcc compiles the ten sources csrc/*.cu for sm_90a, in
      parallel (seconds and ptxas register counts printed), and g++ the
      port's host library (host/wgbsio.cpp and host/segment_exact.cpp) that
      decoding, staging, exact segmentation and the oracle run; both must
@@ -181,15 +181,44 @@ result line:
      time on rows of 25, 41 and 72 calls, HOMOG_ROW_FORMS) and its twin's
      time (block_sums also beside one index_add_ of the rows by block
      id).
+ 11. bam2pat at chromosome scale: a genome of 2 x 60,000,000 bp at about
+     hg19's CpG density (~1 a 100 bp; methylation in 300-site blocks of
+     0.15 / 0.85) and two coordinate-sorted BGZF BAMs made here from a
+     seed with vectorized numpy records (the port's bgzf_compress_native;
+     tests/bisim.py imports the JAX package): 4,000,000 pairs of 2 x 150
+     bp (~10x; ~2.3 GB of records, so the default route streams) and
+     2,000,000 single-end reads, ~1 % of the reads with a complex CIGAR
+     (soft clip, insertion, deletion), ~0.5 % MAPQ 5, ~0.5 % duplicates,
+     ~0.2 % of the pairs without a mate. bam2pat through the port's CLI on
+     cuda, with the launch counters set to 0 just before and read just
+     after: the default route (streamed), --no_stream and the single-end
+     BAM; call_reads, merge_pe (paired-end) and flat_vals_fused must
+     launch; each run's pat.gz and .csi equal --device cpu's bytes and its
+     .cdx arrays, its beta --device cpu's and (stream, single-end)
+     native.pileup_native + trim_to_uint of the pat, and the streamed pat
+     inflates to the --no_stream pat's text; stage seconds (scan, decode,
+     call with its h2d / kernel / d2h, merge, write, pat2beta) of each.
+     call_reads and merge_pe (csrc/calling.cu) on every launch the
+     streamed and the --no_stream runs on cuda made (their batches kept by
+     wrapping call_reads_device and merge_mates, split as the wrappers
+     split them; as many launches as the streamed run's counters) equal
+     their twins on the card at tolerance 0, each streamed batch numpy's
+     call_reads_mat / merge_pe_mat, and so do CALL_EDGE / MERGE_EDGE; each
+     launch timed (_device_ms, _time_ms) beside its bound (the bytes it
+     must move over 3.35 TB/s: each row's packed calls up to its span, not
+     the '.' padding past it) and its twin, with numpy's time and the h2d
+     of the sequence matrices; call_reads also on chr1's whole-file batch
+     in one launch.
 Then a summary (the card line again, build, end to end), one
 {"kernels": [...]} line (the 8 pileup kernels, maxplus_closure,
-segment_exact_dp, dp_scan, block_sums, pair_counts and homog_bins), and
-last {"ok": true, "device": ...}.
+segment_exact_dp, dp_scan, block_sums, pair_counts, homog_bins,
+call_reads and merge_pe), and last {"ok": true, "device": ...}.
 
 Scratch data goes to build/ (ignored by git) and is deleted at the end.
 """
 
 import argparse
+import contextlib
 import importlib
 import json
 import os
@@ -243,6 +272,11 @@ KERNELS = {
                     "wgbs_tools_tpu/ops/pairs.py:57"),
     "homog_bins": ("frag_ops", _CSRC + "homog.cu",
                    "wgbs_tools_tpu/ops/frag_ops.py:204"),
+    # bam2pat's jitted calling and mate merging
+    "call_reads": ("calling", _CSRC + "calling.cu",
+                   "wgbs_tools_tpu/ops/calling_tpu.py:59"),
+    "merge_pe": ("calling", _CSRC + "calling.cu",
+                 "wgbs_tools_tpu/ops/calling_tpu.py:113"),
 }
 # kernel -> its wrapper's name where the two differ (ops/pairs.py's
 # pair_counts is the one-shot count, pair_counts_add the kernel's wrapper)
@@ -338,20 +372,31 @@ def write_pat_gz(path, n_frags, seed, site_lo, site_hi, max_count, pool):
         f.write(BGZF_EOF)
 
 
-def write_genome(refs, n_sites):
-    """A one-chromosome reference dir with n_sites CpG sites, set as the
-    default genome (the layout of wgbs_tools_tpu/genome/cpg_index.py)."""
+def write_cpg_index(refs, name, chroms, loci, sizes):
+    """The reference dir refs/name: the CpG index of the chromosomes
+    `chroms` with their int32 loci and sizes (the layout of
+    wgbs_tools_tpu/genome/cpg_index.py)."""
     import numpy as np
 
-    gdir = op.join(refs, "hg19sites")
+    gdir = op.join(refs, name)
     os.makedirs(gdir)
-    loci = (np.arange(n_sites, dtype=np.int64) * 70 + 10).astype(np.int32)
-    np.savez(op.join(gdir, "cpg_index.npz"), loci=loci,
-             chrom_offsets=np.array([0, n_sites], np.int64),
-             chrom_sizes=np.array([int(loci[-1]) + 100], np.int64))
+    counts = [len(x) for x in loci]
+    np.savez(op.join(gdir, "cpg_index.npz"),
+             loci=np.concatenate(loci).astype(np.int32),
+             chrom_offsets=np.concatenate([[0], np.cumsum(counts)]).astype(
+                 np.int64), chrom_sizes=np.array(sizes, np.int64))
     with open(op.join(gdir, "cpg_index.json"), "w") as f:
-        json.dump({"name": "hg19sites", "chroms": ["chr1"],
-                   "nr_sites": n_sites}, f)
+        json.dump({"name": name, "chroms": list(chroms),
+                   "nr_sites": sum(counts)}, f)
+
+
+def write_genome(refs, n_sites):
+    """A one-chromosome reference dir with n_sites CpG sites, set as the
+    default genome."""
+    import numpy as np
+
+    loci = np.arange(n_sites, dtype=np.int64) * 70 + 10
+    write_cpg_index(refs, "hg19sites", ["chr1"], [loci], [loci[-1] + 100])
     os.symlink("hg19sites", op.join(refs, "default"))
 
 
@@ -1795,14 +1840,7 @@ def write_seg_data(work, refs):
 
     data = seg_data()
     loci = next(data)
-    gdir = op.join(refs, SEG_GENOME)
-    os.makedirs(gdir)
-    np.savez(op.join(gdir, "cpg_index.npz"), loci=loci.astype(np.int32),
-             chrom_offsets=np.array([0, N_SITES], np.int64),
-             chrom_sizes=np.array([int(loci[-1]) + 100], np.int64))
-    with open(op.join(gdir, "cpg_index.json"), "w") as f:
-        json.dump({"name": SEG_GENOME, "chroms": ["chr1"],
-                   "nr_sites": N_SITES}, f)
+    write_cpg_index(refs, SEG_GENOME, ["chr1"], [loci], [loci[-1] + 100])
     betas = [save_beta(op.join(work, f"seg{k}.beta"), beta)
              for k, beta in enumerate(data)]
     return betas, loci.astype(np.int32)
@@ -3595,6 +3633,200 @@ def _blocks_oracle(beta, s, e, lbeta):
     return trim_to_uint(P[ec] - P[sc], lbeta).tobytes()
 
 
+# ---------------------------------------------------------------------------
+# bam2pat's calling kernels: hand-made edges (tests/test_torch_calling.py
+# holds the twins to numpy and JAX on the same batches)
+# ---------------------------------------------------------------------------
+
+CALL_EDGE = ("random", "bottom_ends", "top_ends", "clip3", "clip_half",
+             "no_loci", "all_dots", "widened", "last_locus", "len0",
+             "single_end")
+MERGE_EDGE = ("random", "equal_starts", "b_before_a", "b_beyond",
+              "conflicts", "widths", "span0", "all_dots")
+EDGE_CHROM = 6000         # bp of the edges' chromosome
+EDGE_CPG_FREE = (3000, 3600)  # a stretch of it without a CpG
+EDGE_SITE_BASE = 1_000_000
+_PE_FLAGS = (99, 147, 83, 163, 81, 161, 113, 177)
+
+
+def _edge_chrom(rng):
+    """A chromosome (ACGT with a CpG planted about every 25 bp, none in
+    EDGE_CPG_FREE, one at its very end) and its 1-based CpG loci."""
+    import numpy as np
+
+    seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, EDGE_CHROM)]
+    seq = seq.copy()
+    at = rng.choice(EDGE_CHROM - 1, EDGE_CHROM // 25, replace=False)
+    seq[at], seq[at + 1] = ord("C"), ord("G")
+    lo, hi = EDGE_CPG_FREE
+    cg = np.nonzero((seq[:-1] == ord("C")) & (seq[1:] == ord("G")))[0]
+    seq[cg[(cg >= lo - 1) & (cg < hi)] + 1] = ord("A")
+    seq[-2:] = (ord("C"), ord("G"))
+    loci = (np.nonzero((seq[:-1] == ord("C")) & (seq[1:] == ord("G")))[0]
+            + 1).astype(np.int32)
+    return seq, loci
+
+
+def _edge_read(rng, seq, pos0, n, bottom):
+    """Bisulfite bytes of seq[pos0:pos0 + n] on one strand: a C (top) or G
+    (bottom) outside a CpG converts, one inside a CpG converts with p 0.3,
+    and 1 % of the bytes are N."""
+    import numpy as np
+
+    r = seq[pos0:pos0 + n].copy()
+    nxt = np.append(seq[pos0 + 1:pos0 + n + 1], 0)[:r.shape[0]]
+    prv = seq[max(pos0 - 1, 0):pos0 - 1 + r.shape[0]] if pos0 else \
+        np.append([0], seq[:r.shape[0] - 1])
+    conv = rng.random(r.shape[0]) < 0.3
+    if bottom:
+        g = r == ord("G")
+        r[g & ((prv != ord("C")) | conv)] = ord("A")
+    else:
+        c = r == ord("C")
+        r[c & ((nxt != ord("G")) | conv)] = ord("T")
+    r[rng.random(r.shape[0]) < 0.01] = ord("N")
+    return r
+
+
+def call_edge_batch(name):
+    """call_reads_mat's inputs of a hand-made edge: {positions, flags,
+    paired, loci, site_base, seqmat, lens, clip}. The edges: bottom reads
+    whose first byte is a CpG's C and whose last is a CpG's G or C
+    (bottom_ends), top reads ending on a CpG's C (top_ends), clip 3, clip
+    >= len / 2, reads with no CpG in reach, reads whose CpGs are all '.',
+    a matrix widened past its reads (a 500-byte read among 100-byte ones),
+    reads over the chromosome's last locus, rows of length 0, and
+    single-end flags (every batch but that one is paired-end, with the
+    flags of both mates of OT and OB pairs and of pairs whose proper-pair
+    bit is clear)."""
+    import numpy as np
+
+    rng = np.random.default_rng(CALL_EDGE.index(name) + 40)
+    seq, loci = _edge_chrom(rng)
+    n, L, clip, paired = 600, 150, 0, name != "single_end"
+    pos0 = rng.integers(0, EDGE_CHROM - L, n)
+    lens = rng.integers(30, L + 1, n)
+    if name == "bottom_ends":
+        k = rng.integers(0, loci.shape[0] - 8, n)
+        pos0 = loci[k].astype(np.int64) - 1
+        ends = loci[k + rng.integers(2, 8, n)].astype(np.int64)
+        lens = np.minimum(ends - pos0 + rng.integers(0, 2, n), L)
+    elif name == "top_ends":
+        k = rng.integers(8, loci.shape[0] - 1, n)
+        lens = rng.integers(30, L + 1, n)
+        pos0 = np.maximum(loci[k].astype(np.int64) - lens, 0)
+        lens = loci[k].astype(np.int64) - pos0
+    elif name == "clip3":
+        clip = 3
+    elif name == "clip_half":
+        lens = rng.integers(2, 61, n)  # clip >= len / 2 up to 40
+        clip = 20
+    elif name == "no_loci":
+        lo, hi = EDGE_CPG_FREE
+        pos0 = rng.integers(lo, hi - lens)
+    elif name == "widened":
+        L = 520
+        lens[:5] = rng.integers(480, 501, 5)
+        pos0 = np.minimum(pos0, EDGE_CHROM - lens)
+    elif name == "last_locus":
+        pos0 = rng.integers(EDGE_CHROM - 140, EDGE_CHROM - 2, n)
+        lens = np.minimum(lens, EDGE_CHROM - pos0)
+    if paired:
+        flags = np.asarray(_PE_FLAGS)[rng.integers(0, len(_PE_FLAGS), n)]
+        bottom = ((flags & 0x53) == 83) | ((flags & 0xA3) == 163)
+    else:
+        flags = rng.choice([0, 16, 83, 99], n)
+        bottom = (flags & 0x10) != 0
+    if name == "bottom_ends":
+        flags = np.where(rng.random(n) < 0.5, 83, 163)
+        bottom[:] = True
+    elif name == "top_ends":
+        flags = np.where(rng.random(n) < 0.5, 99, 147)
+        bottom[:] = False
+    seqmat = np.zeros((n, L), np.uint8)
+    for r in range(n):
+        read = _edge_read(rng, seq, int(pos0[r]), int(lens[r]), bottom[r])
+        lens[r] = read.shape[0]
+        if name == "all_dots":
+            # no CpG context left: a top read's G and a bottom read's C go
+            read[read == (ord("C") if bottom[r] else ord("G"))] = ord("T")
+        seqmat[r, :read.shape[0]] = read
+    if name == "len0":
+        zero = rng.random(n) < 0.15
+        lens[zero] = 0
+        seqmat[zero] = 0
+    return dict(positions=pos0.astype(np.int64) + 1,
+                flags=flags.astype(np.int64), paired=paired, loci=loci,
+                site_base=EDGE_SITE_BASE, seqmat=seqmat,
+                lens=lens.astype(np.int64), clip=clip)
+
+
+def _edge_pats(rng, spans, p_dot=0.3):
+    """'.'-padded pattern chars (n, max span) of the given spans: T and C,
+    some H, p_dot of '.'."""
+    import numpy as np
+
+    W = max(int(spans.max(initial=1)), 1)
+    pats = np.frombuffer(b"TCH.", np.uint8)[rng.choice(
+        4, (spans.shape[0], W), p=[(1 - p_dot) * 0.48, (1 - p_dot) * 0.48,
+                                   (1 - p_dot) * 0.04, p_dot])].copy()
+    pats[np.arange(W)[None, :] >= spans[:, None]] = ord(".")
+    return pats
+
+
+def merge_edge_batch(name):
+    """merge_pe_mat's inputs of a hand-made edge: (s1, pat1, sp1, s2,
+    pat2, sp2). The edges: equal starts, mate 2 first, mate 2 past mate
+    1's span, overlaps that disagree, pairs 299, 300 and 301 sites wide
+    (either mate first), mates of span 0, all-'.' mates."""
+    import numpy as np
+
+    rng = np.random.default_rng(MERGE_EDGE.index(name) + 60)
+    n = 600
+    s1 = rng.integers(1, 10_000_000, n).astype(np.int64)
+    sp1 = rng.integers(1, 81, n).astype(np.int64)
+    sp2 = rng.integers(1, 81, n).astype(np.int64)
+    off = rng.integers(-50, 151, n)
+    p_dot = 0.3
+    if name == "equal_starts":
+        off[:] = 0
+    elif name == "b_before_a":
+        off = -rng.integers(1, 61, n)
+    elif name == "b_beyond":
+        off = sp1 + rng.integers(1, 41, n)
+    elif name == "widths":
+        sp1 = rng.integers(100, 201, n).astype(np.int64)
+        sp2 = rng.integers(100, 201, n).astype(np.int64)
+        width = 299 + rng.integers(0, 3, n)
+        off = width - sp2
+        off = np.where(rng.random(n) < 0.5, off, -(width - sp1))
+    elif name == "span0":
+        zero1 = rng.random(n) < 0.4
+        sp1[zero1] = 0
+        sp2[~zero1 & (rng.random(n) < 0.6)] = 0
+    elif name == "all_dots":
+        p_dot = 1.0
+    s2 = np.maximum(s1 + off, 0)
+    pat1 = _edge_pats(rng, sp1, p_dot)
+    if name == "conflicts":
+        # mate 2 copies mate 1's overlap, then a third of its calls flip
+        off = rng.integers(0, 40, n)
+        s2 = s1 + off
+        pat2 = np.full((n, int(sp2.max())), ord("."), np.uint8)
+        for r in range(n):
+            o = int(off[r])
+            take = pat1[r, o:int(sp1[r])][: int(sp2[r])]
+            pat2[r, :take.shape[0]] = take
+            rest = int(sp2[r]) - take.shape[0]
+            pat2[r, take.shape[0]:int(sp2[r])] = _edge_pats(
+                rng, np.array([rest]))[0, :rest]
+        flip = (rng.random(pat2.shape) < 0.33) & (pat2 != ord("."))
+        pat2[flip] = np.where(pat2[flip] == ord("T"), ord("C"), ord("T"))
+    else:
+        pat2 = _edge_pats(rng, sp2, p_dot)
+    return s1, pat1, sp1, s2, pat2, sp2
+
+
 def phase_blocks(work, big, n_frags, seg_out, regs):
     """Phase 10: beta_to_blocks, beta_to_table, pat2pairs and homog through
     the port's CLI on cuda at hg19 size, each with the launch counters set
@@ -3792,6 +4024,703 @@ def phase_blocks(work, big, n_frags, seg_out, regs):
     return res, launches, "; ".join(lines)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: bam2pat at chromosome scale, on BAMs made here from a seed
+# (vectorized numpy records, BGZF by the port's host library; the JAX
+# package's test simulator is not imported)
+# ---------------------------------------------------------------------------
+
+BAM_GENOME = "bam2chr"
+BAM_CHROMS = ("chr1", "chr2")
+BAM_CHROM_BP = 60_000_000
+BAM_CPG_KEEP = 0.16       # CpGs kept of random ACGT's 1 in 16: ~1 a 100 bp
+BAM_BLOCK = 300           # sites per methylation block (p 0.15 / 0.85)
+BAM_PAIRS = 4_000_000     # 2 x 150 bp: ~10x over the 120 Mbp
+BAM_SE_READS = 2_000_000
+READ_LEN = 150
+BAM_CHUNK = 250_000       # records encoded and compressed at a time
+BAM_FRACS = dict(complex=0.01, low_mapq=0.005, dup=0.005, single=0.002)
+# 4-bit BAM base codes ("=ACMGRSVTWYHKDBN")
+_NIB = [0] * 256
+for _i, _c in enumerate("=ACMGRSVTWYHKDBN"):
+    _NIB[ord(_c)] = _i
+# the complex CIGARs (as tests/bisim.py's variants): soft clip, insertion,
+# deletion; (op, length) words, l_seq READ_LEN each
+_CIGARS = ([(0, READ_LEN)], [(4, 5), (0, READ_LEN - 5)],
+           [(0, 10), (1, 3), (0, READ_LEN - 13)],
+           [(0, 10), (2, 2), (0, READ_LEN - 10)])
+
+
+def bam_genome(rng):
+    """The genome's bytes (the chromosomes back to back, uint8 ACGT), per
+    byte the methylation probability x 256 of the CpG it belongs to (its C
+    or G; 0 elsewhere), and each chromosome's 1-based CpG loci."""
+    import numpy as np
+
+    n = BAM_CHROM_BP
+    seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 2 * n,
+                                                        dtype=np.uint8)]
+    seq = seq.copy()
+    seq[n - 1] = ord("A")  # no CpG across the chromosomes' seam
+    cg = np.nonzero((seq[:-1] == ord("C")) & (seq[1:] == ord("G")))[0]
+    drop = cg[rng.random(cg.shape[0]) >= BAM_CPG_KEEP]
+    seq[drop + 1] = ord("A")
+    cg = np.nonzero((seq[:-1] == ord("C")) & (seq[1:] == ord("G")))[0]
+    p = np.where(rng.random(cg.shape[0] // BAM_BLOCK + 1) < 0.5, 38, 218)
+    pm = np.zeros(2 * n, np.uint8)
+    pm[cg] = pm[cg + 1] = p[np.arange(cg.shape[0]) // BAM_BLOCK]
+    loci = [(cg[(cg >= k * n) & (cg < (k + 1) * n)] - k * n + 1).astype(
+        np.int32) for k in range(2)]
+    return seq, pm, loci
+
+
+def _bam_records(rng, paired):
+    """The records' columns, coordinate-sorted: chrom, pos (0-based), flag,
+    mapq, CIGAR kind (_CIGARS), mate chrom and pos, pair id."""
+    import numpy as np
+
+    n = BAM_PAIRS if paired else BAM_SE_READS
+    chrom = rng.integers(0, 2, n)
+    bottom = rng.random(n) < 0.5
+    if paired:
+        p1 = rng.integers(0, BAM_CHROM_BP - 1000, n)
+        frag = np.clip(rng.normal(320, 60, n), 170, 700).astype(np.int64)
+        p2 = p1 + frag - READ_LEN
+        pos = np.stack([p1, p2], 1)
+        flag = np.where(bottom[:, None], [83, 163], [99, 147])
+        mate = pos[:, ::-1]
+        keep = np.ones((n, 2), bool)
+        single = rng.random(n) < BAM_FRACS["single"]
+        keep[single, rng.integers(0, 2, int(single.sum()))] = False
+        rec = dict(chrom=np.repeat(chrom, 2), pos=pos.ravel(),
+                   flag=flag.ravel(), mate=mate.ravel(),
+                   pair=np.repeat(np.arange(n), 2))
+        rec = {k: v[keep.ravel()] for k, v in rec.items()}
+    else:
+        pos = rng.integers(0, BAM_CHROM_BP - READ_LEN, n)
+        rec = dict(chrom=chrom, pos=pos, flag=np.where(bottom, 16, 0),
+                   mate=np.full(n, -1), pair=np.arange(n))
+    m = rec["pos"].shape[0]
+    rec["mapq"] = np.where(rng.random(m) < BAM_FRACS["low_mapq"], 5, 60)
+    rec["flag"] = rec["flag"] | np.where(rng.random(m) < BAM_FRACS["dup"],
+                                         0x400, 0)
+    rec["kind"] = np.where(rng.random(m) < BAM_FRACS["complex"],
+                           rng.integers(1, 4, m), 0)
+    order = np.lexsort((rec["pos"], rec["chrom"]))
+    return {k: v[order] for k, v in rec.items()}
+
+
+def _bam_reads(rng, rec, sl, seq, pm):
+    """The bisulfite bytes (n, READ_LEN) of the records sl: a top read's C
+    stays C only at a CpG drawn methylated, a bottom read's G likewise;
+    1 in 1,000 bytes is N, and each CIGAR kind shapes its bytes as
+    tests/bisim.py's variants do."""
+    import numpy as np
+
+    g = rec["chrom"][sl] * BAM_CHROM_BP + rec["pos"][sl]
+    win = np.lib.stride_tricks.sliding_window_view
+    r = win(seq, READ_LEN)[g]
+    meth = rng.integers(0, 256, r.shape, dtype=np.uint8) < win(pm,
+                                                               READ_LEN)[g]
+    flag = rec["flag"][sl]
+    bottom = (((flag & 0x53) == 83) | ((flag & 0xA3) == 163)
+              | ((flag & 0x11) == 0x10))
+    top = ~bottom
+    rt, rb = r[top], r[bottom]
+    rt[(rt == ord("C")) & ~meth[top]] = ord("T")
+    rb[(rb == ord("G")) & ~meth[bottom]] = ord("A")
+    r[top], r[bottom] = rt, rb
+    flat = r.reshape(-1)
+    flat[rng.integers(0, flat.size, rng.binomial(flat.size, 1e-3))] = ord("N")
+    kind = rec["kind"][sl]
+    rows = np.nonzero(kind == 1)[0]  # 5S: 5 A's, then the first 145 bytes
+    r[rows, 5:] = r[rows, :READ_LEN - 5]
+    r[rows, :5] = ord("A")
+    rows = np.nonzero(kind == 2)[0]  # 10M3I: 3 A's after the 10th byte
+    r[rows, 13:] = r[rows, 10:READ_LEN - 3]
+    r[rows, 10:13] = ord("A")
+    return r
+
+
+# each CIGAR kind's bytes in a record's widest CIGAR slot (3 words), and
+# which bytes of a record laid out at the widest a kind keeps
+_CIGAR_SLOT = 12
+_REC_MAX = 36 + 10 + _CIGAR_SLOT + READ_LEN // 2 + READ_LEN
+
+
+def _cigar_tables():
+    import numpy as np
+
+    words = np.zeros((len(_CIGARS), _CIGAR_SLOT), np.uint8)
+    keep = np.ones((len(_CIGARS), _REC_MAX), bool)
+    for k, cig in enumerate(_CIGARS):
+        w = np.array([(ln << 4) | o for o, ln in cig], "<u4").view(np.uint8)
+        words[k, :w.size] = w
+        keep[k, 46 + w.size:46 + _CIGAR_SLOT] = False
+    return words, keep
+
+
+def _encode_chunk(rng, rec, sl, seq, pm, paired):
+    """The BAM records of sl, as bytes: each laid out at the widest CIGAR,
+    then the unused CIGAR bytes dropped."""
+    import numpy as np
+
+    n = sl.stop - sl.start
+    reads = _bam_reads(rng, rec, sl, seq, pm)
+    nib = np.array(_NIB, np.uint8)[reads]
+    kind = rec["kind"][sl]
+    words, keep = _cigar_tables()
+    nc = np.array([len(c) for c in _CIGARS])[kind]
+    hdr = np.zeros(n, np.dtype([
+        ("bs", "<i4"), ("ref", "<i4"), ("pos", "<i4"), ("lqn", "u1"),
+        ("mapq", "u1"), ("bin", "<u2"), ("nc", "<u2"), ("flag", "<u2"),
+        ("lseq", "<i4"), ("nref", "<i4"), ("npos", "<i4"), ("tlen", "<i4")]))
+    hdr["bs"] = 32 + 10 + 4 * nc + READ_LEN // 2 + READ_LEN
+    hdr["ref"] = rec["chrom"][sl]
+    hdr["pos"] = rec["pos"][sl]
+    hdr["lqn"] = 10
+    hdr["mapq"] = rec["mapq"][sl]
+    hdr["nc"] = nc
+    hdr["flag"] = rec["flag"][sl]
+    hdr["lseq"] = READ_LEN
+    hdr["nref"] = rec["chrom"][sl] if paired else -1
+    hdr["npos"] = rec["mate"][sl]
+    mat = np.empty((n, _REC_MAX), np.uint8)
+    mat[:, :36] = hdr.view(np.uint8).reshape(n, 36)
+    pw = 10 ** np.arange(7, -1, -1, dtype=np.int64)
+    mat[:, 36] = ord("p")  # the qname "p%08d\0" of the pair
+    mat[:, 37:45] = rec["pair"][sl][:, None] // pw % 10 + ord("0")
+    mat[:, 45] = 0
+    mat[:, 46:46 + _CIGAR_SLOT] = words[kind]
+    o = 46 + _CIGAR_SLOT
+    mat[:, o:o + READ_LEN // 2] = (nib[:, 0::2] << 4) | nib[:, 1::2]
+    mat[:, o + READ_LEN // 2:] = 0xFF
+    return mat[keep[kind]].tobytes()
+
+
+def write_bam(path, seed, paired, seq, pm):
+    """A coordinate-sorted BGZF BAM of BAM_PAIRS pairs (paired) or
+    BAM_SE_READS reads over the genome, BAM_FRACS of them with a complex
+    CIGAR, MAPQ 5, a duplicate flag or (pairs) no mate; chunks of
+    BAM_CHUNK records are made and compressed on the host's cores, each
+    from its own seed. Returns the records' count."""
+    import numpy as np
+
+    from wgbs_tools_tpu_torch.native import bgzf_compress_native
+
+    rec = _bam_records(np.random.default_rng(seed), paired)
+    text = "".join(f"@SQ\tSN:{c}\tLN:{BAM_CHROM_BP}\n" for c in BAM_CHROMS)
+    head = (b"BAM\x01" + struct.pack("<i", len(text)) + text.encode()
+            + struct.pack("<i", 2) + b"".join(
+                struct.pack("<i", len(c) + 1) + c.encode() + b"\x00"
+                + struct.pack("<i", BAM_CHROM_BP) for c in BAM_CHROMS))
+    m = rec["pos"].shape[0]
+
+    def chunk(k):
+        lo = k * BAM_CHUNK
+        data = _encode_chunk(np.random.default_rng([seed, k]), rec,
+                             slice(lo, min(lo + BAM_CHUNK, m)), seq, pm,
+                             paired)
+        comp = bgzf_compress_native(head + data if k == 0 else data,
+                                    n_threads=1, level=1)
+        return comp[:-len(BGZF_EOF)]
+
+    with open(path, "wb") as f, ThreadPoolExecutor(os.cpu_count()
+                                                   or 4) as pool:
+        for comp in pool.map(chunk, range((m + BAM_CHUNK - 1) // BAM_CHUNK)):
+            f.write(comp)
+        f.write(BGZF_EOF)
+    return m
+
+
+BAM_RUNS = (("stream", "pe", []), ("no_stream", "pe", ["--no_stream"]),
+            ("se", "se", []))
+BAM_KERNELS = ("call_reads", "merge_pe")
+
+
+def _bam2pat_cli(what, argv, need):
+    """cmd_bam2pat.main(argv) with the launch counters set to 0 just before
+    and read just after; the kernels `need` must launch. Returns (wall,
+    stage seconds, launches)."""
+    from wgbs_tools_tpu_torch.cli import cmd_bam2pat
+
+    timings = {}
+    _zero_launches()
+    t0 = time.perf_counter()
+    if cmd_bam2pat.main(argv, timings=timings):
+        raise RuntimeError(f"{what} failed")
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    _require_launches(f"phase 11 {what}", launches, need)
+    return wall, timings, launches
+
+
+def _same_pat(got, want):
+    """pat.gz and .csi the same bytes, .cdx the same arrays."""
+    import numpy as np
+
+    for ext in ("", ".csi"):
+        if not _same(got + ext, want + ext):
+            raise RuntimeError(f"{got}{ext} != {want}{ext}")
+    a, b = np.load(got + ".cdx"), np.load(want + ".cdx")
+    if sorted(a.files) != sorted(b.files) or not all(
+            np.array_equal(a[k], b[k]) for k in a.files):
+        raise RuntimeError(f"{got}.cdx's arrays != {want}.cdx's")
+
+
+def _beta_oracle(pat, n_sites):
+    """native.pileup_native + trim_to_uint of a pat: the beta's bytes."""
+    import numpy as np
+
+    from wgbs_tools_tpu_torch.formats.beta import trim_to_uint
+    from wgbs_tools_tpu_torch.formats.pat import iter_pat
+    from wgbs_tools_tpu_torch.native import pileup_native
+
+    out = np.zeros((n_sites, 2), np.int64)
+    for f in iter_pat(pat):
+        pileup_native(f.start, f.length, f.count, f.codes, 1, n_sites, out=out)
+    return trim_to_uint(out).tobytes()
+
+
+@contextlib.contextmanager
+def _main_path_batches():
+    """Keeps, in the dict it yields, every batch that the run inside the
+    block hands to call_reads_device ("call": its (args, kwargs) a call)
+    and to the merge ("merge": merge_mates' six arrays a call), from every
+    chromosome thread, by wrapping both functions for the block."""
+    import threading
+
+    from wgbs_tools_tpu_torch.ops import calling
+    from wgbs_tools_tpu_torch.pipeline import bam_columnar
+
+    got = {"call": [], "merge": []}
+    lock = threading.Lock()
+    call_fn, merge_fn = calling.call_reads_device, bam_columnar.merge_mates
+
+    def call_spy(*args, **kw):
+        with lock:
+            got["call"].append((args, kw))
+        return call_fn(*args, **kw)
+
+    def merge_spy(*args, **kw):
+        with lock:
+            got["merge"].append(args[:6])
+        return merge_fn(*args, **kw)
+
+    calling.call_reads_device, bam_columnar.merge_mates = call_spy, merge_spy
+    try:
+        yield got
+    finally:
+        calling.call_reads_device, bam_columnar.merge_mates = call_fn, \
+            merge_fn
+
+
+def _call_launches(call, dev, rows):
+    """The call_reads launches of one batch as call_reads_device makes
+    them with chunks of `rows` reads (calling.ROWS on the path): a list of
+    (the launch's arguments on the card, its host pos1 and lens)."""
+    import numpy as np
+    import torch
+
+    from wgbs_tools_tpu_torch.ops import calling
+
+    (pos1, flags, paired, loci, site_base, seqmat, lens), kw = call
+    R = seqmat.shape[0]
+    if R == 0:
+        return []
+    pos1, lens, bottom, KB = calling.call_columns(pos1, flags, paired,
+                                                  seqmat, lens)
+    loci_t = torch.from_numpy(np.ascontiguousarray(loci, np.int32)).to(dev)
+    out = []
+    for lo in range(0, R, rows):
+        sl = slice(lo, min(lo + rows, R))
+        cols = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+            seqmat[sl].astype(np.uint8, copy=False), lens[sl].astype(np.int32),
+            pos1[sl].astype(np.int32), bottom[sl].astype(np.uint8))]
+        out.append(((*cols, loci_t, int(kw["clip"]), KB), pos1[sl], lens[sl]))
+    return out
+
+
+def _call_bytes(pos1, lens, loci, span):
+    """The bytes a call_reads launch must move: its three columns (9 bytes
+    a read), 2 bytes of a row a covered CpG (the call and its neighbour),
+    the loci in reach once; out first_k and span (8 bytes a read) and each
+    read's packed calls, ceil(span / 4) bytes (the '.' bytes past a span
+    that the kernel writes and nothing reads are not counted)."""
+    import numpy as np
+
+    R = pos1.shape[0]
+    ends = pos1 + lens
+    covered = int((np.searchsorted(loci, ends)
+                   - np.searchsorted(loci, pos1)).sum())
+    reach = int(np.searchsorted(loci, int(ends.max()))
+                - np.searchsorted(loci, int(pos1.min())))
+    packed = int(((span.astype(np.int64) + 3) // 4).sum())
+    return 9 * R + 2 * covered + 4 * reach + 8 * R + packed, covered
+
+
+def _launch_figures(launches, kernel, plain, bytes_of):
+    """Each launch held to its twin (tolerance 0) and timed: the card's
+    time (_device_ms), the time a call (_time_ms), the twin's, and its
+    bound from bytes_of(launch, kernel's outputs). Returns the sums and the
+    launches' sizes."""
+    import torch
+
+    tot = {"launches": 0, "ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0,
+           "bound_ms": 0.0, "bytes": 0, "rows": [], "ms_each": []}
+    for args, host in launches:
+        k = kernel(*args)
+        if not all(torch.equal(a, b) for a, b in zip(k, plain(*args))):
+            raise RuntimeError(f"{kernel.__name__} != its twin on a launch "
+                               f"of {args[0].shape[0]:,} rows")
+        n_bytes = bytes_of(host, k)
+        ms = _device_ms(lambda: kernel(*args), 5)
+        tot["launches"] += 1
+        tot["ms"] += ms
+        tot["call_ms"] += _time_ms(lambda: kernel(*args), 5)
+        tot["plain_ms"] += _time_ms(lambda: plain(*args), 1)
+        tot["bound_ms"] += _bound(n_bytes, 0)[0]
+        tot["bytes"] += n_bytes
+        tot["rows"].append(int(args[0].shape[0]))
+        tot["ms_each"].append(ms)
+    return tot
+
+
+def _per_launch(tot):
+    n = tot["launches"]
+    return {k: tot[k] / n for k in ("ms", "call_ms", "plain_ms", "bound_ms")}
+
+
+def _route_line(what, tot, unit):
+    each = _per_launch(tot)
+    return (f"{what}: {tot['launches']} launches of {min(tot['rows']):,}-"
+            f"{max(tot['rows']):,} {unit} ({sum(tot['rows']):,} in all; == "
+            f"twin, tolerance 0): {tot['bytes']:,} bytes, bound "
+            f"{tot['bound_ms']:.4f} ms; kernel {tot['ms']:.4f} ms in all "
+            f"({tot['bound_ms'] / tot['ms']:.1%} of its bound), "
+            f"{each['ms']:.4f} ms a launch (the launches "
+            f"{', '.join(f'{m:.4f}' for m in tot['ms_each'])}), "
+            f"{each['call_ms']:.4f} a call; twin {tot['plain_ms']:.4f} ms in "
+            f"all")
+
+
+def _calling_timing(routes, dev, regs):
+    """call_reads on the launches that the streamed and whole-file runs
+    made (their batches split at calling.ROWS as call_reads_device splits
+    them), each == its twin on the card, each streamed batch's
+    call_reads_device == numpy's call_reads_mat (tolerance 0; the whole-
+    file run's bytes were held to --device cpu's); timed a launch beside
+    its bound, with the h2d of the sequence matrices and numpy's time on
+    the streamed batches; and chr1's
+    whole-file batch in one launch. Returns the kernel's results: its
+    figures a launch on the default (streamed) route."""
+    import numpy as np
+    import torch
+
+    from wgbs_tools_tpu_torch.ops import calling
+    from wgbs_tools_tpu_torch.pipeline.calling import call_reads_mat
+
+    def call_bytes(host, k):
+        return _call_bytes(*host, k[1].cpu().numpy())[0]
+
+    res, lines = {}, []
+    for name, batches in routes.items():
+        numpy_s = h2d_s = 0.0
+        tot = None
+        for call in batches:
+            (pos1, flags, paired, loci, site_base, seqmat, lens), kw = call
+            if name == "stream":
+                t0 = time.perf_counter()
+                want = call_reads_mat(pos1, flags, paired, loci, site_base,
+                                      seqmat, lens, clip=kw["clip"])
+                numpy_s += time.perf_counter() - t0
+                got = calling.call_reads_device(
+                    pos1, flags, paired, loci, site_base, seqmat, lens,
+                    clip=kw["clip"], device=dev)
+                if not all(a.dtype == b.dtype and np.array_equal(a, b)
+                           for a, b in zip(got, want)):
+                    raise RuntimeError("call_reads_device on cuda != "
+                                       "call_reads_mat on a streamed batch")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.from_numpy(seqmat).to(dev)
+            torch.cuda.synchronize()
+            h2d_s += time.perf_counter() - t0
+            launches = _call_launches(call, dev, calling.ROWS)
+            part = _launch_figures(
+                [(a, (p, n, loci)) for a, p, n in launches],
+                calling.call_reads, calling.call_reads_plain,
+                lambda host, k: call_bytes(host, k))
+            tot = part if tot is None else {
+                k: tot[k] + part[k] for k in tot}
+            del launches
+            torch.cuda.empty_cache()
+        tot.update(h2d_ms=1e3 * h2d_s, numpy_ms=1e3 * numpy_s,
+                   batches=len(batches))
+        res[name] = tot
+        line = _route_line(f"call_reads on the {name} run's launches ("
+                           f"{len(batches)} batches)", tot, "reads")
+        line += (f"; h2d of the sequence matrices (pageable) "
+                 f"{tot['h2d_ms']:.3f} ms" + (
+                     f"; == call_reads_mat, numpy {tot['numpy_ms']:.1f} ms"
+                     if name == "stream" else ""))
+        log("phase 11: " + line)
+        lines.append(line)
+    # chr1's whole-file batch in a single launch, a launch no route makes
+    call = next(c for c in routes["no_stream"]
+                if c[1].get("chrom") == BAM_CHROMS[0])
+    (args, pos1, lens), = _call_launches(call, dev, call[0][5].shape[0])
+    k = calling.call_reads(*args)
+    n_bytes, covered = _call_bytes(pos1, lens, call[0][3],
+                                   k[1].cpu().numpy())
+    one = {"reads": int(pos1.shape[0]), "bytes": n_bytes,
+           "bound_ms": _bound(n_bytes, 0)[0],
+           "ms": _device_ms(lambda: calling.call_reads(*args), 10)}
+    del args, k
+    torch.cuda.empty_cache()
+    line = (f"call_reads on chr1's whole-file batch in one launch "
+            f"({one['reads']:,} reads, {covered:,} covered CpGs): "
+            f"{n_bytes:,} bytes, bound {one['bound_ms']:.4f} ms; kernel "
+            f"{one['ms']:.4f} ms ({one['bound_ms'] / one['ms']:.1%}); "
+            f"registers {regs.get('call_reads')}")
+    log("phase 11: " + line)
+    lines.append(line)
+    job = res["stream"]
+    return {"max_abs_err": 0, **_per_launch(job), "bound_by": "bytes",
+            "library_ms": None, "bytes_per_launch":
+            job["bytes"] / job["launches"], "job": job,
+            "whole_file": res["no_stream"], "single_launch": one}, lines
+
+
+def _merge_launches(merge, dev, rows):
+    """The merge_pe launches of one batch as merge_pe_device makes them
+    with chunks of `rows` pairs: a list of (the launch's arguments on the
+    card, its host spans of both mates)."""
+    import numpy as np
+    import torch
+
+    s1, p1, sp1, s2, p2, sp2 = merge
+    out = []
+    for lo in range(0, s1.shape[0], rows):
+        sl = slice(lo, min(lo + rows, s1.shape[0]))
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+            np.asarray(s1[sl], np.int64), np.asarray(sp1[sl], np.int32),
+            p1[sl].astype(np.uint8, copy=False),
+            np.asarray(s2[sl], np.int64), np.asarray(sp2[sl], np.int32),
+            p2[sl].astype(np.uint8, copy=False))]
+        out.append((args, (np.asarray(sp1[sl], np.int64),
+                           np.asarray(sp2[sl], np.int64))))
+    return out
+
+
+def _merge_bytes(sp1, sp2, span):
+    """The bytes a merge_pe launch must move: the starts and spans (24
+    bytes a pair), each mate's chars up to its span; out the start, span
+    and too_long (13 bytes a pair) and each pair's packed codes, ceil(span
+    / 4) bytes (not the 75 the kernel writes)."""
+    n = sp1.shape[0]
+    return (24 * n + int(sp1.sum() + sp2.sum()) + 13 * n
+            + int(((span.astype("int64") + 3) // 4).sum()))
+
+
+def _merging_timing(routes, dev, regs):
+    """merge_pe on the launches that the streamed and whole-file runs made
+    (at calling.ROWS pairs a launch, as merge_pe_device makes them), each
+    == its twin on the card, each streamed batch's merge_pe_device ==
+    numpy's merge_pe_mat (tolerance 0), timed a launch beside its bound
+    and numpy's time. Returns its figures a launch on the streamed
+    route."""
+    import numpy as np
+    import torch
+
+    from wgbs_tools_tpu_torch.ops import calling
+    from wgbs_tools_tpu_torch.pipeline.calling import merge_pe_mat
+
+    res, lines = {}, []
+    for name, batches in routes.items():
+        numpy_s, tot, too_long = 0.0, None, 0
+        for merge in batches:
+            if merge[0].shape[0] == 0:  # merge_pe_device launches nothing
+                continue
+            if name == "stream":
+                t0 = time.perf_counter()
+                want = merge_pe_mat(*merge)
+                numpy_s += time.perf_counter() - t0
+                got = calling.merge_pe_device(*merge, device=dev)
+                if not all(a.dtype == b.dtype and np.array_equal(a, b)
+                           for a, b in zip(got, want)):
+                    raise RuntimeError("merge_pe_device on cuda != "
+                                       "merge_pe_mat on a streamed batch")
+                too_long += int(got[3].sum())
+            part = _launch_figures(
+                _merge_launches(merge, dev, calling.ROWS), calling.merge_pe,
+                calling.merge_pe_plain,
+                lambda host, k: _merge_bytes(*host, k[1].cpu().numpy()))
+            tot = part if tot is None else {
+                k: tot[k] + part[k] for k in tot}
+        tot.update(numpy_ms=1e3 * numpy_s, batches=len(batches),
+                   too_long=too_long)
+        res[name] = tot
+        line = _route_line(f"merge_pe on the {name} run's launches",
+                           tot, "pairs")
+        line += ((f"; == merge_pe_mat, {too_long:,} too long, numpy "
+                  f"{tot['numpy_ms']:.1f} ms" if name == "stream" else "")
+                 + f"; registers {regs.get('merge_pe')}")
+        log("phase 11: " + line)
+        lines.append(line)
+    torch.cuda.empty_cache()
+    job = res["stream"]
+    return {"max_abs_err": 0, **_per_launch(job), "bound_by": "bytes",
+            "library_ms": None, "bytes_per_launch":
+            job["bytes"] / job["launches"], "job": job,
+            "whole_file": res["no_stream"]}, lines
+
+
+def _calling_edges(dev):
+    """call_reads and merge_pe on CALL_EDGE / MERGE_EDGE: the kernel ==
+    its twin == numpy (tolerance 0)."""
+    import numpy as np
+
+    from wgbs_tools_tpu_torch.ops import calling
+    from wgbs_tools_tpu_torch.pipeline.calling import (call_reads_mat,
+                                                       merge_pe_mat)
+
+    def same(*outs):
+        return all(a.dtype == b.dtype and np.array_equal(a, b)
+                   for o in outs[1:] for a, b in zip(outs[0], o))
+
+    called = []
+    for name in CALL_EDGE:
+        b = call_edge_batch(name)
+        args = (b["positions"], b["flags"], b["paired"], b["loci"],
+                b["site_base"], b["seqmat"], b["lens"])
+        outs = [calling.call_reads_device(*args, clip=b["clip"], device=d)
+                for d in (dev, "cpu")]
+        outs.append(call_reads_mat(*args, clip=b["clip"]))
+        if not same(*outs):
+            raise RuntimeError(f"call_reads: CALL_EDGE {name}: kernel, twin "
+                               "and numpy differ")
+        called.append(f"{name} {int((outs[0][0] >= 0).sum())}")
+    merged = []
+    for name in MERGE_EDGE:
+        b = merge_edge_batch(name)
+        outs = [calling.merge_pe_device(*b, device=d) for d in (dev, "cpu")]
+        outs.append(merge_pe_mat(*b))
+        if not same(*outs):
+            raise RuntimeError(f"merge_pe: MERGE_EDGE {name}: kernel, twin "
+                               "and numpy differ")
+        merged.append(f"{name} {int((outs[0][0] >= 0).sum())}/"
+                      f"{int(outs[0][3].sum())}")
+    return (f"call_reads on CALL_EDGE (reads with a call): "
+            f"{', '.join(called)}; merge_pe on MERGE_EDGE (merged / too "
+            f"long): {', '.join(merged)}")
+
+
+def phase_bam2pat(work, regs):
+    """Phase 11: bam2pat at chromosome scale through the port's CLI on cuda
+    (the default streaming route, --no_stream, single-end), each against
+    --device cpu's bytes, the beta against the host pileup; the two calling
+    kernels against their twins on every launch the PE runs made on cuda,
+    against numpy on the streamed batches, and on the edges, timed a
+    launch. Returns ({kernel: results a launch of the streamed run},
+    {kernel: (path, launches)}, summary line)."""
+    import numpy as np
+    import torch
+
+    from wgbs_tools_tpu_torch.genome.refdir import Genome
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    refs = os.environ["WGBS_TPU_REFDIR"]
+    t0 = time.perf_counter()
+    seq, pm, loci = bam_genome(np.random.default_rng(180))
+    write_cpg_index(refs, BAM_GENOME, BAM_CHROMS, loci, [BAM_CHROM_BP] * 2)
+    bams = {"pe": op.join(work, "pe.bam"), "se": op.join(work, "se.bam")}
+    n_rec = {"pe": write_bam(bams["pe"], 181, True, seq, pm),
+             "se": write_bam(bams["se"], 182, False, seq, pm)}
+    del seq, pm
+    n_sites = Genome(BAM_GENOME).get_nr_sites()
+    line = (f"data: {len(BAM_CHROMS)} x {BAM_CHROM_BP:,} bp, {n_sites:,} "
+            f"CpG sites; pe.bam {n_rec['pe']:,} records "
+            f"({op.getsize(bams['pe']) / 1e6:.1f} MB), se.bam "
+            f"{n_rec['se']:,} ({op.getsize(bams['se']) / 1e6:.1f} MB), "
+            f"made in {time.perf_counter() - t0:.3f} s")
+    log("phase 11: " + line)
+    lines, launches, batches = [line], {}, {}
+    for name, bam, flags in BAM_RUNS:
+        outs = {}
+        for device in ("cuda", "cpu"):
+            d = op.join(work, f"bam_{name}_{device}")
+            os.makedirs(d)
+            need = ((("call_reads", "merge_pe") if bam == "pe"
+                     else ("call_reads",)) + ("flat_vals_fused",)
+                    if device == "cuda" else ())
+            main_path = device == "cuda" and bam == "pe"
+            with (_main_path_batches() if main_path
+                  else contextlib.nullcontext({})) as got:
+                wall, tm, ln = _bam2pat_cli(
+                    f"bam2pat {name} --device {device}",
+                    [bams[bam], "-o", d, "--genome", BAM_GENOME, "--device",
+                     device] + flags, need)
+            if main_path:
+                batches[name] = got
+            outs[device] = (op.join(d, bam + ".pat.gz"), wall, tm, ln)
+        got, want = outs["cuda"][0], outs["cpu"][0]
+        _same_pat(got, want)
+        beta = got[: -len(".pat.gz")] + ".beta"
+        if not _same(beta, want[: -len(".pat.gz")] + ".beta"):
+            raise RuntimeError(f"{beta} != --device cpu's")
+        if name != "no_stream":
+            with open(beta, "rb") as f:
+                if f.read() != _beta_oracle(got, n_sites):
+                    raise RuntimeError(f"{beta} != the host pileup's")
+        ln = outs["cuda"][3]
+        if name == "stream":
+            launches.update({k: ("phase 11 bam2pat CLI (default: streamed)",
+                                 ln) for k in BAM_KERNELS})
+        wall, tm = outs["cuda"][1:3]
+        line = (f"bam2pat {name} on cuda: {wall:.3f} s ({_stages(tm)}), "
+                f"launches call_reads {ln['call_reads']} merge_pe "
+                f"{ln['merge_pe']} flat_vals_fused {ln['flat_vals_fused']} "
+                f"flat_classic {ln['flat_classic']}; --device cpu "
+                f"{outs['cpu'][1]:.3f} s ({_stages(outs['cpu'][2])}); pat.gz "
+                f"({op.getsize(got):,} bytes) and .csi == --device cpu's, "
+                f".cdx arrays equal, beta == --device cpu's"
+                + ("" if name == "no_stream" else " and the host pileup's"))
+        log("phase 11: " + line)
+        lines.append(line)
+    # the streamed and the whole-file pat inflate to the same text
+    a, b = (op.join(work, f"bam_{n}_cuda", "pe.pat.gz")
+            for n in ("stream", "no_stream"))
+    from wgbs_tools_tpu_torch.native import bgzf_decompress_native
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        if bgzf_decompress_native(fa.read()) != bgzf_decompress_native(
+                fb.read()):
+            raise RuntimeError("the streamed pat's text != --no_stream's")
+    # the kernels on the launches the two PE runs made on cuda; the
+    # streamed run's must be as many as its counters say
+    res = {}
+    for kernel, key, timing in (("call_reads", "call", _calling_timing),
+                                ("merge_pe", "merge", _merging_timing)):
+        res[kernel], more = timing(
+            {n: batches[n][key] for n in ("stream", "no_stream")}, dev, regs)
+        if res[kernel]["job"]["launches"] != launches[kernel][1][kernel]:
+            raise RuntimeError(
+                f"{kernel}: {res[kernel]['job']['launches']} launches made "
+                f"of the streamed run's batches, its counter says "
+                f"{launches[kernel][1][kernel]}")
+        for name in ("stream", "no_stream"):
+            batches[name][key] = None
+        lines += more
+        torch.cuda.empty_cache()
+    del batches
+    line = "edges == twins == numpy (tolerance 0): " + _calling_edges(dev)
+    log("phase 11: " + line)
+    lines.append(line)
+    log(f"phase 11: took {time.perf_counter() - t_phase:.3f} s")
+    return res, launches, "; ".join(lines)
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--frags", type=int, default=20_000_000,
@@ -3823,6 +4752,8 @@ def main():
         blk_kernels, blk_launches, e2e_blk = phase_blocks(
             work, big, args.frags, seg_out, regs)
         kernels.update(blk_kernels)
+        bam_kernels, bam_launches, e2e_bam = phase_bam2pat(work, regs)
+        kernels.update(bam_kernels)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if torch.cuda.current_device() != 0:
@@ -3841,7 +4772,7 @@ def main():
                                      "on cuda",
                                      seg_launches["segment_exact_dp"]),
                 "dp_scan": ("phase 9 analysis step", seg_launches["dp_scan"]),
-                **blk_launches}
+                **blk_launches, **bam_launches}
     # a summary at the end, which a log that keeps only its tail still shows
     print(smi, flush=True)
     log("end to end: " + e2e)
@@ -3851,6 +4782,7 @@ def main():
     log("end to end: " + e2e_seg)
     log("end to end: " + e2e_par)
     log("end to end: " + e2e_blk)
+    log("end to end: " + e2e_bam)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name][1][name],

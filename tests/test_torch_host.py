@@ -711,3 +711,235 @@ def test_band_helpers_equal_jax():
                        capture_output=True, text=True, timeout=120,
                        cwd=op.dirname(op.dirname(op.abspath(__file__))))
     assert r.returncode == 0 and r.stdout.split() == ["512"], r.stderr
+
+
+# ---------------------------------------------------------------------------
+# bam2pat's host layer: the pat writers and indexes, the BAM scans and
+# reader, the FASTA reader and the genome's bam2pat files
+# ---------------------------------------------------------------------------
+
+
+def _port_frags(f):
+    return ppat.PatFrags(f.start, f.length, f.count, f.codes, f.chrom_id,
+                         f.chrom_names, f.extras)
+
+
+def _with_extras(f):
+    f.extras = np.array([b"q%d" % i if i % 4 else None
+                         for i in range(f.nr_frags)], dtype=object)
+    return f
+
+
+@pytest.mark.parametrize("case", ["plain", "chroms", "extras"])
+def test_frags_to_bytes_and_serializer_equal_jax(case):
+    f = _frags(11, chroms=3 if case == "chroms" else 1, h_rate=0.05)
+    if case == "extras":
+        f = _with_extras(f)
+    else:
+        assert pnat.serialize_pat_native(
+            f.start, f.length, f.count, f.codes, f.chrom_id,
+            f.chrom_names) == jnat.serialize_pat_native(
+            f.start, f.length, f.count, f.codes, f.chrom_id, f.chrom_names)
+    assert ppat.frags_to_bytes(_port_frags(f)) == jpat.frags_to_bytes(f)
+
+
+@pytest.mark.parametrize("extras", [False, True])
+def test_sort_collapse_and_packing_equal_jax(extras):
+    rng = np.random.default_rng(12)
+    f = _frags(12, n=4000, nr_sites=300, max_len=4)
+    perm = rng.permutation(f.nr_frags)
+    f = f.take(np.concatenate([perm, perm[:1000]]))  # unsorted, repeats
+    if extras:
+        f.extras = np.array([b"r%d" % (x % 2) for x in f.start.tolist()],
+                            dtype=object)
+    want = f.sort().collapse()
+    got = _port_frags(f).sort().collapse()
+    assert want.nr_frags < f.nr_frags
+    assert_same_frags(got, want)
+    assert np.array_equal(_port_frags(f).pattern_bytes(), f.pattern_bytes())
+    assert np.array_equal(_port_frags(f).packed(), f.packed())
+    assert np.array_equal(ppat.unpack_codes(f.packed(), f.max_len),
+                          jpat.unpack_codes(f.packed(), f.max_len))
+
+
+def _same_index(got, want):
+    """A pat.gz's .cdx arrays (np.savez stamps its zip) and .csi bytes."""
+    a, b = np.load(got + ".cdx"), np.load(want + ".cdx")
+    assert sorted(a.files) == sorted(b.files)
+    for k in a.files:
+        assert np.array_equal(a[k], b[k]), k
+    with open(got + ".csi", "rb") as f1, open(want + ".csi", "rb") as f2:
+        assert f1.read() == f2.read()
+
+
+@pytest.mark.parametrize("case", ["plain", "chroms", "extras", "stride"])
+def test_write_pat_and_index_pat_equal_jax(tmp_path, case):
+    f = _frags(13, n=20_000, nr_sites=60_000,
+               chroms=3 if case == "chroms" else 1)
+    if case == "extras":
+        f = _with_extras(f)
+    stride = 100 if case == "stride" else jpat.INDEX_STRIDE
+    got, want = str(tmp_path / "t.pat.gz"), str(tmp_path / "j.pat.gz")
+    ppat.write_pat(_port_frags(f), got, stride=stride)
+    jpat.write_pat(f, want, stride=stride)
+    with open(got, "rb") as f1, open(want, "rb") as f2:
+        assert f1.read() == f2.read()
+    _same_index(got, want)
+    # index_pat of the written file: the same sidecars again
+    ppat.index_pat(got, stride=stride)
+    jpat.index_pat(want, stride=stride)
+    _same_index(got, want)
+
+
+def test_pat_stream_writer_equals_jax(tmp_path):
+    f = _frags(14, n=30_000, nr_sites=90_000, chroms=2)
+    cuts = [0, 7_000, 7_001, 19_000, 30_000]
+    paths = []
+    for mod, who in ((ppat, "t"), (jpat, "j")):
+        path = str(tmp_path / f"{who}.pat.gz")
+        with mod.PatStreamWriter(path, stride=1000) as w:
+            for a, b in zip(cuts[:-1], cuts[1:]):
+                part = f.take(slice(a, b))
+                w.write_frags(_port_frags(part) if mod is ppat else part)
+        assert w.nr_frags == f.nr_frags
+        paths.append(path)
+    with open(paths[0], "rb") as f1, open(paths[1], "rb") as f2:
+        assert f1.read() == f2.read()
+    _same_index(*paths)
+    with pytest.raises(putils.IllegalArgumentError):
+        w = ppat.PatStreamWriter(str(tmp_path / "bad.pat.gz"))
+        w.write_frags(_port_frags(f.take(slice(10, 20))))
+        w.write_frags(_port_frags(f.take(slice(0, 5))))
+    w.abort()
+    assert not op.exists(str(tmp_path / "bad.pat.gz"))
+
+
+def test_csi_writers_equal_jax(tmp_path):
+    from wgbs_tools_tpu.formats import csi as jcsi
+    from wgbs_tools_tpu_torch.formats import csi as pcsi
+
+    rng = np.random.default_rng(15)
+    n = 5000
+    ids = np.repeat([0, 1, 2], [2000, 1000, 2000]).astype(np.int32)
+    begs = np.concatenate([np.sort(rng.integers(0, 10**7, k))
+                           for k in (2000, 1000, 2000)])
+    voffs = np.cumsum(rng.integers(1, 40, n + 1)).astype(np.int64) << 4
+    names = ["chr1", "chr2", "chrX"]
+    pcsi.write_csi(str(tmp_path / "t.csi"), names, ids, begs, voffs[:-1],
+                   voffs[1:])
+    jcsi.write_csi(str(tmp_path / "j.csi"), names, ids, begs, voffs[:-1],
+                   voffs[1:])
+    acc_p, acc_j = pcsi.CsiAccumulator(), jcsi.CsiAccumulator()
+    for a, b in ((0, 1500), (1500, 3600), (3600, n)):
+        for acc in (acc_p, acc_j):
+            acc.add(ids[a:b], begs[a:b], voffs[a:b], voffs[a + 1:b + 1])
+    acc_p.write(str(tmp_path / "ta.csi"), names)
+    acc_j.write(str(tmp_path / "ja.csi"), names)
+    for t, j in (("t.csi", "j.csi"), ("ta.csi", "ja.csi")):
+        assert (tmp_path / t).read_bytes() == (tmp_path / j).read_bytes()
+
+
+@pytest.fixture(scope="module")
+def sim_bams(mini_genome, tmp_path_factory):
+    from bisim import add_cigar_variants, dump_bam, simulate_reads
+    from test_nanopore import dump_np_bam, simulate_np_reads
+    from wgbs_tools_tpu.genome.cpg_index import read_fasta
+
+    d = tmp_path_factory.mktemp("host_bams")
+    rng = np.random.default_rng(16)
+    seqs = read_fasta(mini_genome.join("genome.fa"))
+    reads, _ = simulate_reads(seqs, rng, n_reads=300, paired=True)
+    reads = add_cigar_variants(reads, seqs, rng, frac=0.3)
+    nano = simulate_np_reads(seqs, rng, n_reads=60)
+    return (dump_bam(reads, seqs, str(d / "pe.bam")),
+            dump_np_bam(nano, seqs, str(d / "np.bam")))
+
+
+def _bam_buf(path):
+    with open(path, "rb") as f:
+        buf = jnat.bgzf_decompress_native(f.read())
+    from wgbs_tools_tpu.pipeline.bam import BamReader
+
+    return buf, BamReader(path)._records_off
+
+
+def test_bam_scans_equal_jax(sim_bams):
+    for path in sim_bams:
+        buf, off = _bam_buf(path)
+        got, want = pnat.bam_scan_native(buf, off), jnat.bam_scan_native(
+            buf, off)
+        assert want[0].shape[0] > 50
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+        cols, offs, rec_end = want
+        mm = pnat.bam_mmml_scan_native(buf, offs[:, 4], rec_end)
+        for a, b in zip(mm, jnat.bam_mmml_scan_native(buf, offs[:, 4],
+                                                        rec_end)):
+            assert np.array_equal(a, b)
+        got = pnat.mm_parse_native(buf, mm[0], mm[1])
+        want = jnat.mm_parse_native(buf, mm[0], mm[1])
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+        if path.endswith("np.bam"):
+            assert (mm[0] >= 0).all() and want[0].shape[0] >= 60
+
+
+def test_bam_reader_and_tags_equal_jax(sim_bams):
+    from wgbs_tools_tpu.pipeline import bam as jbam
+    from wgbs_tools_tpu_torch.pipeline import bam as pbam
+
+    for path in sim_bams:
+        got, want = pbam.BamReader(path), jbam.BamReader(path)
+        assert got.header_text == want.header_text
+        assert (got.ref_names, got.ref_lengths) == (want.ref_names,
+                                                    want.ref_lengths)
+        recs = list(want)
+        for a, b in zip(got, recs):
+            for k in ("qname", "flag", "ref_id", "pos", "mapq", "cigar",
+                      "seq", "qual", "tags"):
+                assert getattr(a, k) == getattr(b, k), k
+            for tag in ("MM", "ML", "RG"):
+                assert a.get_tag(tag) == b.get_tag(tag)
+        assert len(recs) > 50
+        # the writer: the records written again, the same bytes
+        pbam.write_bam(path + ".t", got.ref_names, got.ref_lengths, recs)
+        jbam.write_bam(path + ".j", got.ref_names, got.ref_lengths, recs)
+        with open(path + ".t", "rb") as f1, open(path + ".j", "rb") as f2:
+            assert f1.read() == f2.read()
+
+
+def test_fasta_outer_add_and_genome_files_equal_jax(mini_genome, tmp_path):
+    from wgbs_tools_tpu.genome.cpg_index import read_fasta as jax_fasta
+    from wgbs_tools_tpu.utils import outer_add as jax_outer_add
+    from wgbs_tools_tpu_torch.genome.cpg_index import read_fasta
+
+    fa = mini_genome.join("genome.fa")
+    got, want = read_fasta(fa), jax_fasta(fa)
+    assert list(got) == list(want)
+    assert all(np.array_equal(got[c], want[c]) for c in want)
+    gz = tmp_path / "g.fa.gz"
+    gz.write_bytes(gzip.compress(b">c1 x\nacgTN\nCG\n>c2\nAAA\n"))
+    got, want = read_fasta(str(gz)), jax_fasta(str(gz))
+    assert list(got) == list(want) == ["c1", "c2"]
+    assert all(np.array_equal(got[c], want[c]) for c in want)
+    col = np.array([5, 0, 17, 3], np.int64)
+    for dtype in (None, np.int32):
+        a, b = putils.outer_add(col, 6, dtype), jax_outer_add(col, 6, dtype)
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    g, jg = Genome("mini"), JaxGenome("mini")
+    for name in ("genome.fa", "CpG.bed", "nothing.txt"):
+        assert g.join(name) == jg.join(name)
+    with pytest.raises(putils.IllegalArgumentError):
+        g.join("nothing.txt", validate=True)
+    assert (g.blacklist, g.whitelist) == (jg.blacklist, jg.whitelist)
+
+
+def test_concat_frags_equals_jax():
+    from wgbs_tools_tpu.cli.cmd_pat import _concat_frags as jax_concat
+    from wgbs_tools_tpu_torch.cli.cmd_pat import _concat_frags
+
+    parts = [_frags(17, n=300, max_len=5), _frags(18, n=200, chroms=2,
+                                                  max_len=9)]
+    parts[1] = _with_extras(parts[1])
+    want = jax_concat(parts)
+    assert_same_frags(_concat_frags([_port_frags(p) for p in parts]), want)

@@ -47,7 +47,7 @@ def test_port_imports_without_jax():
     assert r.returncode == 0, r.stderr
     # every module of the port was imported, not an empty walk
     names = set(r.stdout.split())
-    assert len(names) >= 41
+    assert len(names) >= 53
     assert {"wgbs_tools_tpu_torch.parallel.mesh",
             "wgbs_tools_tpu_torch.parallel.sharded",
             "wgbs_tools_tpu_torch.parallel.multihost",
@@ -76,7 +76,17 @@ def test_port_imports_without_jax():
             "wgbs_tools_tpu_torch.pipeline.pat_stream",
             "wgbs_tools_tpu_torch.cli.cmd_beta",
             "wgbs_tools_tpu_torch.cli.cmd_misc",
-            "wgbs_tools_tpu_torch.cli.cmd_homog"} <= names
+            "wgbs_tools_tpu_torch.cli.cmd_homog",
+            "wgbs_tools_tpu_torch.ops.calling",
+            "wgbs_tools_tpu_torch.pipeline.bam",
+            "wgbs_tools_tpu_torch.pipeline.nanopore",
+            "wgbs_tools_tpu_torch.pipeline.calling",
+            "wgbs_tools_tpu_torch.pipeline.bam_columnar",
+            "wgbs_tools_tpu_torch.pipeline.bam_columnar_ont",
+            "wgbs_tools_tpu_torch.pipeline.bam_stream",
+            "wgbs_tools_tpu_torch.pipeline.bam2pat_run",
+            "wgbs_tools_tpu_torch.cli.cmd_pat",
+            "wgbs_tools_tpu_torch.cli.cmd_bam2pat"} <= names
 
 
 def _imported_modules(path):
@@ -209,6 +219,38 @@ def test_block_and_read_wrappers_refuse_other_devices():
                    z(4, dtype=torch.float32), 3, False)
     assert block_sums.launches == 0 and pair_counts_add.launches == 0
     assert homog_bins.launches == 0
+
+
+def test_calling_wrappers_refuse_other_devices():
+    """call_reads and merge_pe, like the others: tensors on a device other
+    than the CPU go to the launcher, which raises; the device entry points
+    refuse such a device before they read anything."""
+    import numpy as np
+
+    from wgbs_tools_tpu_torch.ops.calling import (call_reads,
+                                                  call_reads_device,
+                                                  merge_pe, merge_pe_device)
+
+    def z(*shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device="meta")
+
+    with pytest.raises(ValueError, match="CUDA"):
+        call_reads(z(4, 8, dtype=torch.uint8), z(4), z(4),
+                   z(4, dtype=torch.uint8), z(9), 0, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        merge_pe(z(4, dtype=torch.int64), z(4), z(4, 6, dtype=torch.uint8),
+                 z(4, dtype=torch.int64), z(4), z(4, 5, dtype=torch.uint8))
+    assert call_reads.launches == 0 and merge_pe.launches == 0
+    with pytest.raises(ValueError, match="unsupported device"):
+        call_reads_device(np.ones(2, np.int64), np.zeros(2, np.int64), True,
+                          np.arange(5, dtype=np.int32), 1,
+                          np.zeros((2, 4), np.uint8), np.full(2, 4),
+                          device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        merge_pe_device(np.ones(2, np.int64), np.zeros((2, 1), np.uint8),
+                        np.ones(2, np.int64), np.ones(2, np.int64),
+                        np.zeros((2, 1), np.uint8), np.ones(2, np.int64),
+                        device="meta")
 
 
 def test_new_kernel_wrappers_refuse_other_devices():

@@ -132,7 +132,13 @@ def _bind(lib):
             ("pair_counts", 5, 3),
             # homog bins: (codes, fstart, flen, fcount, bstart, bend, fi,
             # bi, ranges, out[, stats]), (P, L, nbins, min_cpgs, inclusive)
-            ("homog_bins", 10, 5), ("homog_bins_stats", 11, 5)):
+            ("homog_bins", 10, 5), ("homog_bins_stats", 11, 5),
+            # bam2pat's calling: (seq, lens, pos1, bottom, loci, first_k,
+            # span, packed), (R, L, n_loci, KB, clip)
+            ("call_reads", 8, 5),
+            # mate merging: (s1, sp1, p1, s2, sp2, p2, start, span, packed,
+            # too_long), (n, S1, S2)
+            ("merge_pe", 10, 3)):
         fn = getattr(lib, name)
         fn.argtypes = [vp] * n_ptr + [i64] * n_int + [vp]
         fn.restype = i32

@@ -12,11 +12,14 @@
         [--device cpu]
     python -m wgbs_tools_tpu_torch homog x.pat.gz -b blocks.bed [-o out/ |
         -p prefix] [--binary] [--device cpu]
+    python -m wgbs_tools_tpu_torch bam2pat x.bam [-o out/] [--device cpu]
+        [--clip N] [--min_cpg N] [--stream | --no_stream] [--mbias] ...
 
 Flags match wgbs_tools_tpu's pat2beta (cli/cmd_pat.py::main_pat2beta),
 segment (cli/cmd_segment.py), beta_to_blocks and beta_to_table
-(cli/cmd_beta.py), pat2pairs (cli/cmd_misc.py) and homog
-(cli/cmd_homog.py), plus --device. The device defaults to cuda
+(cli/cmd_beta.py), pat2pairs (cli/cmd_misc.py), homog
+(cli/cmd_homog.py) and bam2pat (cli/cmd_bam2pat.py, without --procs),
+plus --device. The device defaults to cuda
 and raises when CUDA is absent: the host path runs only when asked for.
 With more than one visible card pat2beta's table is sharded over the
 cards; --procs N (N > 1) runs N worker processes, one site range each
@@ -24,7 +27,9 @@ cards; --procs N (N > 1) runs N worker processes, one site range each
 its exact mode's --device cpu is the host DP (cli/cmd_segment.py).
 beta_to_blocks and beta_to_table sum blocks in the block_sums kernel,
 pat2pairs counts pairs in pair_counts and homog bins reads in homog_bins;
---device cpu runs each kernel's plain twin.
+bam2pat calls reads in call_reads and merges mates in merge_pe, then runs
+pat2beta; --device cpu runs each kernel's plain twin (bam2pat's calling:
+numpy on the host).
 """
 
 import argparse
@@ -88,6 +93,12 @@ def main_pat2beta(argv):
     return 0
 
 
+def main_bam2pat(argv, timings=None):
+    from .cmd_bam2pat import main as run  # it imports add_gr_args from here
+
+    return run(argv, timings=timings)
+
+
 def main_segment(argv):
     from .cmd_segment import main as run  # it imports add_gr_args from here
 
@@ -109,7 +120,8 @@ def add_gr_args(parser, bed_file=False):
 COMMANDS = {"pat2beta": main_pat2beta, "segment": main_segment,
             "beta_to_blocks": main_beta_to_blocks,
             "beta_to_table": main_beta_to_table,
-            "pat2pairs": main_pat2pairs, "homog": main_homog}
+            "pat2pairs": main_pat2pairs, "homog": main_homog,
+            "bam2pat": main_bam2pat}
 
 
 def main(argv=None):

@@ -1,10 +1,13 @@
 """Device selection and stage timing. There is no silent fallback: asking
 for CUDA on a host without it raises."""
 
+import threading
 import time
 from contextlib import contextmanager
 
 import torch
+
+_TIMINGS_LOCK = threading.Lock()
 
 
 def require_cuda():
@@ -37,7 +40,8 @@ def timed(timings, stage, device):
     A no-op when `timings` is None. Otherwise the block ends with a
     synchronize of a CUDA `device`, so the seconds include the device work
     the block queued; a run measured this way waits for the device at the
-    end of each device stage."""
+    end of each device stage. Blocks on several host threads (bam2pat's
+    chromosome threads) add their seconds into one sum."""
     if timings is None:
         yield
         return
@@ -45,4 +49,6 @@ def timed(timings, stage, device):
     yield
     if device is not None and torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
-    timings[stage] = timings.get(stage, 0.0) + time.perf_counter() - t0
+    dt = time.perf_counter() - t0
+    with _TIMINGS_LOCK:
+        timings[stage] = timings.get(stage, 0.0) + dt

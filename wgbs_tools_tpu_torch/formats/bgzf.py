@@ -1,6 +1,6 @@
 """BGZF (blocked gzip): the port's copy of `is_gzip`, `decompress_file`,
-`BgzfWriter` (with `_make_block`) and `BgzfReader`'s seeking and line
-reads from wgbs_tools_tpu/formats/bgzf.py.
+`BgzfWriter` (with `_make_block`) and `BgzfReader`'s seeking, line reads
+and virtual offsets from wgbs_tools_tpu/formats/bgzf.py.
 
 A BGZF file is a sequence of gzip members, each at most 64 KiB of
 uncompressed payload, whose FEXTRA field carries a "BC" subfield with the
@@ -153,6 +153,10 @@ class BgzfReader:
         self._within = 0
         self._next_coffset = coffset + bsize
         return True
+
+    @property
+    def virtual_offset(self) -> int:
+        return (self._block_coffset << 16) | self._within
 
     def seek_virtual(self, voffset: int):
         coffset, within = voffset >> 16, voffset & 0xFFFF

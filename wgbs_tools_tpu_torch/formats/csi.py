@@ -1,10 +1,14 @@
-"""The .tbi index of a BGZF bed: the port's copy of
-wgbs_tools_tpu/formats/csi.py's `write_tbi` and what it calls (`reg2bin`,
-`_bin_parent`, `_bin_first`, `_compress_binning`), with the same names.
+"""The .csi index of a pat.gz and the .tbi index of a BGZF bed: the port's
+copy of wgbs_tools_tpu/formats/csi.py's `write_csi`, `CsiAccumulator`,
+`write_tbi` and what they call (`reg2bin`, `_bin_parent`, `_bin_first`,
+`_compress_binning`), with the same names.
 
-The reference indexes bed files with external `tabix -p bed`
-(ref: src/python/index.py:20-29,85-95); `write_tbi` emits the same layout
-(htslib binning, min_shift=14, depth=5, plus the 16 kb linear index).
+The reference indexes pat files with external `tabix -C -b 2 -e 2` and
+bed files with `tabix -p bed` (ref: src/python/index.py:20-29,85-95,
+126-139); these emit the same layouts (htslib binning, min_shift=14,
+depth=5; the CSI v1 layout with tabix's aux header, each pat record
+covering the single base [start-1, start) of its startCpG column; the
+.tbi with the 16 kb linear index).
 """
 
 import struct
@@ -15,6 +19,8 @@ from .bgzf import BgzfWriter
 
 MIN_SHIFT = 14
 DEPTH = 5
+TBX_PRESET = 0  # generic
+CSI_MAGIC = b"CSI\x01"
 
 
 def reg2bin(beg, end):
@@ -32,6 +38,146 @@ def reg2bin(beg, end):
         s += 3
         t -= 1 << ((l - 1) * 3)
     return out
+
+
+def write_csi(path, chrom_names, rec_chrom_ids, rec_begs, rec_voffs,
+              rec_voff_ends):
+    """Write <path> (BGZF-wrapped CSI).
+
+    rec_chrom_ids: int per record (index into chrom_names, grouped);
+    rec_begs: 0-based begin coordinate per record; rec_voffs/_ends: virtual
+    offset range of each record's bytes in the data file.
+    """
+    n_ref = len(chrom_names)
+    rec_chrom_ids = np.asarray(rec_chrom_ids)
+    rec_begs = np.asarray(rec_begs, dtype=np.int64)
+    bins_per_rec = reg2bin(rec_begs, rec_begs + 1)
+
+    body = bytearray()
+    body += CSI_MAGIC
+    body += struct.pack("<ii", MIN_SHIFT, DEPTH)
+    names_blob = b"".join(c.encode() + b"\x00" for c in chrom_names)
+    aux = struct.pack("<7i", TBX_PRESET, 1, 2, 2, ord("#"), 0,
+                      len(names_blob)) + names_blob
+    body += struct.pack("<i", len(aux)) + aux
+    body += struct.pack("<i", n_ref)
+
+    rec_voffs = np.asarray(rec_voffs, dtype=np.uint64)
+    rec_voff_ends = np.asarray(rec_voff_ends, dtype=np.uint64)
+    for rid in range(n_ref):
+        sel = rec_chrom_ids == rid
+        if not sel.any():
+            body += struct.pack("<i", 0)
+            continue
+        rbins = bins_per_rec[sel]
+        rvo = rec_voffs[sel]
+        rve = rec_voff_ends[sel]
+        order = np.argsort(rbins, kind="stable")
+        rbins, rvo, rve = rbins[order], rvo[order], rve[order]
+        # group into bins; records within a bin stay in file order, so
+        # adjacent chunks merge when contiguous. Every CSI record (bin
+        # header and chunk alike) is 16 bytes, so the whole ref section is
+        # assembled as one (n_bins + n_chunks, 16) byte matrix.
+        uniq, bin_start = np.unique(rbins, return_index=True)
+        n_bins = uniq.shape[0]
+        body += struct.pack("<i", n_bins)
+        new_bin = np.zeros(rbins.shape[0], dtype=bool)
+        new_bin[bin_start] = True
+        chunk_start = new_bin | np.concatenate(
+            [[True], rvo[1:] != rve[:-1]])
+        cs_idx = np.nonzero(chunk_start)[0]
+        ce_idx = np.concatenate([cs_idx[1:] - 1, [rbins.shape[0] - 1]])
+        n_chunk = np.add.reduceat(chunk_start.astype(np.int64), bin_start)
+
+        hdr = np.zeros(n_bins, dtype=np.dtype(
+            [("bin", "<u4"), ("loff", "<u8"), ("n", "<i4")]))
+        hdr["bin"] = uniq
+        hdr["loff"] = rvo[bin_start]
+        hdr["n"] = n_chunk
+        chunks = np.zeros(cs_idx.shape[0], dtype=np.dtype(
+            [("cs", "<u8"), ("ce", "<u8")]))
+        chunks["cs"] = rvo[cs_idx]
+        chunks["ce"] = rve[ce_idx]
+
+        rows = np.empty((n_bins + chunks.shape[0], 16), dtype=np.uint8)
+        hdr_pos = np.arange(n_bins) + np.concatenate(
+            [[0], np.cumsum(n_chunk)[:-1]])
+        rows[hdr_pos] = hdr.view(np.uint8).reshape(n_bins, 16)
+        mask = np.ones(rows.shape[0], dtype=bool)
+        mask[hdr_pos] = False
+        rows[mask] = chunks.view(np.uint8).reshape(-1, 16)
+        body += rows.tobytes()
+
+    with BgzfWriter(path) as w:
+        w.write(bytes(body))
+    return path
+
+
+class CsiAccumulator:
+    """Incremental CSI construction for streaming writers.
+
+    write_csi needs every record's (chrom, beg, voff) at once — ~10 GB of
+    arrays for a genome-wide pat. Coordinate-sorted pat records land in the
+    deepest bin level (1-bp intervals), so bins arrive in non-decreasing
+    order per chromosome and each (chrom, bin) collapses to a handful of
+    merged chunks: the accumulator folds each flushed batch into a per-bin
+    chunk dict (~genome/16kb entries) and emits the same CSI layout at
+    close. Mirrors the reference's `tabix -C` over a streamed bgzip
+    (ref: src/python/index.py:126-139)."""
+
+    def __init__(self):
+        # (rid, bin) -> [loff, [ [cs, ce], ... ]] in first-seen file order
+        self._bins = {}
+
+    def add(self, rec_chrom_ids, rec_begs, rec_voffs, rec_voff_ends):
+        rec_chrom_ids = np.asarray(rec_chrom_ids)
+        rec_begs = np.asarray(rec_begs, dtype=np.int64)
+        rec_voffs = np.asarray(rec_voffs, dtype=np.uint64)
+        rec_voff_ends = np.asarray(rec_voff_ends, dtype=np.uint64)
+        bins = reg2bin(rec_begs, rec_begs + 1)
+        # group consecutive records with the same (rid, bin): within a batch
+        # records are file-contiguous, so each run is one chunk
+        key_change = np.ones(rec_begs.shape[0], dtype=bool)
+        key_change[1:] = (bins[1:] != bins[:-1]) | (
+            rec_chrom_ids[1:] != rec_chrom_ids[:-1])
+        starts = np.nonzero(key_change)[0]
+        ends = np.concatenate([starts[1:], [rec_begs.shape[0]]])
+        for s, e in zip(starts.tolist(), ends.tolist()):
+            key = (int(rec_chrom_ids[s]), int(bins[s]))
+            cs, ce = int(rec_voffs[s]), int(rec_voff_ends[e - 1])
+            ent = self._bins.get(key)
+            if ent is None:
+                self._bins[key] = [cs, [[cs, ce]]]
+            else:
+                chunks = ent[1]
+                if chunks[-1][1] == cs:
+                    chunks[-1][1] = ce
+                else:
+                    chunks.append([cs, ce])
+
+    def write(self, path, chrom_names):
+        n_ref = len(chrom_names)
+        body = bytearray()
+        body += CSI_MAGIC
+        body += struct.pack("<ii", MIN_SHIFT, DEPTH)
+        names_blob = b"".join(c.encode() + b"\x00" for c in chrom_names)
+        aux = struct.pack("<7i", TBX_PRESET, 1, 2, 2, ord("#"), 0,
+                          len(names_blob)) + names_blob
+        body += struct.pack("<i", len(aux)) + aux
+        body += struct.pack("<i", n_ref)
+        by_rid = {}
+        for (rid, b), ent in self._bins.items():
+            by_rid.setdefault(rid, []).append((b, ent))
+        for rid in range(n_ref):
+            ents = sorted(by_rid.get(rid, []))
+            body += struct.pack("<i", len(ents))
+            for b, (loff, chunks) in ents:
+                body += struct.pack("<IQi", b, loff, len(chunks))
+                for cs, ce in chunks:
+                    body += struct.pack("<QQ", cs, ce)
+        with BgzfWriter(path) as w:
+            w.write(bytes(body))
+        return path
 
 
 TBI_MAGIC = b"TBI\x01"

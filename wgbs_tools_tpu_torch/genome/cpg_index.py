@@ -4,9 +4,11 @@ The port's copy of wgbs_tools_tpu/genome/cpg_index.py's `CpGIndex` (with
 `save` and `load`), with the same names: `loci[int32 N]` (1-based position
 of the C of each CG dinucleotide) and `chrom_offsets[int64 C+1]`, so every
 locus <-> site translation is a `searchsorted`. Site indices are 1-based
-(1..NR_SITES) at the API surface, matching the pat format.
+(1..NR_SITES) at the API surface, matching the pat format. `read_fasta`
+reads a FASTA as bam2pat --blueprint does.
 """
 
+import gzip
 import json
 import os.path as op
 
@@ -141,3 +143,31 @@ class CpGIndex:
             z["chrom_sizes"],
             name=name or meta.get("name", "genome"),
         )
+
+
+def read_fasta(path):
+    """Parse a FASTA (.fa or .fa.gz) into an ordered {chrom: uint8 seq array}."""
+    opener = gzip.open if path.endswith(".gz") else open
+    chroms = {}
+    name = None
+    parts = []
+    with opener(path, "rb") as f:
+        for line in f:
+            if line.startswith(b">"):
+                if name is not None:
+                    chroms[name] = _concat_seq(parts)
+                name = line[1:].split()[0].decode()
+                parts = []
+            else:
+                parts.append(line.rstrip())
+    if name is not None:
+        chroms[name] = _concat_seq(parts)
+    return chroms
+
+
+def _concat_seq(parts):
+    seq = np.frombuffer(b"".join(parts), dtype=np.uint8).copy()
+    # uppercase in place: 'a'..'z' -> 'A'..'Z'
+    lower = (seq >= 97) & (seq <= 122)
+    seq[lower] -= 32
+    return seq

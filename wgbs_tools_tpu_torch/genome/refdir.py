@@ -5,8 +5,9 @@ wgbs_tools_tpu/genome/refdir.py: the `references/<name>/` layout with a
 `default` symlink (ref: src/python/utils_wgbs.py:53-115), rooted at
 $WGBS_TPU_REFDIR (default: <repo>/references); the genome's number of CpG
 sites, read from the CpG index that `init_genome` writes
-(`cpg_index.npz` + `cpg_index.json`); and the whole index
-(`genome/cpg_index.py::CpGIndex`), loaded at first use.
+(`cpg_index.npz` + `cpg_index.json`); the whole index
+(`genome/cpg_index.py::CpGIndex`), loaded at first use; and bam2pat's
+files in the directory (`join`, `blacklist`, `whitelist`).
 """
 
 import os
@@ -65,6 +66,26 @@ class Genome:
         if self._index is None:
             self._index = CpGIndex.load(self.refdir, name=self.name)
         return self._index
+
+    def join(self, fname, validate=False):
+        """The path of `fname` in the genome's directory (or of its .gz),
+        or None (with validate, an error) when neither exists."""
+        path = op.join(self.refdir, fname)
+        if not op.isfile(path):
+            if op.isfile(path + ".gz"):
+                return path + ".gz"
+            if validate:
+                raise IllegalArgumentError(f"Invalid reference path: {path}")
+            return None
+        return path
+
+    @property
+    def blacklist(self):
+        return self.join("blacklist.bed")
+
+    @property
+    def whitelist(self):
+        return self.join("whitelist.bed")
 
     def get_chroms(self):
         return tuple(self.index.chrom_names)

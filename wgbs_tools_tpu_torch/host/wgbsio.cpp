@@ -1,7 +1,8 @@
-// Host library of the PyTorch port: pat text parsing, the BGZF block
-// deflater (index_bed's bgzip) and inflater, the host pileup (the oracle
-// of the device kernels) and the v3 row packer and placers that the pileup
-// staging runs. segment_exact.cpp beside it holds the exact segmentation
+// Host library of the PyTorch port: pat text parsing and serialization,
+// the BGZF block deflater (write_pat's and index_bed's bgzip) and
+// inflater, the host pileup (the oracle of the device kernels), the v3 row
+// packer and placers that the pileup staging runs, and bam2pat's columnar
+// BAM record scan and MM/ML tag parsers. segment_exact.cpp beside it holds the exact segmentation
 // DP; both go into one library.
 //
 // The port's own copy of the functions it calls from native/wgbsio.cpp,
@@ -15,6 +16,7 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <cstdio>
 #include <cstring>
 #include <string>
 #include <thread>
@@ -169,6 +171,50 @@ int pat_parse(const char* buf, int64_t len, int64_t n_lines, int64_t max_len,
     }
     if (off < chrom_buf_cap) chrom_buf[off] = 0;
     return (int)chroms.size();
+}
+
+
+// ---------------------------------------------------------------------------
+// pat serialization: SoA arrays -> text buffer
+// ---------------------------------------------------------------------------
+
+// Returns the number of bytes written, or -1 if out_cap is too small.
+int64_t pat_serialize(int64_t n_lines, int64_t max_len, const int32_t* starts,
+                      const int32_t* lengths, const int32_t* counts,
+                      const uint8_t* codes, const int16_t* chrom_ids,
+                      const char* chrom_buf,  // '\n'-separated names
+                      char* out, int64_t out_cap) {
+    static const char dec[4] = {'T', 'C', 'H', '.'};
+    // split chrom names
+    std::vector<std::string> chroms;
+    {
+        const char* p = chrom_buf;
+        while (*p) {
+            const char* nl = strchr(p, '\n');
+            if (!nl) break;
+            chroms.emplace_back(p, nl - p);
+            p = nl + 1;
+        }
+    }
+    char* w = out;
+    char* wend = out + out_cap;
+    char tmp[16];
+    for (int64_t i = 0; i < n_lines; i++) {
+        const std::string& chrom = chroms[chrom_ids[i]];
+        int64_t need = chrom.size() + 1 + 12 + lengths[i] + 12 + 2;
+        if (w + need > wend) return -1;
+        memcpy(w, chrom.data(), chrom.size());
+        w += chrom.size();
+        *w++ = '\t';
+        w += sprintf(w, "%d", starts[i]);
+        *w++ = '\t';
+        const uint8_t* row = codes + (size_t)i * max_len;
+        for (int32_t j = 0; j < lengths[i]; j++) *w++ = dec[row[j] & 3];
+        *w++ = '\t';
+        w += sprintf(w, "%d", counts[i]);
+        *w++ = '\n';
+    }
+    return w - out;
 }
 
 // ---------------------------------------------------------------------------
@@ -639,6 +685,218 @@ int64_t bed_scan(const uint8_t* buf, int64_t len, int64_t max_rows,
         n++;
     }
     return n;
+}
+
+
+// ---------------------------------------------------------------------------
+// BAM record scan (columnar)
+// ---------------------------------------------------------------------------
+
+// Count records in a decompressed BAM buffer starting at `off` (first record).
+int64_t bam_count(const uint8_t* buf, int64_t len, int64_t off) {
+    int64_t n = 0;
+    while (off + 4 <= len) {
+        int32_t bs;
+        memcpy(&bs, buf + off, 4);
+        if (bs < 32 || off + 4 + bs > len) break;
+        off += 4 + bs;
+        n++;
+    }
+    return n;
+}
+
+// Fill columnar arrays for n records:
+//   cols: int32 [n, 8] = ref_id, pos, flag, mapq, l_seq, n_cigar,
+//                        first_cigar_word, block_end_offset_low32 (unused=0)
+//   offs: int64 [n, 5] = qname_off, cigar_off, seq_off, qual_off, tags_off
+//   (tags end at the next record's start - can be derived from offs[n+1])
+// Returns number scanned.
+int64_t bam_scan(const uint8_t* buf, int64_t len, int64_t off, int64_t n,
+                 int32_t* cols, int64_t* offs, int64_t* rec_end) {
+    int64_t i = 0;
+    while (i < n && off + 4 <= len) {
+        int32_t bs;
+        memcpy(&bs, buf + off, 4);
+        if (bs < 32 || off + 4 + bs > len) break;
+        const uint8_t* p = buf + off + 4;
+        int32_t ref_id, pos, l_seq;
+        memcpy(&ref_id, p, 4);
+        memcpy(&pos, p + 4, 4);
+        uint8_t l_qname = p[8];
+        uint8_t mapq = p[9];
+        uint16_t n_cigar, flag;
+        memcpy(&n_cigar, p + 12, 2);
+        memcpy(&flag, p + 14, 2);
+        memcpy(&l_seq, p + 16, 4);
+        int64_t qname_off = off + 4 + 32;
+        int64_t cigar_off = qname_off + l_qname;
+        int64_t seq_off = cigar_off + 4LL * n_cigar;
+        int64_t qual_off = seq_off + (l_seq + 1) / 2;
+        int64_t tags_off = qual_off + l_seq;
+        int32_t first_cigar = 0;
+        if (n_cigar > 0) memcpy(&first_cigar, buf + cigar_off, 4);
+        int32_t* c = cols + i * 8;
+        c[0] = ref_id; c[1] = pos; c[2] = flag; c[3] = mapq;
+        c[4] = l_seq; c[5] = n_cigar; c[6] = first_cigar; c[7] = l_qname;
+        int64_t* o = offs + i * 5;
+        o[0] = qname_off; o[1] = cigar_off; o[2] = seq_off; o[3] = qual_off;
+        o[4] = tags_off;
+        rec_end[i] = off + 4 + bs;
+        off += 4 + bs;
+        i++;
+    }
+    return i;
+}
+
+// Locate MM/Mm:Z and ML/Ml:B,C aux tags for n records (nanopore
+// modification calls). Outputs per record:
+//   mm_off/mm_len : byte bounds of the MM string value (excl. NUL), or -1
+//                   when absent; mm_len = -9 when the aux region failed to
+//                   parse (unknown tag type) so callers can fall back.
+//   ml_off/ml_n   : offset / element count of the ML byte array, or -1;
+//                   ml_n = -9 when ML exists with a non-byte subtype.
+int64_t bam_mmml_scan(const uint8_t* buf, int64_t n,
+                      const int64_t* tags_off, const int64_t* rec_end,
+                      int64_t* mm_off, int64_t* mm_len,
+                      int64_t* ml_off, int64_t* ml_n) {
+    for (int64_t r = 0; r < n; r++) {
+        mm_off[r] = -1; mm_len[r] = -1; ml_off[r] = -1; ml_n[r] = -1;
+        int64_t i = tags_off[r], end = rec_end[r];
+        while (i + 3 <= end) {
+            uint8_t t0 = buf[i], t1 = buf[i + 1], typ = buf[i + 2];
+            i += 3;
+            int64_t sz;
+            switch (typ) {
+                case 'A': case 'c': case 'C': sz = 1; break;
+                case 's': case 'S': sz = 2; break;
+                case 'i': case 'I': case 'f': sz = 4; break;
+                case 'Z': case 'H': {
+                    int64_t j = i;
+                    while (j < end && buf[j] != 0) j++;
+                    if (t0 == 'M' && (t1 == 'M' || t1 == 'm')
+                        && mm_off[r] < 0) {
+                        mm_off[r] = i; mm_len[r] = j - i;
+                    }
+                    i = j + 1;
+                    continue;
+                }
+                case 'B': {
+                    if (i + 5 > end) { mm_len[r] = -9; i = end; continue; }
+                    uint8_t sub = buf[i];
+                    uint32_t cnt;
+                    memcpy(&cnt, buf + i + 1, 4);
+                    int64_t es =
+                        (sub == 'c' || sub == 'C') ? 1 :
+                        (sub == 's' || sub == 'S') ? 2 :
+                        (sub == 'i' || sub == 'I' || sub == 'f') ? 4 : -1;
+                    if (es < 0) { mm_len[r] = -9; i = end; continue; }
+                    if (i + 5 + es * (int64_t)cnt > end) {
+                        // truncated B-array: reject the record rather than
+                        // letting ml_off/ml_n point past its end
+                        mm_len[r] = -9; ml_n[r] = -9; i = end; continue;
+                    }
+                    if (t0 == 'M' && (t1 == 'L' || t1 == 'l')
+                        && ml_off[r] < 0) {
+                        if (es == 1) {
+                            ml_off[r] = i + 5; ml_n[r] = (int64_t)cnt;
+                        } else {
+                            ml_n[r] = -9;
+                        }
+                    }
+                    i += 5 + es * (int64_t)cnt;
+                    continue;
+                }
+                default:
+                    mm_len[r] = -9;  // unknown type: record unparseable
+                    i = end;
+                    continue;
+            }
+            i += sz;
+        }
+    }
+    return n;
+}
+
+// Pass 1 over MM strings: per record, count "C+" sections and their total
+// skip integers (commas). Records with mm_off < 0 yield zeros.
+int64_t mm_count(const uint8_t* buf, int64_t n, const int64_t* mm_off,
+                 const int64_t* mm_len, int64_t* n_sec, int64_t* n_skip) {
+    for (int64_t r = 0; r < n; r++) {
+        n_sec[r] = 0; n_skip[r] = 0;
+        if (mm_off[r] < 0 || mm_len[r] < 0) continue;
+        const uint8_t* s = buf + mm_off[r];
+        int64_t len = mm_len[r];
+        int64_t i = 0;
+        while (i < len) {
+            int64_t j = i;
+            while (j < len && s[j] != ';') j++;
+            if (j - i >= 3 && s[i] == 'C' && s[i + 1] == '+') {
+                n_sec[r]++;
+                for (int64_t k = i; k < j; k++)
+                    if (s[k] == ',') n_skip[r]++;
+            }
+            i = j + 1;
+        }
+    }
+    return 0;
+}
+
+// Pass 2: fill per-section metadata + flat skip ints, in record order.
+// Semantics mirror the Python reference parser (pipeline/nanopore.py
+// parse_mm_sections, itself after ref ont.cpp:310-416): a section is any
+// non-empty ';'-part; C+ sections record mod char (4th byte), the
+// dot-convention flag (header longer than 3 chars with a '?' 4th char
+// disables it), and the part index among ALL non-empty parts (used for ML
+// block slicing).
+int64_t mm_fill(const uint8_t* buf, int64_t n, const int64_t* mm_off,
+                const int64_t* mm_len,
+                int32_t* sec_rec, int8_t* sec_mod, int8_t* sec_npdot,
+                int32_t* sec_part_idx, int64_t* sec_nskip, int32_t* skips) {
+    int64_t S = 0, K = 0;
+    for (int64_t r = 0; r < n; r++) {
+        if (mm_off[r] < 0 || mm_len[r] < 0) continue;
+        const uint8_t* s = buf + mm_off[r];
+        int64_t len = mm_len[r];
+        int64_t i = 0;
+        int32_t part = 0;
+        while (i < len) {
+            int64_t j = i;
+            while (j < len && s[j] != ';') j++;
+            if (j == i) { i = j + 1; continue; }  // empty part: uncounted
+            if (j - i >= 3 && s[i] == 'C' && s[i + 1] == '+') {
+                int64_t h = i;
+                while (h < j && s[h] != ',') h++;
+                sec_rec[S] = (int32_t)r;
+                sec_mod[S] = (int8_t)s[i + 2];
+                sec_npdot[S] = (h - i > 3 && s[i + 3] == '?') ? 0 : 1;
+                sec_part_idx[S] = part;
+                int64_t ns = 0;
+                int64_t k = h;
+                while (k < j) {
+                    k++;  // step over the comma
+                    int32_t v = 0;
+                    int neg = 0;
+                    if (k < j && s[k] == '-') { neg = 1; k++; }
+                    while (k < j && s[k] >= '0' && s[k] <= '9') {
+                        v = v * 10 + (s[k] - '0');
+                        k++;
+                    }
+                    skips[K++] = neg ? -v : v;
+                    ns++;
+                    // skip any trailing junk up to the next comma so the
+                    // number of entries written always equals mm_count's
+                    // comma count (a stray non-digit char must not mint an
+                    // extra entry — that would overflow the skips buffer)
+                    while (k < j && s[k] != ',') k++;
+                }
+                sec_nskip[S] = ns;
+                S++;
+            }
+            part++;
+            i = j + 1;
+        }
+    }
+    return S;
 }
 
 }  // extern "C"

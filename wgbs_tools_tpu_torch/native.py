@@ -91,6 +91,19 @@ def _bind(lib):
     lib.segment_exact_dp.restype = i64
     lib.segment_exact_dp.argtypes = [vp, i64, i64, vp, ctypes.c_int32,
                                      ctypes.c_uint32, ctypes.c_float, vp]
+    lib.pat_serialize.restype = i64
+    lib.pat_serialize.argtypes = [i64, i64] + [vp] * 5 + [ctypes.c_char_p,
+                                                          vp, i64]
+    lib.bam_count.restype = i64
+    lib.bam_count.argtypes = [ctypes.c_char_p, i64, i64]
+    lib.bam_scan.restype = i64
+    lib.bam_scan.argtypes = [ctypes.c_char_p, i64, i64, i64, vp, vp, vp]
+    lib.bam_mmml_scan.restype = i64
+    lib.bam_mmml_scan.argtypes = [ctypes.c_char_p, i64] + [vp] * 6
+    lib.mm_count.restype = i64
+    lib.mm_count.argtypes = [ctypes.c_char_p, i64] + [vp] * 4
+    lib.mm_fill.restype = i64
+    lib.mm_fill.argtypes = [ctypes.c_char_p, i64] + [vp] * 8
 
 
 def get_lib():
@@ -272,6 +285,102 @@ def bgzf_compress_native(data: bytes, n_threads=None, level=6):
     out = ctypes.create_string_buffer(cap)
     w = lib.bgzf_compress_mt(data, len(data), out, max(n_threads, 1), level)
     return out.raw[:w]
+
+
+def serialize_pat_native(starts, lengths, counts, codes, chrom_ids,
+                         chrom_names):
+    """PatFrags columns -> pat text (chrom, start, pattern, count lines)."""
+    lib = get_lib()
+    n, L = codes.shape
+    chrom_buf = ("\n".join(chrom_names) + "\n").encode() + b"\x00"
+    cap = int(n * (L + 40) + 1024)
+    out = ctypes.create_string_buffer(cap)
+    starts = _c(starts, np.int32)
+    lengths = _c(lengths, np.int32)
+    counts = _c(counts, np.int32)
+    codes = _c(codes, np.uint8)
+    chrom_ids = _c(chrom_ids, np.int16)
+    w = lib.pat_serialize(n, L, starts.ctypes.data, lengths.ctypes.data,
+                          counts.ctypes.data, codes.ctypes.data,
+                          chrom_ids.ctypes.data, chrom_buf, out, cap)
+    if w < 0:
+        raise RuntimeError("pat_serialize: output buffer too small")
+    return out.raw[:w]
+
+
+def bam_scan_native(buf: bytes, records_off: int):
+    """Columnar scan of a decompressed BAM record region.
+
+    Returns (cols int32 [n, 8], offs int64 [n, 5], rec_end int64 [n]) where
+    cols = [ref_id, pos, flag, mapq, l_seq, n_cigar, first_cigar, l_qname]
+    and offs = [qname, cigar, seq, qual, tags] byte offsets, or None when
+    the records do not scan (a count and a fill that disagree).
+    """
+    lib = get_lib()
+    n = lib.bam_count(buf, len(buf), records_off)
+    if n < 0:
+        return None
+    n = int(n)
+    cols = np.zeros((max(n, 1), 8), dtype=np.int32)
+    offs = np.zeros((max(n, 1), 5), dtype=np.int64)
+    rec_end = np.zeros(max(n, 1), dtype=np.int64)
+    got = lib.bam_scan(buf, len(buf), records_off, n, cols.ctypes.data,
+                       offs.ctypes.data, rec_end.ctypes.data)
+    if got != n:
+        return None
+    return cols[:n], offs[:n], rec_end[:n]
+
+
+def bam_mmml_scan_native(buf, tags_off, rec_end):
+    """Locate MM/Mm:Z + ML/Ml:B,C aux tags for each record.
+
+    Returns (mm_off, mm_len, ml_off, ml_n) int64 arrays (see wgbsio.cpp for
+    the -1 / -9 sentinel conventions).
+    """
+    lib = get_lib()
+    n = tags_off.shape[0]
+    tags_off = _c(tags_off, np.int64)
+    rec_end = _c(rec_end, np.int64)
+    mm_off, mm_len, ml_off, ml_n = (np.empty(max(n, 1), dtype=np.int64)
+                                    for _ in range(4))
+    lib.bam_mmml_scan(buf, n, tags_off.ctypes.data, rec_end.ctypes.data,
+                      mm_off.ctypes.data, mm_len.ctypes.data,
+                      ml_off.ctypes.data, ml_n.ctypes.data)
+    return mm_off[:n], mm_len[:n], ml_off[:n], ml_n[:n]
+
+
+def mm_parse_native(buf, mm_off, mm_len):
+    """Batch-parse all MM tag strings into a flat section table.
+
+    Returns (sec_rec int32[S], sec_mod int8[S], sec_npdot int8[S],
+    sec_part_idx int32[S], sec_nskip int64[S], skips int32[K]) where
+    sections appear in record order, or None when the fill disagrees with
+    the count.
+    """
+    lib = get_lib()
+    n = mm_off.shape[0]
+    mm_off = _c(mm_off, np.int64)
+    mm_len = _c(mm_len, np.int64)
+    n_sec = np.empty(max(n, 1), dtype=np.int64)
+    n_skip = np.empty(max(n, 1), dtype=np.int64)
+    lib.mm_count(buf, n, mm_off.ctypes.data, mm_len.ctypes.data,
+                 n_sec.ctypes.data, n_skip.ctypes.data)
+    S = int(n_sec[:n].sum())
+    K = int(n_skip[:n].sum())
+    sec_rec = np.empty(max(S, 1), dtype=np.int32)
+    sec_mod = np.empty(max(S, 1), dtype=np.int8)
+    sec_npdot = np.empty(max(S, 1), dtype=np.int8)
+    sec_part_idx = np.empty(max(S, 1), dtype=np.int32)
+    sec_nskip = np.empty(max(S, 1), dtype=np.int64)
+    skips = np.empty(max(K, 1), dtype=np.int32)
+    got = lib.mm_fill(buf, n, mm_off.ctypes.data, mm_len.ctypes.data,
+                      sec_rec.ctypes.data, sec_mod.ctypes.data,
+                      sec_npdot.ctypes.data, sec_part_idx.ctypes.data,
+                      sec_nskip.ctypes.data, skips.ctypes.data)
+    if got != S:
+        return None
+    return (sec_rec[:S], sec_mod[:S], sec_npdot[:S], sec_part_idx[:S],
+            sec_nskip[:S], skips[:K])
 
 
 def pack_rows_native(g, count, rr, ln):

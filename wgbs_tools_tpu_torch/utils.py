@@ -3,8 +3,8 @@
 The port's own copy of what it calls from wgbs_tools_tpu/utils/
 (`__init__.py`, `log.py`, `files.py`; ref: src/python/utils_wgbs.py),
 with the same names: the CLI's input checks (`validate_single_file`,
-`validate_file_list`) and output names (`pretty_name`, `mkdirp`) among
-them.
+`validate_file_list`), output names (`pretty_name`, `mkdirp`),
+`set_verbose` and the decode's `outer_add` among them.
 """
 
 import logging
@@ -90,3 +90,23 @@ def validate_file_list(files, force_suff=None, min_len=1):
     suff = splitextgz(first)[1]
     for fpath in files:
         validate_single_file(fpath, suff)
+
+
+def set_verbose():
+    """--verbose/--debug CLI flags: log at debug level
+    (ref: bam2pat.py:205-206 prints the shell commands when verbose)."""
+    logger.setLevel(logging.DEBUG)
+
+
+def outer_add(col, n, dtype=None):
+    """col[:, None] + arange(n), built by filling then adding: numpy's
+    outer-broadcast ufunc path ((N,1)+(1,n)) runs much slower on short
+    rows, and the BAM decode builds its index matrices through this."""
+    import numpy as np
+
+    col = np.asarray(col)
+    dtype = np.dtype(dtype or col.dtype)
+    out = np.empty((col.shape[0], n), dtype=dtype)
+    out[:] = np.arange(n, dtype=dtype)
+    out += col[:, None].astype(dtype, copy=False)
+    return out
