@@ -427,7 +427,8 @@ FUNCTIONS = {**{name + "_kernel": name for name in KERNELS},
              "dp_scan_push_kernel": "dp_scan",
              "dp_scan_argmax_kernel": "dp_scan",
              "block_runs_kernel": "block_sums",
-             "block_pieces_kernel": "block_sums"}
+             "block_pieces_kernel": "block_sums",
+             "call_reads_tiles_kernel": "call_reads"}
 # segment_exact_dp's kernel functions -> its bodies
 SEGX_BODIES = {"segment_exact_dp_ahead_kernel": "ahead",
                "segment_exact_dp_kernel": "single"}
@@ -440,6 +441,14 @@ DPS_BODIES = {"dp_scan_push_kernel": "push",
 # warp-a-block kernel's name, for an older tree's build log)
 BLK_BODIES = {"block_runs_kernel": "runs", "block_pieces_kernel": "pieces",
               "block_sums_kernel": "warp a block"}
+# calling.cu's kernel functions -> their bodies (merge_pe's by its
+# template's STAGED; an older tree's single bodies as their kernel's name)
+CALLING_BODIES = {"call_reads_tiles_kernel": "call_reads tiles",
+                  "call_reads_long_kernel": "call_reads long",
+                  "call_reads_kernel": "call_reads (a warp a read)",
+                  "merge_pe_kernelILb1E": "merge_pe staged",
+                  "merge_pe_kernelILb0E": "merge_pe gather",
+                  "merge_pe_kernel": "merge_pe (a warp a pair)"}
 
 
 def _ptxas_registers(build_log, functions=None):
@@ -3640,9 +3649,9 @@ def _blocks_oracle(beta, s, e, lbeta):
 
 CALL_EDGE = ("random", "bottom_ends", "top_ends", "clip3", "clip_half",
              "no_loci", "all_dots", "widened", "last_locus", "len0",
-             "single_end")
+             "single_end", "sorted_tiles", "dense", "wide_window")
 MERGE_EDGE = ("random", "equal_starts", "b_before_a", "b_beyond",
-              "conflicts", "widths", "span0", "all_dots")
+              "conflicts", "widths", "span0", "all_dots", "wide_mates")
 EDGE_CHROM = 6000         # bp of the edges' chromosome
 EDGE_CPG_FREE = (3000, 3600)  # a stretch of it without a CpG
 EDGE_SITE_BASE = 1_000_000
@@ -3688,6 +3697,71 @@ def _edge_read(rng, seq, pos0, n, bottom):
     return r
 
 
+def _chrom_of(rng, bp, keep=1.0, gaps=None, run=None):
+    """A chromosome of random ACGT and its 1-based CpG loci: each CpG of the
+    random bytes kept with p `keep` (its G turns A), a CpG planted after
+    each gap drawn from [gaps[0], gaps[1]] bp, and [run[0], run[1]) made
+    CGCG... (a CpG every 2 bp)."""
+    import numpy as np
+
+    C, G = ord("C"), ord("G")
+    seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, bp)].copy()
+    cg = np.nonzero((seq[:-1] == C) & (seq[1:] == G))[0]
+    seq[cg[rng.random(cg.shape[0]) >= keep] + 1] = ord("A")
+    if gaps is not None:
+        at = np.cumsum(rng.integers(gaps[0], gaps[1] + 1, bp // gaps[0]))
+        at = at[at < bp - 1]
+        seq[at], seq[at + 1] = C, G
+    if run is not None:
+        seq[run[0]:run[1]] = np.resize(np.frombuffer(b"CG", np.uint8),
+                                       run[1] - run[0])
+    loci = (np.nonzero((seq[:-1] == C) & (seq[1:] == G))[0] + 1).astype(
+        np.int32)
+    return seq, loci
+
+
+def _tile_edge(name, rng):
+    """The chromosome, clip, read starts (0-based) and lengths of the edges
+    that reach call_reads' tile paths: reads sorted by position at phase
+    11's CpG density (sorted_tiles); RRBS-like reads piled at 40 starts
+    over a CpG every 4-10 bp, a fifth of them inside a CG run with odd
+    lengths (len // 2 + 1 slots each), clip 2 (dense); and a chromosome
+    with more loci than a tile's window, its first tile unsorted, its
+    second sorted but spread over the whole chromosome, the rest sorted in
+    a short stretch (wide_window: two tiles and 88 reads, a tile being
+    calling.cu's 512 reads at L 150)."""
+    import numpy as np
+
+    n, L, clip = 600, 150, 0
+    if name == "sorted_tiles":
+        seq, loci = _chrom_of(rng, 12_000, keep=BAM_CPG_KEEP)
+        pos0 = np.sort(rng.integers(0, seq.shape[0] - L, n))
+        lens = rng.integers(100, L + 1, n)
+    elif name == "dense":
+        run = (4000, 4400)
+        seq, loci = _chrom_of(rng, 8_000, gaps=(4, 10), run=run)
+        starts = rng.choice(seq.shape[0] - L, 40, replace=False)
+        pos0 = starts[rng.integers(0, 40, n)]
+        lens = rng.integers(60, L + 1, n)
+        inrun = rng.random(n) < 0.2
+        k = int(inrun.sum())
+        pos0[inrun] = run[0] + 2 * rng.integers(0, (run[1] - run[0] - L) // 2,
+                                                k)
+        lens[inrun] = 2 * rng.integers(40, L // 2, k) + 1
+        order = np.argsort(pos0, kind="stable")
+        pos0, lens, clip = pos0[order], lens[order], 2
+    else:
+        seq, loci = _chrom_of(rng, 24_000, gaps=(4, 12))
+        T = 512
+        n = 2 * T + 88
+        pos0 = rng.integers(0, seq.shape[0] - L, n)
+        pos0[T:2 * T] = np.linspace(0, seq.shape[0] - L - 1, T).astype(
+            np.int64)
+        pos0[2 * T:] = np.sort(rng.integers(10_000, 11_000, n - 2 * T))
+        lens = rng.integers(30, L + 1, n)
+    return seq, loci, clip, pos0, lens
+
+
 def call_edge_batch(name):
     """call_reads_mat's inputs of a hand-made edge: {positions, flags,
     paired, loci, site_base, seqmat, lens, clip}. The edges: bottom reads
@@ -3695,17 +3769,23 @@ def call_edge_batch(name):
     (bottom_ends), top reads ending on a CpG's C (top_ends), clip 3, clip
     >= len / 2, reads with no CpG in reach, reads whose CpGs are all '.',
     a matrix widened past its reads (a 500-byte read among 100-byte ones),
-    reads over the chromosome's last locus, rows of length 0, and
+    reads over the chromosome's last locus, rows of length 0,
     single-end flags (every batch but that one is paired-end, with the
     flags of both mates of OT and OB pairs and of pairs whose proper-pair
-    bit is clear)."""
+    bit is clear), and the tile paths' edges (_tile_edge: sorted_tiles,
+    dense, wide_window)."""
     import numpy as np
 
     rng = np.random.default_rng(CALL_EDGE.index(name) + 40)
-    seq, loci = _edge_chrom(rng)
-    n, L, clip, paired = 600, 150, 0, name != "single_end"
-    pos0 = rng.integers(0, EDGE_CHROM - L, n)
-    lens = rng.integers(30, L + 1, n)
+    L, paired = 150, name != "single_end"
+    if name in ("sorted_tiles", "dense", "wide_window"):
+        seq, loci, clip, pos0, lens = _tile_edge(name, rng)
+        n = pos0.shape[0]
+    else:
+        seq, loci = _edge_chrom(rng)
+        n, clip = 600, 0
+        pos0 = rng.integers(0, EDGE_CHROM - L, n)
+        lens = rng.integers(30, L + 1, n)
     if name == "bottom_ends":
         k = rng.integers(0, loci.shape[0] - 8, n)
         pos0 = loci[k].astype(np.int64) - 1
@@ -3761,6 +3841,81 @@ def call_edge_batch(name):
                 lens=lens.astype(np.int64), clip=clip)
 
 
+def call_long_batch():
+    """call_reads_mat's inputs of 64 paired-end reads of 8,200-9,000 bases
+    over a 40 kbp chromosome with a CpG planted every 15-35 bp, clip 3:
+    KB > 640, so call_reads takes its long body (a warp a read)."""
+    import numpy as np
+
+    rng = np.random.default_rng(70)
+    seq, loci = _chrom_of(rng, 40_000, gaps=(15, 35))
+    n, L = 64, 9000
+    lens = rng.integers(8200, L + 1, n)
+    pos0 = rng.integers(0, seq.shape[0] - L, n)
+    flags = np.asarray(_PE_FLAGS)[rng.integers(0, len(_PE_FLAGS), n)]
+    bottom = ((flags & 0x53) == 83) | ((flags & 0xA3) == 163)
+    seqmat = np.zeros((n, L), np.uint8)
+    for r in range(n):
+        seqmat[r, :lens[r]] = _edge_read(rng, seq, int(pos0[r]),
+                                         int(lens[r]), bottom[r])
+    return dict(positions=pos0.astype(np.int64) + 1,
+                flags=flags.astype(np.int64), paired=True, loci=loci,
+                site_base=EDGE_SITE_BASE, seqmat=seqmat,
+                lens=lens.astype(np.int64), clip=3)
+
+
+DENSE_READS = 300_000  # the dense batch: one call_reads launch
+DENSE_CHROM_BP = 4_000_000
+
+
+def dense_batch(seed=190, n=None, bp=None):
+    """call_reads_mat's inputs of a CpG-dense batch at launch size, made
+    from a seed (RRBS-like): a chromosome of bp (DENSE_CHROM_BP) with a
+    CpG planted every 4-10 bp (_chrom_of), n (DENSE_READS) paired-end
+    reads of 60-150 bases piled at n / 15 fragment starts, sorted by
+    position, converted as _edge_read converts (a C or G outside a CpG
+    always, inside one with p 0.3; 1 % N), in bulk."""
+    import numpy as np
+
+    n = DENSE_READS if n is None else n
+    bp = DENSE_CHROM_BP if bp is None else bp
+    rng = np.random.default_rng(seed)
+    seq, loci = _chrom_of(rng, bp, gaps=(4, 10))
+    L = 150
+    starts = rng.choice(np.arange(1, bp - L - 1), n // 15, replace=False)
+    pos0 = np.sort(starts[rng.integers(0, starts.shape[0], n)])
+    lens = rng.integers(60, L + 1, n)
+    flags = np.asarray(_PE_FLAGS)[rng.integers(0, len(_PE_FLAGS), n)]
+    bottom = ((flags & 0x53) == 83) | ((flags & 0xA3) == 163)
+    at = pos0[:, None] + np.arange(L)[None, :]
+    rows = seq[at]
+    conv = rng.integers(0, 100, (n, L), dtype=np.uint8) < 30
+    top = ~bottom[:, None]
+    c = (rows == ord("C")) & top & ((seq[at + 1] != ord("G")) | conv)
+    g = (rows == ord("G")) & ~top & ((seq[at - 1] != ord("C")) | conv)
+    rows[c] = ord("T")
+    rows[g] = ord("A")
+    rows[rng.integers(0, 100, (n, L), dtype=np.uint8) < 1] = ord("N")
+    rows[np.arange(L)[None, :] >= lens[:, None]] = 0
+    return dict(positions=pos0.astype(np.int64) + 1,
+                flags=flags.astype(np.int64), paired=True, loci=loci,
+                site_base=EDGE_SITE_BASE, seqmat=rows,
+                lens=lens.astype(np.int64), clip=0)
+
+
+def dense_pairs(calls):
+    """merge_pe_mat's inputs from call_reads_mat's (start, patmat, span) of
+    the dense batch: reads 2i and 2i + 1 as mates where both have a call
+    (neighbours in position order, mostly of one fragment start)."""
+    import numpy as np
+
+    start, pat, span = calls
+    a, b = np.arange(0, start.shape[0] - 1, 2), np.arange(1, start.shape[0], 2)
+    both = (start[a] >= 0) & (start[b] >= 0)
+    a, b = a[both], b[both]
+    return start[a], pat[a], span[a], start[b], pat[b], span[b]
+
+
 def _edge_pats(rng, spans, p_dot=0.3):
     """'.'-padded pattern chars (n, max span) of the given spans: T and C,
     some H, p_dot of '.'."""
@@ -3778,7 +3933,8 @@ def merge_edge_batch(name):
     """merge_pe_mat's inputs of a hand-made edge: (s1, pat1, sp1, s2,
     pat2, sp2). The edges: equal starts, mate 2 first, mate 2 past mate
     1's span, overlaps that disagree, pairs 299, 300 and 301 sites wide
-    (either mate first), mates of span 0, all-'.' mates."""
+    (either mate first), mates of span 0, all-'.' mates, and mates of
+    spans to 250 with S1 != S2, too wide for a staged tile (wide_mates)."""
     import numpy as np
 
     rng = np.random.default_rng(MERGE_EDGE.index(name) + 60)
@@ -3788,7 +3944,12 @@ def merge_edge_batch(name):
     sp2 = rng.integers(1, 81, n).astype(np.int64)
     off = rng.integers(-50, 151, n)
     p_dot = 0.3
-    if name == "equal_starts":
+    if name == "wide_mates":
+        # rows too wide for a staged tile: spans to 250, S1 != S2
+        sp1 = rng.integers(150, 251, n).astype(np.int64)
+        sp2 = rng.integers(40, 201, n).astype(np.int64)
+        off = rng.integers(-60, 201, n)
+    elif name == "equal_starts":
         off[:] = 0
     elif name == "b_before_a":
         off = -rng.integers(1, 61, n)
@@ -4318,7 +4479,8 @@ def _main_path_batches():
 def _call_launches(call, dev, rows):
     """The call_reads launches of one batch as call_reads_device makes
     them with chunks of `rows` reads (calling.ROWS on the path): a list of
-    (the launch's arguments on the card, its host pos1 and lens)."""
+    (the launch's arguments on the card, its host pos1, lens and
+    bottom)."""
     import numpy as np
     import torch
 
@@ -4337,8 +4499,64 @@ def _call_launches(call, dev, rows):
         cols = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
             seqmat[sl].astype(np.uint8, copy=False), lens[sl].astype(np.int32),
             pos1[sl].astype(np.int32), bottom[sl].astype(np.uint8))]
-        out.append(((*cols, loci_t, int(kw["clip"]), KB), pos1[sl], lens[sl]))
+        out.append(((*cols, loci_t, int(kw["clip"]), KB), pos1[sl], lens[sl],
+                    bottom[sl]))
     return out
+
+
+def _edge_call(b):
+    """An edge batch (call_edge_batch's dict) as _call_launches takes it."""
+    return ((b["positions"], b["flags"], b["paired"], b["loci"],
+             b["site_base"], b["seqmat"], b["lens"]), {"clip": b["clip"]})
+
+
+# the paths of call_reads that an edge is made to reach, and no other
+# (the long batch as "long"): each path with a count, every other none
+EDGE_PATHS = {"sorted_tiles": {"staged"}, "dense": {"staged"},
+              "wide_window": {"staged", "unsorted", "wide"},
+              "random": {"unsorted"}, "long": {"long"}}
+
+
+# the merge edges whose rows are too wide for a staged tile (the others
+# are staged)
+MERGE_BODIES = {"widths": "gather", "wide_mates": "gather"}
+
+
+def merge_body(S1, S2):
+    """The body csrc/calling.cu's merge_pe_plan takes at pattern widths S1,
+    S2: "staged" (a tile's rows in shared memory) or "gather"."""
+    import ctypes
+
+    from wgbs_tools_tpu_torch import _kernels
+
+    out = (ctypes.c_int64 * 3)()
+    _kernels.check(_kernels.load().merge_pe_plan(int(S1), int(S2), out),
+                   "merge_pe_plan")
+    return ("staged", "gather")[out[0]]
+
+
+def kernel_paths(launches, dev):
+    """call_reads on each launch with the kernel's own path counters
+    (calling.CALL_PATHS), each == its twin (tolerance 0). Returns {path:
+    tiles (reads for "long")}, summed."""
+    import torch
+
+    from wgbs_tools_tpu_torch.ops import calling
+
+    tot = dict.fromkeys(calling.CALL_PATHS, 0)
+    for args, _, _, _ in launches:
+        paths = torch.zeros(len(calling.CALL_PATHS), dtype=torch.int64,
+                            device=dev)
+        got = calling.call_reads(*args, paths=paths)
+        if not all(torch.equal(a, b) for a, b in zip(
+                got, calling.call_reads_plain(*args))):
+            raise RuntimeError("call_reads with its path counters != twin")
+        tot = {k: tot[k] + n for k, n in zip(tot, paths.tolist())}
+    return tot
+
+
+def _paths_text(paths):
+    return "/".join(str(paths[k]) for k in paths)
 
 
 def _call_bytes(pos1, lens, loci, span):
@@ -4357,6 +4575,45 @@ def _call_bytes(pos1, lens, loci, span):
                 - np.searchsorted(loci, int(pos1.min())))
     packed = int(((span.astype(np.int64) + 3) // 4).sum())
     return 9 * R + 2 * covered + 4 * reach + 8 * R + packed, covered
+
+
+def call_sectors(pos1, lens, bottom, loci, L):
+    """The 32-byte sectors of a launch's (R, L) sequence matrix that its
+    calls touch: each covered CpG's byte j (j = locus - pos1 + bottom,
+    inside the read) and its neighbour (j + 1 top, j - 1 bottom, inside
+    the read), as offsets from the matrix's start."""
+    import numpy as np
+
+    pos1 = np.asarray(pos1, np.int64)
+    lens = np.asarray(lens, np.int64)
+    k0 = np.searchsorted(loci, pos1)
+    nv = np.searchsorted(loci, pos1 + lens) - k0
+    r = np.repeat(np.arange(pos1.shape[0]), nv)
+    k = np.arange(r.shape[0]) - np.repeat(np.cumsum(nv) - nv, nv) \
+        + np.repeat(k0, nv)
+    bot = np.asarray(bottom, np.int64)[r]
+    j = loci[k].astype(np.int64) - pos1[r] + bot
+    nb = j + 1 - 2 * bot
+    n_r = lens[r]
+    at = np.concatenate([r[(j >= 0) & (j < n_r)] * L + j[(j >= 0) & (j < n_r)],
+                         r[(j >= 0) & (j < n_r) & (nb >= 0) & (nb < n_r)] * L
+                         + nb[(j >= 0) & (j < n_r) & (nb >= 0) & (nb < n_r)]])
+    return int(np.unique(at >> 5).shape[0])
+
+
+def merge_sectors(sp1, sp2, S1, S2):
+    """The 32-byte sectors of both mates' (n, S) pattern matrices that the
+    merge's columns touch: each row's chars up to its span."""
+    import numpy as np
+
+    total = 0
+    for sp, S in ((sp1, S1), (sp2, S2)):
+        sp = np.asarray(sp, np.int64)
+        r = np.nonzero(sp > 0)[0]
+        a, b = (r * S) >> 5, (r * S + sp[r] - 1) >> 5
+        prev = np.maximum.accumulate(np.concatenate([[-1], b[:-1]]))
+        total += int(np.maximum(b - np.maximum(a, prev + 1) + 1, 0).sum())
+    return total
 
 
 def _launch_figures(launches, kernel, plain, bytes_of):
@@ -4404,16 +4661,18 @@ def _route_line(what, tot, unit):
             f"all")
 
 
-def _calling_timing(routes, dev, regs):
+def _calling_timing(routes, dev, regs, dense):
     """call_reads on the launches that the streamed and whole-file runs
     made (their batches split at calling.ROWS as call_reads_device splits
     them), each == its twin on the card, each streamed batch's
     call_reads_device == numpy's call_reads_mat (tolerance 0; the whole-
     file run's bytes were held to --device cpu's); timed a launch beside
-    its bound, with the h2d of the sequence matrices and numpy's time on
-    the streamed batches; and chr1's
-    whole-file batch in one launch. Returns the kernel's results: its
-    figures a launch on the default (streamed) route."""
+    its bound and the 32-byte sectors of the rows its calls touch, with
+    the h2d of the sequence matrices and numpy's time on the streamed
+    batches, and the tiles by path (kernel_paths); chr1's whole-file batch
+    in one launch, == its twin; and the dense batch (dense_batch) in one
+    launch, also == numpy. Returns the kernel's results: its figures a
+    launch on the default (streamed) route."""
     import numpy as np
     import torch
 
@@ -4422,6 +4681,22 @@ def _calling_timing(routes, dev, regs):
 
     def call_bytes(host, k):
         return _call_bytes(*host, k[1].cpu().numpy())[0]
+
+    def figures(launches):
+        fig = _launch_figures(
+            [(a, (p, n, a[4].cpu().numpy())) for a, p, n, _ in launches],
+            calling.call_reads, calling.call_reads_plain, call_bytes)
+        fig["sectors"] = sum(call_sectors(p, n, bt, a[4].cpu().numpy(),
+                                          a[0].shape[1])
+                             for a, p, n, bt in launches)
+        fig["paths"] = kernel_paths(launches, dev)
+        return fig
+
+    def sectors_text(tot):
+        return (f"; the rows' 32-byte sectors the calls touch "
+                f"{tot['sectors']:,} ({32 * tot['sectors']:,} bytes); tiles "
+                f"staged/unsorted/wide, long-body reads "
+                f"{_paths_text(tot['paths'])}")
 
     res, lines = {}, []
     for name, batches in routes.items():
@@ -4447,12 +4722,10 @@ def _calling_timing(routes, dev, regs):
             torch.cuda.synchronize()
             h2d_s += time.perf_counter() - t0
             launches = _call_launches(call, dev, calling.ROWS)
-            part = _launch_figures(
-                [(a, (p, n, loci)) for a, p, n in launches],
-                calling.call_reads, calling.call_reads_plain,
-                lambda host, k: call_bytes(host, k))
+            part = figures(launches)
             tot = part if tot is None else {
-                k: tot[k] + part[k] for k in tot}
+                k: ({p: tot[k][p] + part[k][p] for p in tot[k]}
+                    if k == "paths" else tot[k] + part[k]) for k in tot}
             del launches
             torch.cuda.empty_cache()
         tot.update(h2d_ms=1e3 * h2d_s, numpy_ms=1e3 * numpy_s,
@@ -4460,6 +4733,7 @@ def _calling_timing(routes, dev, regs):
         res[name] = tot
         line = _route_line(f"call_reads on the {name} run's launches ("
                            f"{len(batches)} batches)", tot, "reads")
+        line += sectors_text(tot)
         line += (f"; h2d of the sequence matrices (pageable) "
                  f"{tot['h2d_ms']:.3f} ms" + (
                      f"; == call_reads_mat, numpy {tot['numpy_ms']:.1f} ms"
@@ -4469,8 +4743,12 @@ def _calling_timing(routes, dev, regs):
     # chr1's whole-file batch in a single launch, a launch no route makes
     call = next(c for c in routes["no_stream"]
                 if c[1].get("chrom") == BAM_CHROMS[0])
-    (args, pos1, lens), = _call_launches(call, dev, call[0][5].shape[0])
+    (args, pos1, lens, _), = _call_launches(call, dev, call[0][5].shape[0])
     k = calling.call_reads(*args)
+    if not all(torch.equal(a, b) for a, b in zip(
+            k, calling.call_reads_plain(*args))):
+        raise RuntimeError("call_reads != its twin on chr1's whole-file "
+                           "batch in one launch")
     n_bytes, covered = _call_bytes(pos1, lens, call[0][3],
                                    k[1].cpu().numpy())
     one = {"reads": int(pos1.shape[0]), "bytes": n_bytes,
@@ -4479,17 +4757,37 @@ def _calling_timing(routes, dev, regs):
     del args, k
     torch.cuda.empty_cache()
     line = (f"call_reads on chr1's whole-file batch in one launch "
-            f"({one['reads']:,} reads, {covered:,} covered CpGs): "
+            f"({one['reads']:,} reads, {covered:,} covered CpGs; == twin, "
+            f"tolerance 0): "
             f"{n_bytes:,} bytes, bound {one['bound_ms']:.4f} ms; kernel "
             f"{one['ms']:.4f} ms ({one['bound_ms'] / one['ms']:.1%}); "
             f"registers {regs.get('call_reads')}")
     log("phase 11: " + line)
     lines.append(line)
+    # the dense batch (RRBS-like, a CpG every 4-10 bp) in one launch
+    call = _edge_call(dense)
+    want = call_reads_mat(*call[0], clip=dense["clip"])
+    got = calling.call_reads_device(*call[0], clip=dense["clip"],
+                                    device=dev)
+    if not all(a.dtype == b.dtype and np.array_equal(a, b)
+               for a, b in zip(got, want)):
+        raise RuntimeError("call_reads_device on cuda != call_reads_mat on "
+                           "the dense batch")
+    res["dense"] = figures(_call_launches(call, dev, calling.ROWS))
+    covered = _call_bytes(dense["positions"], dense["lens"], dense["loci"],
+                          want[2])[1]
+    line = _route_line(f"call_reads on the dense batch ({covered:,} "
+                       f"covered CpGs, == call_reads_mat)", res["dense"],
+                       "reads")
+    log("phase 11: " + line + sectors_text(res["dense"]))
+    lines.append(line + sectors_text(res["dense"]))
+    torch.cuda.empty_cache()
     job = res["stream"]
     return {"max_abs_err": 0, **_per_launch(job), "bound_by": "bytes",
             "library_ms": None, "bytes_per_launch":
             job["bytes"] / job["launches"], "job": job,
-            "whole_file": res["no_stream"], "single_launch": one}, lines
+            "whole_file": res["no_stream"], "single_launch": one,
+            "dense": res["dense"]}, lines, want
 
 
 def _merge_launches(merge, dev, rows):
@@ -4523,13 +4821,15 @@ def _merge_bytes(sp1, sp2, span):
             + int(((span.astype("int64") + 3) // 4).sum()))
 
 
-def _merging_timing(routes, dev, regs):
+def _merging_timing(routes, dev, regs, dense):
     """merge_pe on the launches that the streamed and whole-file runs made
     (at calling.ROWS pairs a launch, as merge_pe_device makes them), each
     == its twin on the card, each streamed batch's merge_pe_device ==
-    numpy's merge_pe_mat (tolerance 0), timed a launch beside its bound
-    and numpy's time. Returns its figures a launch on the streamed
-    route."""
+    numpy's merge_pe_mat (tolerance 0), timed a launch beside its bound,
+    the 32-byte sectors of the rows its columns touch, its body
+    (merge_body) and numpy's time; and on the dense batch's pairs
+    (dense_pairs of its calls `dense`), also == numpy. Returns its figures
+    a launch on the streamed route."""
     import numpy as np
     import torch
 
@@ -4537,21 +4837,26 @@ def _merging_timing(routes, dev, regs):
     from wgbs_tools_tpu_torch.pipeline.calling import merge_pe_mat
 
     res, lines = {}, []
+    routes = dict(routes, dense=[dense_pairs(dense)])
     for name, batches in routes.items():
-        numpy_s, tot, too_long = 0.0, None, 0
+        numpy_s, tot, too_long, sectors = 0.0, None, 0, 0
+        bodies = set()
         for merge in batches:
             if merge[0].shape[0] == 0:  # merge_pe_device launches nothing
                 continue
-            if name == "stream":
+            if name != "no_stream":
                 t0 = time.perf_counter()
                 want = merge_pe_mat(*merge)
                 numpy_s += time.perf_counter() - t0
                 got = calling.merge_pe_device(*merge, device=dev)
                 if not all(a.dtype == b.dtype and np.array_equal(a, b)
                            for a, b in zip(got, want)):
-                    raise RuntimeError("merge_pe_device on cuda != "
-                                       "merge_pe_mat on a streamed batch")
+                    raise RuntimeError(f"merge_pe_device on cuda != "
+                                       f"merge_pe_mat on a {name} batch")
                 too_long += int(got[3].sum())
+            S1, S2 = merge[1].shape[1], merge[4].shape[1]
+            bodies.add(f"{merge_body(S1, S2)} (S {S1}, {S2})")
+            sectors += merge_sectors(merge[2], merge[5], S1, S2)
             part = _launch_figures(
                 _merge_launches(merge, dev, calling.ROWS), calling.merge_pe,
                 calling.merge_pe_plain,
@@ -4559,12 +4864,17 @@ def _merging_timing(routes, dev, regs):
             tot = part if tot is None else {
                 k: tot[k] + part[k] for k in tot}
         tot.update(numpy_ms=1e3 * numpy_s, batches=len(batches),
-                   too_long=too_long)
+                   too_long=too_long, sectors=sectors,
+                   bodies=sorted(bodies))
         res[name] = tot
-        line = _route_line(f"merge_pe on the {name} run's launches",
-                           tot, "pairs")
+        line = _route_line(f"merge_pe on the {name} " + (
+            "batch's pairs" if name == "dense" else "run's launches"),
+            tot, "pairs")
+        line += (f"; the rows' 32-byte sectors the columns touch "
+                 f"{sectors:,} ({32 * sectors:,} bytes); bodies "
+                 f"{', '.join(tot['bodies'])}")
         line += ((f"; == merge_pe_mat, {too_long:,} too long, numpy "
-                  f"{tot['numpy_ms']:.1f} ms" if name == "stream" else "")
+                  f"{tot['numpy_ms']:.1f} ms" if name != "no_stream" else "")
                  + f"; registers {regs.get('merge_pe')}")
         log("phase 11: " + line)
         lines.append(line)
@@ -4573,12 +4883,16 @@ def _merging_timing(routes, dev, regs):
     return {"max_abs_err": 0, **_per_launch(job), "bound_by": "bytes",
             "library_ms": None, "bytes_per_launch":
             job["bytes"] / job["launches"], "job": job,
-            "whole_file": res["no_stream"]}, lines
+            "whole_file": res["no_stream"], "dense": res["dense"]}, lines
 
 
 def _calling_edges(dev):
-    """call_reads and merge_pe on CALL_EDGE / MERGE_EDGE: the kernel ==
-    its twin == numpy (tolerance 0)."""
+    """call_reads and merge_pe on CALL_EDGE / MERGE_EDGE and call_reads on
+    call_long_batch: the kernel == its twin == numpy (tolerance 0); the
+    tiles of each call edge by path, from the kernel's own counters
+    (kernel_paths), and each merge edge's body (merge_body). The edges of
+    EDGE_PATHS must reach their paths and no other, those of MERGE_BODIES
+    their body, and every path and body must be reached."""
     import numpy as np
 
     from wgbs_tools_tpu_torch.ops import calling
@@ -4589,19 +4903,25 @@ def _calling_edges(dev):
         return all(a.dtype == b.dtype and np.array_equal(a, b)
                    for o in outs[1:] for a, b in zip(outs[0], o))
 
-    called = []
-    for name in CALL_EDGE:
-        b = call_edge_batch(name)
-        args = (b["positions"], b["flags"], b["paired"], b["loci"],
-                b["site_base"], b["seqmat"], b["lens"])
-        outs = [calling.call_reads_device(*args, clip=b["clip"], device=d)
+    called, reached = [], dict.fromkeys(calling.CALL_PATHS, 0)
+    for name in CALL_EDGE + ("long",):
+        b = call_long_batch() if name == "long" else call_edge_batch(name)
+        call = _edge_call(b)
+        outs = [calling.call_reads_device(*call[0], clip=b["clip"], device=d)
                 for d in (dev, "cpu")]
-        outs.append(call_reads_mat(*args, clip=b["clip"]))
+        outs.append(call_reads_mat(*call[0], clip=b["clip"]))
         if not same(*outs):
-            raise RuntimeError(f"call_reads: CALL_EDGE {name}: kernel, twin "
-                               "and numpy differ")
-        called.append(f"{name} {int((outs[0][0] >= 0).sum())}")
-    merged = []
+            raise RuntimeError(f"call_reads: edge {name}: kernel, twin and "
+                               "numpy differ")
+        paths = kernel_paths(_call_launches(call, dev, calling.ROWS), dev)
+        if name in EDGE_PATHS and {k for k, v in paths.items() if v} != \
+                EDGE_PATHS[name]:
+            raise RuntimeError(f"call_reads: edge {name} took the paths "
+                               f"{paths}, want {sorted(EDGE_PATHS[name])}")
+        reached = {k: reached[k] + paths[k] for k in reached}
+        called.append(f"{name} {int((outs[0][0] >= 0).sum())} "
+                      f"({_paths_text(paths)})")
+    merged, bodies = [], set()
     for name in MERGE_EDGE:
         b = merge_edge_batch(name)
         outs = [calling.merge_pe_device(*b, device=d) for d in (dev, "cpu")]
@@ -4609,11 +4929,45 @@ def _calling_edges(dev):
         if not same(*outs):
             raise RuntimeError(f"merge_pe: MERGE_EDGE {name}: kernel, twin "
                                "and numpy differ")
+        body = merge_body(b[1].shape[1], b[4].shape[1])
+        if body != MERGE_BODIES.get(name, "staged"):
+            raise RuntimeError(f"merge_pe: MERGE_EDGE {name} took its {body} "
+                               "body")
+        bodies.add(body)
         merged.append(f"{name} {int((outs[0][0] >= 0).sum())}/"
-                      f"{int(outs[0][3].sum())}")
-    return (f"call_reads on CALL_EDGE (reads with a call): "
+                      f"{int(outs[0][3].sum())} ({body})")
+    missed = [k for k, v in reached.items() if not v] + [
+        k for k in ("staged", "gather") if k not in bodies]
+    if missed:
+        raise RuntimeError(f"the edges reach no {', '.join(missed)} path")
+    return (f"call_reads on CALL_EDGE and the long batch (reads with a "
+            f"call; tiles staged/unsorted/wide, long-body reads): "
             f"{', '.join(called)}; merge_pe on MERGE_EDGE (merged / too "
-            f"long): {', '.join(merged)}")
+            f"long; body): {', '.join(merged)}")
+
+
+def bam_data(work, refs, kinds=("pe", "se")):
+    """Phase 11's genome (its CpG index written under refs) and BAMs of
+    the kinds asked ("pe", "se"), made from seeds. Returns ({kind: path},
+    CpG sites, a line that says what was made)."""
+    import numpy as np
+
+    from wgbs_tools_tpu_torch.genome.refdir import Genome
+
+    t0 = time.perf_counter()
+    seq, pm, loci = bam_genome(np.random.default_rng(180))
+    write_cpg_index(refs, BAM_GENOME, BAM_CHROMS, loci, [BAM_CHROM_BP] * 2)
+    bams = {k: op.join(work, f"{k}.bam") for k in kinds}
+    n_rec = {k: write_bam(bams[k], {"pe": 181, "se": 182}[k], k == "pe",
+                          seq, pm) for k in kinds}
+    del seq, pm
+    n_sites = Genome(BAM_GENOME).get_nr_sites()
+    return bams, n_sites, (
+        f"data: {len(BAM_CHROMS)} x {BAM_CHROM_BP:,} bp, {n_sites:,} CpG "
+        f"sites; " + ", ".join(
+            f"{k}.bam {n_rec[k]:,} records "
+            f"({op.getsize(bams[k]) / 1e6:.1f} MB)" for k in kinds)
+        + f", made in {time.perf_counter() - t0:.3f} s")
 
 
 def phase_bam2pat(work, regs):
@@ -4624,27 +4978,17 @@ def phase_bam2pat(work, regs):
     against numpy on the streamed batches, and on the edges, timed a
     launch. Returns ({kernel: results a launch of the streamed run},
     {kernel: (path, launches)}, summary line)."""
-    import numpy as np
     import torch
 
-    from wgbs_tools_tpu_torch.genome.refdir import Genome
+    from wgbs_tools_tpu_torch import _kernels
 
     dev = torch.device("cuda")
     t_phase = time.perf_counter()
-    refs = os.environ["WGBS_TPU_REFDIR"]
-    t0 = time.perf_counter()
-    seq, pm, loci = bam_genome(np.random.default_rng(180))
-    write_cpg_index(refs, BAM_GENOME, BAM_CHROMS, loci, [BAM_CHROM_BP] * 2)
-    bams = {"pe": op.join(work, "pe.bam"), "se": op.join(work, "se.bam")}
-    n_rec = {"pe": write_bam(bams["pe"], 181, True, seq, pm),
-             "se": write_bam(bams["se"], 182, False, seq, pm)}
-    del seq, pm
-    n_sites = Genome(BAM_GENOME).get_nr_sites()
-    line = (f"data: {len(BAM_CHROMS)} x {BAM_CHROM_BP:,} bp, {n_sites:,} "
-            f"CpG sites; pe.bam {n_rec['pe']:,} records "
-            f"({op.getsize(bams['pe']) / 1e6:.1f} MB), se.bam "
-            f"{n_rec['se']:,} ({op.getsize(bams['se']) / 1e6:.1f} MB), "
-            f"made in {time.perf_counter() - t0:.3f} s")
+    body_regs, body_spills = _ptxas_registers(_kernels.BUILD_LOG,
+                                              CALLING_BODIES)
+    log(f"phase 11: calling.cu's bodies: ptxas registers {body_regs}, spill "
+        f"bytes {body_spills}")
+    bams, n_sites, line = bam_data(work, os.environ["WGBS_TPU_REFDIR"])
     log("phase 11: " + line)
     lines, launches, batches = [line], {}, {}
     for name, bam, flags in BAM_RUNS:
@@ -4700,10 +5044,17 @@ def phase_bam2pat(work, regs):
     # the kernels on the launches the two PE runs made on cuda; the
     # streamed run's must be as many as its counters say
     res = {}
-    for kernel, key, timing in (("call_reads", "call", _calling_timing),
-                                ("merge_pe", "merge", _merging_timing)):
-        res[kernel], more = timing(
-            {n: batches[n][key] for n in ("stream", "no_stream")}, dev, regs)
+    dense = dense_batch()
+    res["call_reads"], more, dense_calls = _calling_timing(
+        {n: batches[n]["call"] for n in ("stream", "no_stream")}, dev, regs,
+        dense)
+    lines += more
+    del dense
+    res["merge_pe"], more = _merging_timing(
+        {n: batches[n]["merge"] for n in ("stream", "no_stream")}, dev, regs,
+        dense_calls)
+    lines += more
+    for kernel, key in (("call_reads", "call"), ("merge_pe", "merge")):
         if res[kernel]["job"]["launches"] != launches[kernel][1][kernel]:
             raise RuntimeError(
                 f"{kernel}: {res[kernel]['job']['launches']} launches made "
@@ -4711,9 +5062,8 @@ def phase_bam2pat(work, regs):
                 f"{launches[kernel][1][kernel]}")
         for name in ("stream", "no_stream"):
             batches[name][key] = None
-        lines += more
-        torch.cuda.empty_cache()
     del batches
+    torch.cuda.empty_cache()
     line = "edges == twins == numpy (tolerance 0): " + _calling_edges(dev)
     log("phase 11: " + line)
     lines.append(line)

@@ -5,9 +5,10 @@ source trees, on one GPU, on the slabs that chip_smoke.py's phase 3 gives
 them (tiles_v1 also on its long slab), of the max-plus closure
 (maxplus_closure) on fast segmentation's batch, of exact
 segmentation's DP (segment_exact_dp) on phase 8's batch, of the
-analysis step's serial DP (dp_scan) on phase 9's cost shape, and of the
+analysis step's serial DP (dp_scan) on phase 9's cost shape, of the
 block and read-level kernels (block_sums, pair_counts, homog_bins) on
-phase 10's launches.
+phase 10's launches, and of bam2pat's calling kernels (call_reads,
+merge_pe) on phase 11's.
 
     python3 kernel_ab.py OTHER_TREE [--frags N] [--reps R] [--rounds K]
                          [--listed B[,B...]] [--kernels NAME[,NAME...]]
@@ -74,7 +75,20 @@ rows of 25, 41 and 72 calls (chip_smoke.homog_row_form: '.' calls before
 each row, the same counts); every output must equal the twin's. Where the
 other tree's homog.cu is the thread-a-pair body, a probe of it without
 its global atomic (HOMOG_NO_ATOMIC) is timed beside them on the main-path
-rows, its output unchecked. --kernels picks the kernels (default: all).
+rows, its output unchecked. call_reads and merge_pe: each tree's
+csrc/calling.cu is compiled alone, and both are called in the same turns
+on phase 11's launches, made from chip_smoke.py's seeds (the PE BAM
+through the port's bam2pat on cuda, streamed and --no_stream, its
+batches kept by chip_smoke._main_path_batches and split at calling.ROWS
+as the wrappers split them): call_reads on the streamed run's launches,
+chr1's whole-file batch in one launch and the dense batch
+(chip_smoke.dense_batch, 300,000 RRBS-like reads in one launch);
+merge_pe on the streamed run's launches, the whole-file run's and the
+dense batch's pairs (chip_smoke.dense_pairs); a turn runs a set's
+launches one after another (times are per set); every output must equal
+the twin's; each tree's registers and spills per body
+(chip_smoke.CALLING_BODIES) are printed.
+--kernels picks the kernels (default: all).
 Prints the card's name and power limit, one line per kernel, slab and
 run, and last one JSON object with every run's times and each tree's
 ptxas registers (the most any template instance uses, and each
@@ -833,6 +847,143 @@ def launcher(tree_lib, name, st, span, entry=None):
     return launch, out
 
 
+CALL, MERGE = "call_reads", "merge_pe"
+CALLING_SRC = "wgbs_tools_tpu_torch/csrc/calling.cu"
+
+
+def build_calling(tree, out_dir):
+    """The tree's calling.cu alone (build_alone); its call_reads and
+    merge_pe entries take the same arguments in every tree."""
+    lib, regs, spills = build_alone(tree, CALLING_SRC, out_dir,
+                                    chip_smoke.CALLING_BODIES)
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.call_reads.argtypes = [vp] * 8 + [i64] * 5 + [vp]
+    lib.call_reads.restype = ctypes.c_int
+    lib.merge_pe.argtypes = [vp] * 10 + [i64] * 3 + [vp]
+    lib.merge_pe.restype = ctypes.c_int
+    return lib, regs, spills
+
+
+def calling_inputs(work):
+    """Phase 11's launches, made as chip_smoke.py makes them (its seeds):
+    the PE BAM through bam2pat on cuda, streamed and --no_stream, with
+    chip_smoke._main_path_batches keeping each run's batches; and the
+    dense batch (chip_smoke.dense_batch) with its calls. Returns {"call":
+    {set: [call_reads launches]}, "merge": {set: [merge_pe launches]}},
+    launches as chip_smoke._call_launches / _merge_launches make them at
+    calling.ROWS rows (chr1's whole-file batch in one launch)."""
+    import torch
+
+    from wgbs_tools_tpu_torch.ops import calling
+
+    dev = torch.device("cuda")
+    refs = op.join(work, "refs")
+    os.makedirs(refs)
+    os.environ["WGBS_TPU_REFDIR"] = refs
+    bams, _, line = chip_smoke.bam_data(work, refs, ("pe",))
+    chip_smoke.log("A/B calling: " + line)
+    got = {}
+    for name, flags in (("stream", []), ("no_stream", ["--no_stream"])):
+        out = op.join(work, name)
+        os.makedirs(out)
+        with chip_smoke._main_path_batches() as got[name]:
+            chip_smoke._bam2pat_cli(
+                f"bam2pat {name}", [bams["pe"], "-o", out, "--genome",
+                                    chip_smoke.BAM_GENOME, "--device",
+                                    "cuda"] + flags, (CALL, MERGE))
+    chr1 = next(c for c in got["no_stream"]["call"]
+                if c[1].get("chrom") == chip_smoke.BAM_CHROMS[0])
+    dense = chip_smoke.dense_batch()
+    call = chip_smoke._edge_call(dense)
+    calls = calling.call_reads_device(*call[0], clip=dense["clip"],
+                                      device=dev)
+
+    def call_set(batches, rows=calling.ROWS):
+        return [ln for c in batches
+                for ln in chip_smoke._call_launches(c, dev, rows or
+                                                    c[0][5].shape[0])]
+
+    def merge_set(batches):
+        return [ln for m in batches if m[0].shape[0]
+                for ln in chip_smoke._merge_launches(m, dev, calling.ROWS)]
+
+    return {"call": {
+        "the streamed PE run's launches": call_set(got["stream"]["call"]),
+        "chr1's whole-file batch": call_set([chr1], None),
+        "the dense batch": call_set([call])},
+        "merge": {
+        "the streamed PE run's launches": merge_set(got["stream"]["merge"]),
+        "the whole-file run's launches": merge_set(
+            got["no_stream"]["merge"]),
+        "the dense batch's pairs": merge_set(
+            [chip_smoke.dense_pairs(calls)])}}
+
+
+def ab_calling(ctrees, inputs, picked, reps, rounds):
+    """Both trees' call_reads and merge_pe on phase 11's launch sets, each
+    set's launches one after another a turn, in turns; every output ==
+    the twin's. Returns (runs, {kernel slab: {tree: median ms a set}})."""
+    import torch
+
+    from wgbs_tools_tpu_torch.ops import calling
+
+    runs, summary = [], {}
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    for kernel in (CALL, MERGE):
+        if kernel not in picked:
+            continue
+        plain = (calling.call_reads_plain if kernel == CALL
+                 else calling.merge_pe_plain)
+        for slab, launches in inputs["call" if kernel == CALL
+                                     else "merge"].items():
+            wants = [plain(*ln[0]) for ln in launches]
+            calls = {}
+            for tree, (lib, _, _) in ctrees.items():
+                jobs = []
+                for ln, want in zip(launches, wants):
+                    args = ln[0]
+                    outs = [torch.empty_like(w) for w in want]
+                    if kernel == CALL:
+                        seq, lens, pos1, bottom, loci, clip, KB = args
+                        ptrs = [t.data_ptr() for t in (seq, lens, pos1,
+                                                       bottom, loci, *outs)]
+                        ints = [seq.shape[0], seq.shape[1], loci.shape[0],
+                                KB, clip]
+                    else:
+                        s1, sp1, p1, s2, sp2, p2 = args
+                        ptrs = [t.data_ptr() for t in (*args, *outs)]
+                        ints = [s1.shape[0], p1.shape[1], p2.shape[1]]
+                    jobs.append((getattr(lib, kernel), ptrs, ints, outs,
+                                 want))
+
+                def launch(jobs=jobs):
+                    for fn, ptrs, ints, _, _ in jobs:
+                        err = fn(*ptrs, *ints, stream())
+                        if err:
+                            raise RuntimeError(f"{kernel}: CUDA error {err}")
+
+                launch()
+                torch.cuda.synchronize()
+                for _, _, _, outs, want in jobs:
+                    if not all(torch.equal(a, b) for a, b in zip(outs, want)):
+                        raise RuntimeError(f"{tree} {kernel} on {slab}: "
+                                           "kernel != twin")
+                calls[tree] = launch
+            rows = [ln[0][0].shape[0] for ln in launches]
+            widths = sorted({(ln[0][0].shape[1], 0) if kernel == CALL else
+                             (ln[0][2].shape[1], ln[0][5].shape[1])
+                             for ln in launches})
+            _ab_turns(kernel, slab, calls, reps, rounds, runs, summary,
+                      f"{len(launches)} launches of {min(rows):,}-"
+                      f"{max(rows):,} rows, {sum(rows):,} in all; "
+                      + ("L" if kernel == CALL else "S1, S2") + " "
+                      + ", ".join(str(w[0]) if kernel == CALL else str(w)
+                                  for w in widths))
+            del wants, calls
+            torch.cuda.empty_cache()
+    return runs, summary
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("other", help="the other tree (e.g. the parent commit)")
@@ -848,13 +999,13 @@ def main():
     p.add_argument("--kernels",
                    default=",".join(list(KERNELS)
                                     + [MAXPLUS, SEGX, DPS, BLK, PAIRS,
-                                       HOMOG]),
+                                       HOMOG, CALL, MERGE]),
                    help="the kernels to A/B (comma-separated; default all)")
     args = p.parse_args()
     listed = [int(b) for b in args.listed.split(",") if b]
     picked = args.kernels.split(",")
     unknown = set(picked) - set(KERNELS) - {MAXPLUS, SEGX, DPS, BLK, PAIRS,
-                                            HOMOG}
+                                            HOMOG, CALL, MERGE}
     if unknown:
         p.error(f"unknown kernels {sorted(unknown)}")
     pileups = [name for name in KERNELS if name in picked]
@@ -940,6 +1091,19 @@ def main():
                         "registers": built[1], "spills": built[2]}
                     chip_smoke.log(f"{kernel} {t}: ptxas registers "
                                    f"{built[1]}, spill bytes {built[2]}")
+        if CALL in picked or MERGE in picked:
+            ctrees = {t: build_calling(tree, op.join(work, "c" + t[0]))
+                      for t, tree in (("other", op.abspath(args.other)),
+                                      ("this", REPO))}
+            cruns, med = ab_calling(ctrees, calling_inputs(work), picked,
+                                    args.reps, args.rounds)
+            runs += cruns
+            summary.update(med)
+            for t, (_, r, sp) in ctrees.items():
+                regs.setdefault(t, {})["calling"] = {"registers": r,
+                                                     "spills": sp}
+                chip_smoke.log(f"calling.cu {t}: ptxas registers {r}, spill "
+                               f"bytes {sp}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(smi, flush=True)

@@ -82,6 +82,112 @@ def test_call_edges_reach_their_cases():
     last = b["site_base"] + b["loci"].shape[0] - 1
     assert ((start + span - 1) == last).sum() > 100
     assert (chip_smoke.call_edge_batch("len0")["lens"] == 0).sum() > 50
+    # the tile paths' edges: sorted reads, R not a multiple of a tile;
+    # CpG-dense reads, some with len // 2 + 1 slots; more loci than a
+    # tile's window; and wide mates of two widths
+    for name in ("sorted_tiles", "dense"):
+        b = chip_smoke.call_edge_batch(name)
+        assert (np.diff(b["positions"]) >= 0).all()
+        assert b["seqmat"].shape[0] % TILE
+    b = chip_smoke.call_edge_batch("dense")
+    pos1, lens = b["positions"], b["lens"]
+    nv = (np.searchsorted(b["loci"], pos1 + lens)
+          - np.searchsorted(b["loci"], pos1))
+    assert nv.mean() > 20 and ((nv == lens // 2 + 1) & (lens > 100)).any()
+    assert chip_smoke.call_edge_batch("wide_window")["loci"].shape[0] > WIN
+    _, p1, sp1, _, p2, sp2 = chip_smoke.merge_edge_batch("wide_mates")
+    assert p1.shape[1] != p2.shape[1] and sp1.max() >= 240
+
+
+# csrc/calling.cu's call_reads tile at L 150 (reads), its shared window
+# (loci), and the widest pair of rows (S1 + S2) merge_pe stages: the shapes
+# the edges are made to, not a model of the kernels (the card holds each
+# edge to the paths the kernel counts and the body its C plan names,
+# chip_smoke.EDGE_PATHS and MERGE_BODIES)
+TILE, WIN, STAGED_ROWS = 512, 2048, 256
+
+
+def test_call_edges_reach_the_kernel_paths():
+    """The edges of chip_smoke.EDGE_PATHS have the shapes that lead the
+    kernel down their paths: sorted_tiles and dense sorted over a
+    chromosome whose loci all fit a tile's window (staged tiles alone);
+    wide_window's first tile unsorted, its second sorted and spread over
+    more loci than a window, the rest sorted within a short stretch;
+    random unsorted in its one tile; the long batch's reads over 8 kb (the
+    long body); the merge edges of MERGE_BODIES wider than a staged tile's
+    rows, the others narrower."""
+    assert set(chip_smoke.EDGE_PATHS) <= set(chip_smoke.CALL_EDGE) | {"long"}
+    for name in ("sorted_tiles", "dense"):
+        b = chip_smoke.call_edge_batch(name)
+        assert (np.diff(b["positions"]) >= 0).all()
+        assert b["loci"].shape[0] <= WIN
+    b = chip_smoke.call_edge_batch("wide_window")
+    pos, loci = b["positions"], b["loci"]
+    spread, rest = pos[TILE:2 * TILE], pos[2 * TILE:]
+    assert (np.diff(pos[:TILE]) < 0).any()
+    assert (np.diff(spread) >= 0).all() and (np.diff(rest) >= 0).all()
+    assert np.searchsorted(loci, spread[-1]) - \
+        np.searchsorted(loci, spread[0]) > WIN
+    assert 0 < rest.shape[0] < TILE and np.searchsorted(
+        loci, rest[-1] + 150) - np.searchsorted(loci, rest[0]) < WIN
+    assert (np.diff(chip_smoke.call_edge_batch("random")["positions"])
+            < 0).any()
+    assert chip_smoke.call_long_batch()["lens"].min() > 8000
+    for name in chip_smoke.MERGE_EDGE:
+        _, p1, _, _, p2, _ = chip_smoke.merge_edge_batch(name)
+        wide = p1.shape[1] + p2.shape[1] > STAGED_ROWS
+        assert wide == (name in chip_smoke.MERGE_BODIES), name
+
+
+def test_dense_batch_twin_equals_numpy_and_jax():
+    """chip_smoke.dense_batch cut to 3,000 reads over 40 kbp (its reads a
+    kbp), and its pairs: sorted, CpG-dense (> 10 covered CpGs a read),
+    each tile's loci within a window;
+    the twins equal numpy and JAX's v1 entry points;
+    the sectors its calls touch lie between its covered CpGs' count over 8
+    and twice it, and merge_sectors counts each mate's sectors once."""
+    b = chip_smoke.dense_batch(n=3000, bp=40_000)
+    args, clip = _call_args(b), b["clip"]
+    assert (np.diff(b["positions"]) >= 0).all()
+    pos1, lens, _, _ = calling.call_columns(b["positions"], b["flags"],
+                                            b["paired"], b["seqmat"],
+                                            b["lens"])
+    L = b["seqmat"].shape[1]
+    for lo in range(0, pos1.shape[0], TILE):  # each tile's loci fit a window
+        p = pos1[lo:lo + TILE]
+        assert np.searchsorted(b["loci"], p[-1] + L) - \
+            np.searchsorted(b["loci"], p[0]) < WIN
+    want = jcalling.call_reads_mat(*args, clip=clip)
+    assert want[2].mean() > 10
+    _same(calling.call_reads_device(*args, clip=clip, device="cpu"), want)
+    _same(jcall.call_reads_device(*args, clip=clip), want)
+    _, _, bottom, _ = calling.call_columns(*args[:2], True, args[5], args[6])
+    covered = chip_smoke._call_bytes(pos1, lens, b["loci"], want[2])[1]
+    sectors = chip_smoke.call_sectors(pos1, lens, bottom, b["loci"],
+                                      b["seqmat"].shape[1])
+    assert covered / 8 < sectors < 2 * covered
+    m = chip_smoke.dense_pairs(want)
+    assert m[0].shape[0] > 1000
+    got = calling.merge_pe_device(*m, device="cpu")
+    _same(got, jcalling.merge_pe_mat(*m))
+    _same(jcall.merge_pe_device(*m), got)
+    sp1, sp2, S1, S2 = m[2], m[5], m[1].shape[1], m[4].shape[1]
+    rows = set()
+    for r in range(m[0].shape[0]):
+        for base, sp, S in ((0, sp1, S1), (1 << 40, sp2, S2)):
+            rows.update((base + r * S + np.arange(sp[r])) >> 5)
+    assert chip_smoke.merge_sectors(sp1, sp2, S1, S2) == len(rows)
+
+
+def test_long_reads_twin_equals_numpy_and_jax():
+    """The long body's batch (reads over 8 kb; JAX's v2 entry point, whose
+    compares span R x K x L, is not run at this width)."""
+    b = chip_smoke.call_long_batch()
+    args, clip = _call_args(b), b["clip"]
+    want = jcalling.call_reads_mat(*args, clip=clip)
+    assert (want[0] >= 0).all() and want[2].max() > 100
+    _same(calling.call_reads_device(*args, clip=clip, device="cpu"), want)
+    _same(jcall.call_reads_device(*args, clip=clip), want)
 
 
 @pytest.mark.parametrize("name", chip_smoke.MERGE_EDGE)
@@ -188,6 +294,24 @@ def test_wrappers_check_their_inputs():
                            z.to(torch.int64), z, z.to(torch.uint8), z, 0, 3)
 
 
+def test_call_reads_paths_is_cuda_only():
+    """The path counters are the kernel's: a CPU call that asks for them
+    raises, one that does not takes the twin."""
+    b = chip_smoke.call_edge_batch("sorted_tiles")
+    pos1, lens, bottom, KB = calling.call_columns(
+        b["positions"], b["flags"], b["paired"], b["seqmat"], b["lens"])
+    cols = [torch.from_numpy(np.ascontiguousarray(a)) for a in (
+        b["seqmat"], lens.astype(np.int32), pos1.astype(np.int32),
+        bottom.astype(np.uint8), b["loci"])]
+    paths = torch.zeros(len(calling.CALL_PATHS), dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA only"):
+        calling.call_reads(*cols, b["clip"], KB, paths=paths)
+    assert paths.tolist() == [0] * len(calling.CALL_PATHS)
+    got = calling.call_reads(*cols, b["clip"], KB)
+    want = calling.call_reads_plain(*cols, b["clip"], KB)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 def test_loci_stay_on_the_device_by_chromosome():
     """One upload a chromosome, whichever thread asks first and however
     often its view of the genome's loci is taken again; another genome's
@@ -254,9 +378,40 @@ def test_cuda_call_reads_equals_twin(cuda_device, name):
 
 
 @pytest.mark.cuda
+def test_cuda_call_reads_paths_and_long_body(cuda_device):
+    """The kernel's own path counts on every edge, each launch == the
+    twin: the edges of chip_smoke.EDGE_PATHS reach their paths and no
+    other, and every path is reached."""
+    reached = dict.fromkeys(calling.CALL_PATHS, 0)
+    for name in chip_smoke.CALL_EDGE + ("long",):
+        b = chip_smoke.call_long_batch() if name == "long" else \
+            chip_smoke.call_edge_batch(name)
+        pos1, lens, bottom, KB = calling.call_columns(
+            b["positions"], b["flags"], b["paired"], b["seqmat"], b["lens"])
+        cols = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+                for a in (b["seqmat"], lens.astype(np.int32),
+                          pos1.astype(np.int32), bottom.astype(np.uint8),
+                          b["loci"])]
+        paths = torch.zeros(len(calling.CALL_PATHS), dtype=torch.int64,
+                            device=cuda_device)
+        got = calling.call_reads(*cols, b["clip"], KB, paths=paths)
+        want = calling.call_reads_plain(*[c.cpu() for c in cols], b["clip"],
+                                        KB)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+        counts = dict(zip(calling.CALL_PATHS, paths.tolist()))
+        if name in chip_smoke.EDGE_PATHS:
+            assert {k for k, v in counts.items() if v} == \
+                chip_smoke.EDGE_PATHS[name], (name, counts)
+        reached = {k: reached[k] + counts[k] for k in reached}
+    assert all(reached.values()), reached
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", chip_smoke.MERGE_EDGE)
 def test_cuda_merge_pe_equals_twin(cuda_device, name):
     b = chip_smoke.merge_edge_batch(name)
+    assert chip_smoke.merge_body(b[1].shape[1], b[4].shape[1]) == \
+        chip_smoke.MERGE_BODIES.get(name, "staged")
     before = calling.merge_pe.launches
     got = calling.merge_pe_device(*b, device=cuda_device)
     assert calling.merge_pe.launches == before + 1

@@ -134,8 +134,8 @@ def _bind(lib):
             # bi, ranges, out[, stats]), (P, L, nbins, min_cpgs, inclusive)
             ("homog_bins", 10, 5), ("homog_bins_stats", 11, 5),
             # bam2pat's calling: (seq, lens, pos1, bottom, loci, first_k,
-            # span, packed), (R, L, n_loci, KB, clip)
-            ("call_reads", 8, 5),
+            # span, packed[, paths]), (R, L, n_loci, KB, clip)
+            ("call_reads", 8, 5), ("call_reads_paths", 9, 5),
             # mate merging: (s1, sp1, p1, s2, sp2, p2, start, span, packed,
             # too_long), (n, S1, S2)
             ("merge_pe", 10, 3)):
@@ -148,6 +148,10 @@ def _bind(lib):
     # (n, W, int64 out[4]): dp_scan's body, scratch, threads, shared bytes
     lib.dp_scan_plan.argtypes = [i64, i64, vp]
     lib.dp_scan_plan.restype = i32
+    # (S1, S2, int64 out[3]): merge_pe's body (0 staged, 1 gather), pairs a
+    # tile and dynamic shared bytes
+    lib.merge_pe_plan.argtypes = [i64, i64, vp]
+    lib.merge_pe_plan.restype = i32
     lib.wgbs_cuda_error_string.argtypes = [i32]
     lib.wgbs_cuda_error_string.restype = ctypes.c_char_p
 

@@ -6,15 +6,20 @@ merge_pe_mat (ref: src/pipeline_wgbs/patter.cpp:105-184, patter_utils.cpp:
 292-342), which JAX jits from integer gathers and selects (_call_kernel
 :59, _merge_kernel :113):
 
-  - `call_reads`: a warp a read over the CIGAR-normalized (R, L) sequence
-    matrix; it binary-searches the read's window of the chromosome's CpG
-    loci (resident on the device, one upload a chromosome), calls each
-    covered CpG T / C / '.' and left-aligns the calls to the first known
-    one, returning its locus index, the span and the codes packed 2 bits
-    each (4 a byte; T=0 C=1 H=2 .=3);
-  - `merge_pe`: a warp a pair of mates; the earlier mate is A, a '.' in A
-    takes B's call, a conflict gives '.', a pair wider than MAX_PE_PAT_LEN
-    (300) sites is too long, and the result is left-aligned.
+  - `call_reads`: tiles of consecutive reads of the CIGAR-normalized (R, L)
+    sequence matrix; a sorted tile finds its run of the chromosome's CpG
+    loci (resident on the device, one upload a chromosome) once and
+    searches each read's window there, other tiles a read at a time in
+    the whole array. Each covered CpG is called T / C / '.' once, and the
+    calls are left-aligned to the first known one: its locus index, the
+    span and the codes packed 2 bits each (4 a byte; T=0 C=1 H=2 .=3).
+    Reads longer than ~5 kb take a warp a read. The kernel counts the
+    paths it takes where asked (`call_reads(..., paths=)`);
+  - `merge_pe`: tiles of pairs of mates, their rows staged in shared memory
+    unless they are too wide (the C entry merge_pe_plan names the body);
+    the earlier mate is A, a '.' in A takes B's call, a conflict gives '.',
+    a pair wider than MAX_PE_PAT_LEN (300) sites is too long, and the
+    result is left-aligned.
 
 Each wrapper launches its kernel on CUDA tensors and counts the launch
 (`call_reads.launches`, `merge_pe.launches`); on CPU tensors it runs the
@@ -47,6 +52,9 @@ MERGE_BYTES = MAX_PE_PAT_LEN // 4
 B_C, B_T, B_G, B_A = ord("C"), ord("T"), ord("G"), ord("A")
 ROWS = 1 << 21       # reads (or pairs) a launch of the device entry points
 TWIN_ROWS = 1 << 16  # rows a slice of the twins' (rows, K) temporaries
+# the counters of csrc/calling.cu's call_reads_paths: tiles by path, and
+# the reads of the long body
+CALL_PATHS = ("staged", "unsorted", "wide", "long")
 
 # call chars <-> 2-bit codes (formats/pat.py convention: T=0 C=1 H=2 .=3)
 _CHAR2CODE = np.full(256, 3, dtype=np.uint8)
@@ -104,7 +112,7 @@ def _check_call(seq, lens, pos1, bottom, loci, KB):
         raise ValueError(f"KB must be >= 1, got {KB}")
 
 
-def call_reads(seq, lens, pos1, bottom, loci, clip, KB):
+def call_reads(seq, lens, pos1, bottom, loci, clip, KB, paths=None):
     """Call the CpGs of R reads: seq (R, L) uint8 CIGAR-normalized bytes
     (zero past each read), lens / pos1 (1-based first position) int32 (R,),
     bottom uint8 (R,) (1 for an OB read), loci int32 the chromosome's
@@ -113,21 +121,37 @@ def call_reads(seq, lens, pos1, bottom, loci, clip, KB):
     Returns (first_k int32 (R,): the locus index of the first known call or
     -1; span int32 (R,); packed uint8 (R, KB): the calls from first_k on,
     '.' past the span). CUDA tensors launch the kernel; CPU tensors take
-    call_reads_plain. Every lens must be <= L."""
+    call_reads_plain. Every lens must be <= L. With `paths` (int64 (4,) on
+    seq's CUDA device), the kernel adds to it the paths it took
+    (CALL_PATHS: tiles staged, unsorted or wide; reads of the long
+    body)."""
     _check_call(seq, lens, pos1, bottom, loci, KB)
     if seq.device.type == "cpu":
+        if paths is not None:
+            raise ValueError("paths counts the kernel's paths: CUDA only")
         return call_reads_plain(seq, lens, pos1, bottom, loci, clip, KB)
     _kernels.require_cuda("call_reads", seq.device)
+    want = (len(CALL_PATHS),)
+    if paths is not None and (paths.dtype != torch.int64
+                              or tuple(paths.shape) != want
+                              or not paths.is_contiguous()
+                              or paths.device != seq.device):
+        raise ValueError(f"paths: got {paths.dtype} {tuple(paths.shape)} on "
+                         f"{paths.device}, want torch.int64 {want} on "
+                         f"{seq.device}")
     R, L = seq.shape
     first_k = torch.empty(R, dtype=torch.int32, device=seq.device)
     span = torch.empty(R, dtype=torch.int32, device=seq.device)
     packed = torch.empty((R, KB), dtype=torch.uint8, device=seq.device)
     if R == 0:
         return first_k, span, packed
-    _kernels.launch("call_reads", seq.device, seq.data_ptr(),
-                    lens.data_ptr(), pos1.data_ptr(), bottom.data_ptr(),
-                    loci.data_ptr(), first_k.data_ptr(), span.data_ptr(),
-                    packed.data_ptr(), R, max(L, 1), loci.shape[0], KB,
+    ptrs = [seq.data_ptr(), lens.data_ptr(), pos1.data_ptr(),
+            bottom.data_ptr(), loci.data_ptr(), first_k.data_ptr(),
+            span.data_ptr(), packed.data_ptr()]
+    if paths is not None:
+        ptrs.append(paths.data_ptr())
+    _kernels.launch("call_reads" if paths is None else "call_reads_paths",
+                    seq.device, *ptrs, R, max(L, 1), loci.shape[0], KB,
                     int(clip))
     call_reads.launches += 1
     return first_k, span, packed
