@@ -193,11 +193,13 @@ result line:
      cuda, with the launch counters set to 0 just before and read just
      after: the default route (streamed), --no_stream and the single-end
      BAM; call_reads, merge_pe (paired-end) and flat_vals_fused must
-     launch; each run's pat.gz and .csi equal --device cpu's bytes and its
-     .cdx arrays, its beta --device cpu's and (stream, single-end)
-     native.pileup_native + trim_to_uint of the pat, and the streamed pat
-     inflates to the --no_stream pat's text; stage seconds (scan, decode,
-     call with its h2d / kernel / d2h, merge, write, pat2beta) of each.
+     launch; the streamed and the single-end runs' pat.gz and .csi equal
+     --device cpu's bytes and their .cdx arrays, their betas --device
+     cpu's; each beta equals native.pileup_native + trim_to_uint of its
+     pat, and the streamed pat inflates to the --no_stream pat's text (so
+     --no_stream has no --device cpu run of its own); stage seconds
+     (scan, decode, call with its h2d / kernel / d2h, merge, write,
+     pat2beta) of each.
      call_reads and merge_pe (csrc/calling.cu) on every launch the
      streamed and the --no_stream runs on cuda made (their batches kept by
      wrapping call_reads_device and merge_mates, split as the wrappers
@@ -209,10 +211,36 @@ result line:
      the '.' padding past it) and its twin, with numpy's time and the h2d
      of the sequence matrices; call_reads also on chr1's whole-file batch
      in one launch.
-Then a summary (the card line again, build, end to end), one
-{"kernels": [...]} line (the 8 pileup kernels, maxplus_closure,
-segment_exact_dp, dp_scan, block_sums, pair_counts, homog_bins,
-call_reads and merge_pe), and last {"ok": true, "device": ...}.
+ 12. the commands users run after bam2pat and pat2beta, through the
+     port's CLI on phase 11's files: bam2pat --procs 2 on the PE BAM with a
+     .bai written here (_write_bai), both workers on cuda:0, each decoding
+     its own byte range and launching call_reads and merge_pe (their
+     launch lines), its pat inflating to the one-process streamed pat's
+     text, its beta the same bytes, and region reads through its rebuilt
+     .cdx and .csi (_csi_lines) equal to the one-process file's, timed
+     from process start; add_cpg_counts (under bam2pat's filters) on a
+     BAM of COUNT_PAIRS pairs from phase 11's generator, its YI totals
+     beside the C / T totals of that BAM's pat (they differ by the calls
+     the two reference binaries make differently: within 5 %), and
+     split_by_meth of its output (M + U + dropped == its records, each
+     side as the YI tags say); split_by_allele on a BAM of SMALL_PAIRS
+     pairs at chr1's best-covered CpG on cuda, each part's pat, index and
+     beta equal to bam2pat --device cpu's (call_reads must launch);
+     find_markers over phase 10's exact blocks and four betas made here
+     (two groups of two, _marker_betas) on cuda and --device cpu, the same
+     Markers.*.bed and params.txt bytes (block_sums must launch), the
+     markers a group printed; test_bimodal on MARKER_REGIONS regions of
+     the PE pat; view (the whole SE pat prints its own text), cview
+     --strict (rows inside the region), index of an unindexed copy (its
+     region reads equal the original's), merge (the counts add up),
+     mask_pat --beta and mix_pat on cuda (their betas == the host pileup
+     of the masked pat and of the SE pat; flat_vals_fused must launch) and
+     frag_len (the histogram counts every read); each command's wall.
+Then a summary (the card line again, build, end to end), a line of the
+smoke's total seconds and each phase's, one {"kernels": [...]} line (the
+8 pileup kernels, maxplus_closure, segment_exact_dp, dp_scan,
+block_sums, pair_counts, homog_bins, call_reads and merge_pe), and last
+{"ok": true, "device": ...}.
 
 Scratch data goes to build/ (ignored by git) and is deleted at the end.
 """
@@ -1720,6 +1748,19 @@ def _run_group(cmd, timeout):
     return proc.returncode, out, err
 
 
+def _worker_launches(stderr, n, need, what):
+    """{rank: launches} from the workers' launch lines; each worker's
+    `need` kernels must have launched."""
+    workers = {int(m.group(1)): json.loads(m.group(2)) for m in re.finditer(
+        r"\[wgbs-torch worker (\d+)\] launches (\{.*\})", stderr)}
+    if sorted(workers) != list(range(n)):
+        raise RuntimeError(f"{what}: expected a launch line from each of {n} "
+                           f"workers, got {workers}:\n{stderr[-3000:]}")
+    for r, ln in workers.items():
+        _require_launches(f"{what} worker {r}", ln, need)
+    return workers
+
+
 def phase_procs(work, big, n_frags):
     """`pat2beta --procs 2` through the CLI, both workers on cuda:0,
     against phase 4's oracle; the same CLI without --procs beside it.
@@ -1742,16 +1783,8 @@ def phase_procs(work, big, n_frags):
             raise RuntimeError(f"pat2beta --procs {procs}: big.beta differs "
                                "from the host oracle")
         if procs > 1:
-            for m in re.finditer(r"\[wgbs-torch worker (\d+)\] launches "
-                                 r"(\{.*\})", stderr):
-                workers[int(m.group(1))] = json.loads(m.group(2))
-            if sorted(workers) != list(range(procs)):
-                raise RuntimeError(f"expected a launch line from each of "
-                                   f"{procs} workers, got {workers}:\n"
-                                   f"{stderr[-3000:]}")
-            for r, launches in workers.items():
-                _require_launches(f"phase 6 worker {r}", launches,
-                                  ("flat_vals_add",))
+            workers = _worker_launches(stderr, procs, ("flat_vals_add",),
+                                       "phase 6")
             for m in re.finditer(r"multihost pat2beta: (p\d+ (streamed|total)"
                                  r".*)", stderr):
                 log("phase 6: worker " + m.group(1))
@@ -2845,15 +2878,8 @@ def _procs_segment(work, seg_out):
         if not _same(bed, want):
             raise RuntimeError(f"segment --procs 2 --mode {mode}: the bed "
                                "differs from phase 8's one-process bed")
-        workers = {int(m.group(1)): json.loads(m.group(2))
-                   for m in re.finditer(r"\[wgbs-torch worker (\d+)\] "
-                                        r"launches (\{.*\})", stderr)}
-        if sorted(workers) != [0, 1]:
-            raise RuntimeError(f"expected a launch line from each of 2 "
-                               f"workers, got {workers}:\n{stderr[-3000:]}")
-        for r, launches in workers.items():
-            _require_launches(f"phase 9 segment --procs 2 --mode {mode} "
-                              f"worker {r}", launches, (kernel,))
+        workers = _worker_launches(stderr, 2, (kernel,), f"phase 9 segment "
+                                   f"--procs 2 --mode {mode}")
         for m in re.finditer(r"multihost segment: (p\d .*)", stderr):
             log(f"phase 9: --mode {mode} worker {m.group(1)}")
         lines.append(f"--mode {mode} {walls[mode]:.3f} s from process start "
@@ -4235,12 +4261,13 @@ def bam_genome(rng):
     return seq, pm, loci
 
 
-def _bam_records(rng, paired):
+def _bam_records(rng, paired, n=None):
     """The records' columns, coordinate-sorted: chrom, pos (0-based), flag,
-    mapq, CIGAR kind (_CIGARS), mate chrom and pos, pair id."""
+    mapq, CIGAR kind (_CIGARS), mate chrom and pos, pair id; n pairs or
+    reads (default BAM_PAIRS / BAM_SE_READS)."""
     import numpy as np
 
-    n = BAM_PAIRS if paired else BAM_SE_READS
+    n = n or (BAM_PAIRS if paired else BAM_SE_READS)
     chrom = rng.integers(0, 2, n)
     bottom = rng.random(n) < 0.5
     if paired:
@@ -4359,9 +4386,9 @@ def _encode_chunk(rng, rec, sl, seq, pm, paired):
     return mat[keep[kind]].tobytes()
 
 
-def write_bam(path, seed, paired, seq, pm):
-    """A coordinate-sorted BGZF BAM of BAM_PAIRS pairs (paired) or
-    BAM_SE_READS reads over the genome, BAM_FRACS of them with a complex
+def write_bam(path, seed, paired, seq, pm, n=None):
+    """A coordinate-sorted BGZF BAM of n (default BAM_PAIRS) pairs (paired)
+    or BAM_SE_READS reads over the genome, BAM_FRACS of them with a complex
     CIGAR, MAPQ 5, a duplicate flag or (pairs) no mate; chunks of
     BAM_CHUNK records are made and compressed on the host's cores, each
     from its own seed. Returns the records' count."""
@@ -4369,7 +4396,7 @@ def write_bam(path, seed, paired, seq, pm):
 
     from wgbs_tools_tpu_torch.native import bgzf_compress_native
 
-    rec = _bam_records(np.random.default_rng(seed), paired)
+    rec = _bam_records(np.random.default_rng(seed), paired, n)
     text = "".join(f"@SQ\tSN:{c}\tLN:{BAM_CHROM_BP}\n" for c in BAM_CHROMS)
     head = (b"BAM\x01" + struct.pack("<i", len(text)) + text.encode()
             + struct.pack("<i", 2) + b"".join(
@@ -4946,10 +4973,12 @@ def _calling_edges(dev):
             f"long; body): {', '.join(merged)}")
 
 
-def bam_data(work, refs, kinds=("pe", "se")):
+def bam_data(work, refs, kinds=("pe", "se", "small", "counts")):
     """Phase 11's genome (its CpG index written under refs) and BAMs of
-    the kinds asked ("pe", "se"), made from seeds. Returns ({kind: path},
-    CpG sites, a line that says what was made)."""
+    the kinds asked ("pe", "se", and "small" / "counts": SMALL_PAIRS /
+    COUNT_PAIRS pairs, which phase 12's per-record commands read), made
+    from seeds. Returns ({kind: path}, CpG sites, a line that says what
+    was made)."""
     import numpy as np
 
     from wgbs_tools_tpu_torch.genome.refdir import Genome
@@ -4958,8 +4987,10 @@ def bam_data(work, refs, kinds=("pe", "se")):
     seq, pm, loci = bam_genome(np.random.default_rng(180))
     write_cpg_index(refs, BAM_GENOME, BAM_CHROMS, loci, [BAM_CHROM_BP] * 2)
     bams = {k: op.join(work, f"{k}.bam") for k in kinds}
-    n_rec = {k: write_bam(bams[k], {"pe": 181, "se": 182}[k], k == "pe",
-                          seq, pm) for k in kinds}
+    n_rec = {k: write_bam(bams[k], {"pe": 181, "se": 182, "small": 183,
+                                    "counts": 184}[k], k != "se", seq, pm,
+                          {"small": SMALL_PAIRS,
+                           "counts": COUNT_PAIRS}.get(k)) for k in kinds}
     del seq, pm
     n_sites = Genome(BAM_GENOME).get_nr_sites()
     return bams, n_sites, (
@@ -4972,12 +5003,14 @@ def bam_data(work, refs, kinds=("pe", "se")):
 
 def phase_bam2pat(work, regs):
     """Phase 11: bam2pat at chromosome scale through the port's CLI on cuda
-    (the default streaming route, --no_stream, single-end), each against
-    --device cpu's bytes, the beta against the host pileup; the two calling
-    kernels against their twins on every launch the PE runs made on cuda,
-    against numpy on the streamed batches, and on the edges, timed a
+    (the default streaming route, --no_stream, single-end), the streamed
+    and single-end runs against --device cpu's bytes, --no_stream's text
+    against the streamed run's, each beta against the host pileup; the two
+    calling kernels against their twins on every launch the PE runs made on
+    cuda, against numpy on the streamed batches, and on the edges, timed a
     launch. Returns ({kernel: results a launch of the streamed run},
-    {kernel: (path, launches)}, summary line)."""
+    {kernel: (path, launches)}, summary line, what phase 12 reads: the
+    BAMs, the CpG sites and the walls on cuda by run)."""
     import torch
 
     from wgbs_tools_tpu_torch import _kernels
@@ -4990,10 +5023,12 @@ def phase_bam2pat(work, regs):
         f"bytes {body_spills}")
     bams, n_sites, line = bam_data(work, os.environ["WGBS_TPU_REFDIR"])
     log("phase 11: " + line)
-    lines, launches, batches = [line], {}, {}
+    lines, launches, batches, walls = [line], {}, {}, {}
     for name, bam, flags in BAM_RUNS:
         outs = {}
-        for device in ("cuda", "cpu"):
+        # --no_stream's pat text is held to the streamed run's below, and
+        # its beta to the host pileup: no --device cpu run of its own
+        for device in ("cuda",) if name == "no_stream" else ("cuda", "cpu"):
             d = op.join(work, f"bam_{name}_{device}")
             os.makedirs(d)
             need = ((("call_reads", "merge_pe") if bam == "pe"
@@ -5009,28 +5044,33 @@ def phase_bam2pat(work, regs):
             if main_path:
                 batches[name] = got
             outs[device] = (op.join(d, bam + ".pat.gz"), wall, tm, ln)
-        got, want = outs["cuda"][0], outs["cpu"][0]
-        _same_pat(got, want)
+        got = outs["cuda"][0]
         beta = got[: -len(".pat.gz")] + ".beta"
-        if not _same(beta, want[: -len(".pat.gz")] + ".beta"):
-            raise RuntimeError(f"{beta} != --device cpu's")
-        if name != "no_stream":
-            with open(beta, "rb") as f:
-                if f.read() != _beta_oracle(got, n_sites):
-                    raise RuntimeError(f"{beta} != the host pileup's")
+        if "cpu" in outs:
+            want = outs["cpu"][0]
+            _same_pat(got, want)
+            if not _same(beta, want[: -len(".pat.gz")] + ".beta"):
+                raise RuntimeError(f"{beta} != --device cpu's")
+        with open(beta, "rb") as f:
+            if f.read() != _beta_oracle(got, n_sites):
+                raise RuntimeError(f"{beta} != the host pileup's")
         ln = outs["cuda"][3]
         if name == "stream":
             launches.update({k: ("phase 11 bam2pat CLI (default: streamed)",
                                  ln) for k in BAM_KERNELS})
         wall, tm = outs["cuda"][1:3]
+        walls[name] = wall
         line = (f"bam2pat {name} on cuda: {wall:.3f} s ({_stages(tm)}), "
                 f"launches call_reads {ln['call_reads']} merge_pe "
                 f"{ln['merge_pe']} flat_vals_fused {ln['flat_vals_fused']} "
-                f"flat_classic {ln['flat_classic']}; --device cpu "
-                f"{outs['cpu'][1]:.3f} s ({_stages(outs['cpu'][2])}); pat.gz "
-                f"({op.getsize(got):,} bytes) and .csi == --device cpu's, "
-                f".cdx arrays equal, beta == --device cpu's"
-                + ("" if name == "no_stream" else " and the host pileup's"))
+                f"flat_classic {ln['flat_classic']}; " + (
+                    f"--device cpu {outs['cpu'][1]:.3f} s "
+                    f"({_stages(outs['cpu'][2])}); pat.gz "
+                    f"({op.getsize(got):,} bytes) and .csi == --device "
+                    f"cpu's, .cdx arrays equal, beta == --device cpu's and "
+                    if "cpu" in outs else f"pat.gz ({op.getsize(got):,} "
+                    f"bytes) inflates to the streamed run's text (below), "
+                    f"beta == ") + "the host pileup's")
         log("phase 11: " + line)
         lines.append(line)
     # the streamed and the whole-file pat inflate to the same text
@@ -5068,7 +5108,599 @@ def phase_bam2pat(work, regs):
     log("phase 11: " + line)
     lines.append(line)
     log(f"phase 11: took {time.perf_counter() - t_phase:.3f} s")
-    return res, launches, "; ".join(lines)
+    return res, launches, "; ".join(lines), dict(bams=bams, n_sites=n_sites,
+                                                 walls=walls)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the commands users run after bam2pat and pat2beta: bam2pat
+# --procs, the BAM-splitting commands, find_markers / test_bimodal and the
+# pat-stream commands, on phase 11's BAMs and pats (and phase 10's blocks)
+# ---------------------------------------------------------------------------
+
+# pairs of the BAMs that the per-record commands read: split_by_allele
+# (~10 us a record) reads SMALL_PAIRS; add_cpg_counts calls each read as
+# JAX's host code does, ~730 us a read on this genome (each call's two
+# searches cast the chromosome's 600,000 int32 loci to int64: PERF.md
+# section 4), so it and split_by_meth read COUNT_PAIRS
+SMALL_PAIRS = 200_000
+COUNT_PAIRS = 10_000
+MARKER_FRAC = 0.01      # blocks where group A is hypo-, B hypermethylated
+MARKER_REGIONS = 6      # test_bimodal's regions
+MASK_BLOCKS = 2000      # mask_pat's blocks
+
+
+def _write_bai(bam):
+    """A .bai beside a coordinate-sorted BGZF BAM: one bin a reference with
+    one chunk over its records (tests/test_multihost.py::_make_bai's
+    layout), the virtual offsets from the file's BGZF block table and the
+    host library's record scan."""
+    import numpy as np
+
+    from wgbs_tools_tpu_torch.pipeline.bam_columnar import scan_bam_columnar
+
+    with open(bam, "rb") as f:
+        raw = f.read()
+    cs, ds = [], []
+    c = d = 0
+    while c + 18 <= len(raw):
+        bl = struct.unpack_from("<H", raw, c + 16)[0] + 1
+        cs.append(c)
+        ds.append(d)
+        d += struct.unpack_from("<I", raw, c + bl - 4)[0]
+        c += bl
+    del raw
+    cs, ds = np.array(cs, np.int64), np.array(ds, np.int64)
+    buf, _, names, _, cols, offs, rec_end = scan_bam_columnar(bam)
+    if buf[int(offs[0, 0]) - 36:int(offs[0, 0]) - 32] != struct.pack(
+            "<i", int(rec_end[0]) - int(offs[0, 0]) + 32):
+        raise RuntimeError("the record scan's name offset is not 36 bytes "
+                           "into its record")
+    del buf
+
+    def voff(u):
+        j = int(np.searchsorted(ds, u, side="right")) - 1
+        return (int(cs[j]) << 16) | int(u - ds[j])
+
+    out = b"BAI\x01" + struct.pack("<i", len(names))
+    for r in range(len(names)):
+        rows = np.flatnonzero(cols[:, 0] == r)
+        if not rows.size:
+            out += struct.pack("<ii", 0, 0)
+            continue
+        out += struct.pack("<iIiQQi", 1, 4681, 1,
+                           voff(int(offs[rows[0], 0]) - 36),
+                           voff(int(rec_end[rows[-1]])), 0)
+    with open(bam + ".bai", "wb") as f:
+        f.write(out)
+
+
+def _csi_lines(pat, chrom, beg, end):
+    """The lines of a pat.gz whose startCpG - 1 lies in [beg, end) on
+    `chrom`, found through its .csi alone (htslib's query: the chunks of
+    every bin that overlaps the range)."""
+    import gzip
+
+    from wgbs_tools_tpu_torch.formats.bgzf import BgzfReader
+
+    with open(pat + ".csi", "rb") as f:
+        data = gzip.decompress(f.read())
+    if data[:4] != b"CSI\x01":
+        raise RuntimeError(f"{pat}.csi: not a CSI index")
+    min_shift, depth, l_aux = struct.unpack_from("<3i", data, 4)
+    names = data[16 + 28:16 + l_aux].rstrip(b"\x00").split(b"\x00")
+    off = 16 + l_aux
+    (n_ref,) = struct.unpack_from("<i", data, off)
+    off += 4
+    refs = []
+    for _ in range(n_ref):
+        (n_bin,) = struct.unpack_from("<i", data, off)
+        off += 4
+        bins = {}
+        for _ in range(n_bin):
+            b, _loff, n_chunk = struct.unpack_from("<IQi", data, off)
+            off += 16
+            bins[b] = [struct.unpack_from("<QQ", data, off + 16 * k)
+                       for k in range(n_chunk)]
+            off += 16 * n_chunk
+        refs.append(bins)
+    bins = refs[names.index(chrom.encode())]
+    chunks = []
+    for lev in range(depth + 1):
+        t = ((1 << (3 * lev)) - 1) // 7
+        shift = min_shift + 3 * (depth - lev)
+        for b in range(t + (beg >> shift), t + ((end - 1) >> shift) + 1):
+            chunks += bins.get(b, [])
+    found = {}
+    reader = BgzfReader(pat)
+    try:
+        for v0, v1 in sorted(chunks):
+            reader.seek_virtual(v0)
+            while reader.virtual_offset < v1:
+                v = reader.virtual_offset
+                line = reader.readline()
+                if not line:
+                    break
+                tok = line.split(b"\t", 2)
+                if (tok[0] == chrom.encode()
+                        and beg <= int(tok[1]) - 1 < end):
+                    found[v] = line
+    finally:
+        reader.close()
+    return [found[v] for v in sorted(found)]
+
+
+def _region_reads_equal(a, b, regions):
+    """Region reads of two pat.gz files through their .cdx
+    (formats/pat.py::iter_pat_region) and through their .csi (_csi_lines)
+    give the same text; returns the lines read."""
+    from wgbs_tools_tpu_torch.formats.pat import frags_to_bytes, \
+        iter_pat_region
+
+    n = 0
+    for chrom, s, e in regions:
+        ta, tb = (b"".join(frags_to_bytes(f) for f in iter_pat_region(
+            p, (s, e), keep_extras=True)) for p in (a, b))
+        if ta != tb:
+            raise RuntimeError(f"{a} and {b}: the .cdx reads of sites "
+                               f"[{s}, {e}) differ")
+        la, lb = (_csi_lines(p, chrom, s - 1, e - 1) for p in (a, b))
+        if la != lb or b"".join(la) != b"".join(
+                ln for ln in ta.splitlines(keepends=True)
+                if s <= int(ln.split(b"\t", 2)[1]) < e):
+            raise RuntimeError(f"{a} and {b}: the .csi reads of sites "
+                               f"[{s}, {e}) differ (from each other or "
+                               "from the .cdx read)")
+        n += ta.count(b"\n")
+    return n
+
+
+def _inflate(path):
+    from wgbs_tools_tpu_torch.native import bgzf_decompress_native
+
+    with open(path, "rb") as f:
+        return bgzf_decompress_native(f.read())
+
+
+def _sites_regions(n_sites, chrom_bounds):
+    """Region reads for the index checks: (chrom, s, e) sites at the
+    start, the middle and the end of each chromosome."""
+    out = []
+    for chrom, (lo, hi) in chrom_bounds.items():
+        mid = (lo + hi) // 2
+        out += [(chrom, lo, lo + 50), (chrom, mid, mid + 400),
+                (chrom, hi - 30, hi)]
+    return out
+
+
+def _procs_run(work, ctx, regions):
+    """bam2pat --procs 2 through the CLI on phase 11's PE BAM with a .bai
+    (both workers on cuda:0), against the one-process streamed run's
+    files. Returns the summary line."""
+    bam = ctx["bams"]["pe"]
+    t0 = time.perf_counter()
+    _write_bai(bam)
+    bai_s = time.perf_counter() - t0
+    out = op.join(work, "bam_procs")
+    os.makedirs(out)
+    cmd = [sys.executable, "-m", "wgbs_tools_tpu_torch", "bam2pat", bam, "-o",
+           out, "--genome", BAM_GENOME, "--device", "cuda", "--procs", "2"]
+    t0 = time.perf_counter()
+    rc, _, stderr = _run_group(cmd, 900)
+    wall = time.perf_counter() - t0
+    if rc:
+        raise RuntimeError(f"{' '.join(cmd)} exited {rc}:\n{stderr[-3000:]}")
+    workers = _worker_launches(stderr, 2, BAM_KERNELS, "phase 12 bam2pat "
+                               "--procs 2")
+    parts = re.findall(r"bam2pat --procs: part (\[.*?\]) decodes BAM virtual "
+                       r"offsets (\S+)", stderr)
+    if len(parts) != 2 or any(r == "none" for _, r in parts):
+        raise RuntimeError(f"bam2pat --procs 2: each worker must decode its "
+                           f"own byte range, got {parts}")
+    for m in re.finditer(r"(bam2pat: \[ chr\d \] finished.*)", stderr):
+        log("phase 12: worker " + m.group(1))
+    one = op.join(work, "bam_stream_cuda", "pe.pat.gz")
+    got = op.join(out, "pe.pat.gz")
+    if _inflate(got) != _inflate(one):
+        raise RuntimeError("bam2pat --procs 2: the pat's text != the one-"
+                           "process run's")
+    if not _same(got[:-len(".pat.gz")] + ".beta",
+                 one[:-len(".pat.gz")] + ".beta"):
+        raise RuntimeError("bam2pat --procs 2: the beta != the one-process "
+                           "run's")
+    n = _region_reads_equal(got, one, regions)
+    return (f"bam2pat --procs 2 (both workers on cuda:0, each decoding its "
+            f"byte range {', '.join(f'{c} {r}' for c, r in parts)}): "
+            f"{wall:.3f} s from process start against the one-process "
+            f"streamed {ctx['walls']['stream']:.3f} s (.bai written in "
+            f"{bai_s:.3f} s); the pat inflates to the one-process text, the "
+            f"beta the same bytes, the rebuilt .cdx and .csi read "
+            f"{len(regions)} regions ({n} lines) as the one-process file's; "
+            f"worker launches {workers}")
+
+
+def _yi_totals(bam):
+    """(records, records with YI, meth, unmeth summed once a read name,
+    M-side / U-side / dropped counts at homog_prop 0.75)."""
+    from wgbs_tools_tpu_torch.pipeline.bam import BamReader
+
+    n = n_yi = 0
+    per_name = {}
+    side = {"M": 0, "U": 0, "dropped": 0}
+    for rec in BamReader(bam):
+        n += 1
+        v = rec.get_tag("YI")
+        if v is None:
+            side["dropped"] += 1
+            continue
+        n_yi += 1
+        m, u = (int(x) for x in v.split(","))
+        per_name.setdefault(rec.qname, (m, u))
+        tot = m + u
+        prop = m / tot if tot else 0.0
+        side["M" if tot and prop >= 0.75 else "U" if tot and prop <= 0.25
+             else "dropped"] += 1
+    return (n, n_yi, sum(m for m, _ in per_name.values()),
+            sum(u for _, u in per_name.values()), side)
+
+
+def _pat_calls(pat):
+    """(C calls, T calls, fragments) of a pat, each row by its count."""
+    from wgbs_tools_tpu_torch.formats.pat import CODE_C, CODE_T, iter_pat
+
+    c = t = n = 0
+    for f in iter_pat(pat):
+        c += int(((f.codes == CODE_C).sum(1) * f.count).sum())
+        t += int(((f.codes == CODE_T).sum(1) * f.count).sum())
+        n += int(f.count.sum())
+    return c, t, n
+
+
+def _split_runs(work, ctx):
+    """add_cpg_counts and split_by_meth on phase 11's COUNT_PAIRS-pair BAM,
+    split_by_allele on its SMALL_PAIRS-pair BAM. Returns the summary
+    line."""
+    from wgbs_tools_tpu_torch.cli import cmd_bam2pat
+    from wgbs_tools_tpu_torch.genome.refdir import Genome
+    from wgbs_tools_tpu_torch.pipeline.bam import BamReader
+
+    small, counts = ctx["bams"]["small"], ctx["bams"]["counts"]
+    d = op.join(work, "split")
+    os.makedirs(d)
+    walls = {}
+    # add_cpg_counts under bam2pat's filters (-F 1796 -q 10, pairs 0x3)
+    t0 = time.perf_counter()
+    if cmd_bam2pat.main_add_cpg_counts([counts, "-o", d, "--genome",
+                                        BAM_GENOME, "--include_flags", "3"]):
+        raise RuntimeError("add_cpg_counts failed")
+    walls["add_cpg_counts"] = time.perf_counter() - t0
+    counted = op.join(d, "counts.counts.bam")
+    n_in, n_yi, ym, yu, side = _yi_totals(counted)
+    d2 = op.join(work, "split_bam2pat")
+    os.makedirs(d2)
+    for name, bam in (("counts", counts), ("small", small)):
+        wall, _, ln = _bam2pat_cli(f"bam2pat {name}",
+                                   [bam, "-o", d2, "--genome", BAM_GENOME,
+                                    "--device", "cuda"], BAM_KERNELS)
+        walls[f"bam2pat {name}"] = wall
+    pc, pt, pn = _pat_calls(op.join(d2, "counts.pat.gz"))
+    # add_cpg_counts calls as the reference's add_cpg_counts.cpp does,
+    # bam2pat as patter.cpp: the counts differ by the calls where the read
+    # does not show the CpG's other base (tier-1 holds each to JAX's bytes)
+    if not (n_yi and abs(ym - pc) <= 0.05 * pc and abs(yu - pt)
+            <= 0.05 * pt):
+        raise RuntimeError(f"add_cpg_counts: YI totals {ym} / {yu} far from "
+                           f"the pat's C / T {pc} / {pt}")
+    # split_by_meth: M + U + dropped == the input's records
+    t0 = time.perf_counter()
+    if cmd_bam2pat.main_split_by_meth([counted, "0.75", "-o", d]):
+        raise RuntimeError("split_by_meth failed")
+    walls["split_by_meth"] = time.perf_counter() - t0
+    got = {k: sum(1 for _ in BamReader(op.join(d, f"counts.counts.{k}.bam")))
+           for k in ("M", "U")}
+    if (got["M"], got["U"]) != (side["M"], side["U"]) or (
+            got["M"] + got["U"] + side["dropped"] != n_in):
+        raise RuntimeError(f"split_by_meth: M {got['M']} U {got['U']} "
+                           f"dropped {side['dropped']} of {n_in} records; "
+                           f"by the YI tags {side}")
+    # split_by_allele at the best-covered CpG of chr1, then bam2pat of each
+    # part on cuda (the CLI) and on the host
+    import numpy as np
+
+    beta = np.fromfile(op.join(d2, "small.beta"), np.uint8).reshape(-1, 2)
+    idx = Genome(BAM_GENOME).index
+    lo, hi = idx.chrom_site_bounds(BAM_CHROMS[0])
+    site = lo + int(np.argmax(beta[lo - 1:hi - 1, 1]))
+    pos = int(idx.loci[site - 1])
+    d3 = op.join(work, "split_allele")
+    os.makedirs(d3)
+    timings = {}
+    _zero_launches()
+    t0 = time.perf_counter()
+    if cmd_bam2pat.main_split_by_allele(
+            [small, f"{BAM_CHROMS[0]}:{pos}", "C/T", "-o", d3, "--genome",
+             BAM_GENOME, "--device", "cuda"], timings=timings):
+        raise RuntimeError("split_by_allele failed")
+    walls["split_by_allele"] = time.perf_counter() - t0
+    _require_launches("phase 12 split_by_allele", _read_launches(),
+                      ("call_reads",))
+    parts = {}
+    for let in "CT":
+        base = f"small.{BAM_CHROMS[0]}_{pos}{let}"
+        parts[let] = sum(1 for _ in BamReader(op.join(d3, base + ".bam")))
+        d4 = op.join(work, f"split_allele_cpu_{let}")
+        os.makedirs(d4)
+        if cmd_bam2pat.main([op.join(d3, base + ".bam"), "-o", d4,
+                             "--genome", BAM_GENOME, "--device", "cpu"]):
+            raise RuntimeError("bam2pat --device cpu of a split BAM failed")
+        a, b = op.join(d3, base + ".pat.gz"), op.join(d4, base + ".pat.gz")
+        if op.isfile(b + ".csi") or op.isfile(a + ".csi"):
+            _same_pat(a, b)
+        elif not _same(a, b):
+            raise RuntimeError(f"{a} != --device cpu's")
+        if not _same(a[:-len(".pat.gz")] + ".beta",
+                     b[:-len(".pat.gz")] + ".beta"):
+            raise RuntimeError(f"{a}: the beta != --device cpu's")
+    if not parts["C"]:
+        raise RuntimeError("split_by_allele: no read went to the C side")
+    return (f"add_cpg_counts of {COUNT_PAIRS:,} pairs "
+            f"{walls['add_cpg_counts']:.3f} s: {n_yi:,} of {n_in:,} records "
+            f"tagged, YI {ym:,} meth / {yu:,} unmeth against bam2pat's pat "
+            f"{pc:,} C / {pt:,} T ({pn:,} fragments; bam2pat on cuda "
+            f"{walls['bam2pat counts']:.3f} s); split_by_meth 0.75 "
+            f"{walls['split_by_meth']:.3f} s: M {got['M']:,} + U "
+            f"{got['U']:,} + dropped {side['dropped']:,} == {n_in:,} "
+            f"records; split_by_allele of {SMALL_PAIRS:,} pairs (bam2pat "
+            f"on cuda {walls['bam2pat small']:.3f} s, call_reads "
+            f"{ln['call_reads']}, merge_pe {ln['merge_pe']}) at "
+            f"{BAM_CHROMS[0]}:{pos} C/T on cuda "
+            f"{walls['split_by_allele']:.3f} s ({_stages(timings)}): C "
+            f"{parts['C']:,} reads, T {parts['T']:,}; each part's pat, index "
+            f"and beta == bam2pat --device cpu's")
+
+
+def _marker_betas(work, bed):
+    """Four betas over the blocks' N_SITES sites, two a group (A: a1, a2;
+    B: b1, b2), made from a seed: coverage 6-22 a site (every block above
+    find_markers' min_cov), methylation a block drawn from 0.1 / 0.5 /
+    0.9 for both groups, except MARKER_FRAC of the blocks where A is at
+    0.08 and B at 0.9 and as many the other way round; a site's meth is
+    its coverage times that, rounded, moved by -1, 0 or +1."""
+    import numpy as np
+
+    from wgbs_tools_tpu_torch.formats.blocks import load_blocks
+
+    blocks = load_blocks(bed)
+    s = blocks["startCpG"]
+    rng = np.random.default_rng(120)
+    nb = s.shape[0]
+    p = np.stack([rng.choice([0.1, 0.5, 0.9], nb)] * 2)
+    kind = rng.random(nb)
+    p[0, kind < MARKER_FRAC], p[1, kind < MARKER_FRAC] = 0.08, 0.9
+    hyper = (kind >= MARKER_FRAC) & (kind < 2 * MARKER_FRAC)
+    p[0, hyper], p[1, hyper] = 0.9, 0.08
+    block = np.searchsorted(s, np.arange(1, N_SITES + 1), side="right") - 1
+    paths = []
+    for g, names in ((0, ("a1", "a2")), (1, ("b1", "b2"))):
+        pm = p[g][block]
+        for name in names:
+            cov = rng.integers(6, 23, N_SITES)
+            meth = np.clip(np.rint(cov * pm) + rng.integers(-1, 2, N_SITES),
+                           0, cov)
+            path = op.join(work, f"{name}.beta")
+            np.stack([meth, cov], 1).astype(np.uint8).tofile(path)
+            paths.append(path)
+    groups = op.join(work, "marker_groups.csv")
+    with open(groups, "w") as f:
+        f.write("name,group\na1,A\na2,A\nb1,B\nb2,B\n")
+    return paths, groups
+
+
+def _markers_run(work, bed):
+    """find_markers over the blocks and four betas in groups of 2 and 2, on
+    cuda and with --device cpu: the same Markers.*.bed and params.txt
+    bytes; block_sums must launch. Returns the summary line."""
+    from wgbs_tools_tpu_torch.cli import cmd_markers
+
+    t0 = time.perf_counter()
+    betas, groups = _marker_betas(work, bed)
+    made = time.perf_counter() - t0
+    outs, walls, ln = {}, {}, None
+    cwd = os.getcwd()
+    try:
+        for device in ("cuda", "cpu"):
+            d = op.join(work, f"markers_{device}")
+            os.makedirs(d)
+            os.chdir(d)  # params.txt names the out_dir: the same relative one
+            _zero_launches()
+            t0 = time.perf_counter()
+            if cmd_markers.main(["-b", bed, "-g", groups, "--betas"] + betas
+                                + ["-o", "mk", "--device", device]):
+                raise RuntimeError(f"find_markers --device {device} failed")
+            walls[device] = time.perf_counter() - t0
+            if device == "cuda":
+                ln = _read_launches()
+                _require_launches("phase 12 find_markers", ln,
+                                  ("block_sums",))
+            outs[device] = {f: open(op.join(d, "mk", f), "rb").read()
+                            for f in sorted(os.listdir(op.join(d, "mk")))}
+    finally:
+        os.chdir(cwd)
+    if outs["cuda"] != outs["cpu"]:
+        raise RuntimeError("find_markers: cuda's files != --device cpu's")
+    counts = {f: v.count(b"\n") - 1 for f, v in outs["cuda"].items()
+              if f.startswith("Markers.")}
+    if sorted(counts) != ["Markers.A.bed", "Markers.B.bed"] or min(
+            counts.values()) < 1:
+        raise RuntimeError(f"find_markers: expected markers in each group, "
+                           f"got {counts}")
+    return (f"find_markers of 4 betas (2 + 2) over {bed}'s blocks: cuda "
+            f"{walls['cuda']:.3f} s (block_sums {ln['block_sums']}), "
+            f"--device cpu {walls['cpu']:.3f} s, the same bytes; markers a "
+            f"group {counts} (betas made in {made:.3f} s)")
+
+
+def _bimodal_run(work, pe_pat, chrom_bounds):
+    """test_bimodal on MARKER_REGIONS regions of phase 11's PE pat, every
+    region printed. Returns the summary line."""
+    from wgbs_tools_tpu_torch.cli import cmd_markers
+
+    bed = op.join(work, "bimodal.bed")
+    rows = []
+    for k in range(MARKER_REGIONS):
+        chrom = BAM_CHROMS[k % 2]
+        lo, hi = chrom_bounds[chrom]
+        s = lo + (hi - lo) * (k + 1) // (MARKER_REGIONS + 2)
+        rows.append(f"{chrom}\t0\t1\t{s}\t{s + 10 + 8 * k}\n")
+    with open(bed, "w") as f:
+        f.write("".join(rows))
+    out = op.join(work, "bimodal.tsv")
+    t0 = time.perf_counter()
+    if cmd_markers.main_test_bimodal([pe_pat, "-L", bed, "--genome",
+                                      BAM_GENOME, "--print_all_regions",
+                                      "-o", out]):
+        raise RuntimeError("test_bimodal failed")
+    wall = time.perf_counter() - t0
+    with open(out) as f:
+        lines = f.read().splitlines()
+    reads = [int(ln.split("\t")[2]) for ln in lines[1:]]
+    if len(reads) != MARKER_REGIONS or min(reads) < 1 or not all(
+            0 <= float(ln.split("\t")[3]) <= 1 for ln in lines[1:]):
+        raise RuntimeError(f"test_bimodal: {lines}")
+    return (f"test_bimodal of {MARKER_REGIONS} regions {wall:.3f} s, reads "
+            f"a region {reads}")
+
+
+def _stream_runs(work, ctx, regions):
+    """view, cview, index, merge, mask_pat, mix_pat and frag_len on phase
+    11's pats. Returns the summary line."""
+    import numpy as np
+
+    from wgbs_tools_tpu_torch.cli import cmd_pat, cmd_view
+    from wgbs_tools_tpu_torch.formats.pat import iter_pat
+    from wgbs_tools_tpu_torch.genome.refdir import Genome
+
+    n_sites = ctx["n_sites"]
+    pe = op.join(work, "bam_stream_cuda", "pe.pat.gz")
+    se = op.join(work, "bam_se_cuda", "se.pat.gz")
+    d = op.join(work, "stream_cmds")
+    os.makedirs(d)
+    walls = {}
+    G = ["--genome", BAM_GENOME]
+
+    def run(name, fn, argv, kernel=None):
+        _zero_launches()
+        t0 = time.perf_counter()
+        if fn(argv + (G if fn is not cmd_pat.main_index else [])):
+            raise RuntimeError(f"{name} failed")
+        walls[name] = time.perf_counter() - t0
+        if kernel:
+            _require_launches(f"phase 12 {name}", _read_launches(), (kernel,))
+
+    # view of the whole SE pat prints its text back
+    run("view", cmd_view.main, [se, "-o", op.join(d, "se.view.pat")])
+    with open(op.join(d, "se.view.pat"), "rb") as f:
+        if f.read() != _inflate(se):
+            raise RuntimeError("view of the whole pat != its text")
+    # cview of a region, --strict: every row inside it
+    chrom, s, e = regions[1]
+    run("cview", cmd_view.main_cview, [pe, "-s", f"{s}-{e}", "--strict",
+                                       "-o", op.join(d, "pe.cview.pat")])
+    with open(op.join(d, "pe.cview.pat")) as f:
+        rows = [ln.split("\t") for ln in f.read().splitlines()]
+    if not rows or not all(s <= int(r[1]) and int(r[1]) + len(r[2]) <= e
+                           for r in rows):
+        raise RuntimeError(f"cview --strict of sites {s}-{e}: {rows[:3]}")
+    # index of an unindexed copy reads regions as the original's index does
+    copy = op.join(d, "se.pat.gz")
+    shutil.copy(se, copy)
+    run("index", cmd_pat.main_index, [copy])
+    n_idx = _region_reads_equal(copy, se, regions)
+    # merge: the counts add up
+    run("merge", cmd_pat.main_merge, [pe, se, "-p", op.join(d, "merged")])
+    totals = [sum(int(f.count.sum()) for f in iter_pat(p))
+              for p in (op.join(d, "merged.pat.gz"), pe, se)]
+    if totals[0] != totals[1] + totals[2]:
+        raise RuntimeError(f"merge: {totals[0]} reads, the inputs "
+                           f"{totals[1]} + {totals[2]}")
+    # mask_pat --beta on cuda: the beta is the host pileup of the masked pat
+    rng = np.random.default_rng(121)
+    starts = np.sort(rng.choice(np.arange(1, n_sites - 100), MASK_BLOCKS,
+                                replace=False))
+    idx = Genome(BAM_GENOME).index
+    cid = idx.site2chrom_id(starts)
+    mask_bed = op.join(d, "mask.bed")
+    with open(mask_bed, "w") as f:
+        f.write("".join(f"{idx.chrom_names[c]}\t0\t1\t{a}\t{a + 1 + k % 40}\n"
+                        for k, (c, a) in enumerate(zip(cid, starts))))
+    run("mask_pat", cmd_pat.main_mask_pat,
+        [pe, "-b", mask_bed, "-p", op.join(d, "masked"), "--beta", "--device",
+         "cuda"], "flat_vals_fused")
+    masked = op.join(d, "masked.pat.gz")
+    with open(op.join(d, "masked.beta"), "rb") as f:
+        if f.read() != _beta_oracle(masked, n_sites):
+            raise RuntimeError("mask_pat: the beta != the host pileup's")
+    if _pat_calls(masked)[:2] == _pat_calls(pe)[:2]:
+        raise RuntimeError("mask_pat masked no call")
+    # mix_pat: the SE copy has no beta, so mix_pat makes it on cuda
+    mix = op.join(d, "mix")
+    os.makedirs(mix)
+    for src in (pe, pe[:-len(".pat.gz")] + ".beta", se):
+        shutil.copy(src, mix)
+    run("mix_pat", cmd_pat.main_mix_pat,
+        [op.join(mix, "pe.pat.gz"), op.join(mix, "se.pat.gz"), "--rates",
+         "0.3", "--seed", "7", "-p", op.join(mix, "m"), "--device", "cuda"],
+        "flat_vals_fused")
+    with open(op.join(mix, "se.beta"), "rb") as f:
+        made = f.read()
+    if made != _beta_oracle(op.join(mix, "se.pat.gz"), n_sites) or not _same(
+            op.join(mix, "se.beta"), se[:-len(".pat.gz")] + ".beta"):
+        raise RuntimeError("mix_pat: the beta it made != the host pileup's")
+    n_mix = sum(int(f.count.sum()) for f in iter_pat(op.join(mix,
+                                                             "m_1.pat.gz")))
+    if not 0 < n_mix < totals[0]:
+        raise RuntimeError(f"mix_pat: {n_mix} reads of {totals[0]}")
+    # frag_len: the histogram counts every read once
+    run("frag_len", cmd_pat.main_frag_len, [pe, "--out_path",
+                                            op.join(d, "fl.txt")])
+    with open(op.join(d, "fl.txt")) as f:
+        hist = [int(ln.split("\t")[1]) for ln in f.read().splitlines()[1:]]
+    if sum(hist) != totals[1]:
+        raise RuntimeError(f"frag_len: {sum(hist)} reads, the pat {totals[1]}")
+    return ("pat-stream commands on phase 11's pats: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in walls.items())
+        + f"; view's text == the pat's, cview --strict rows inside sites "
+          f"{s}-{e} ({len(rows)}), index reads {n_idx} lines as the "
+          f"original's, merge {totals[0]:,} == {totals[1]:,} + "
+          f"{totals[2]:,} reads, mask_pat's and mix_pat's betas == the host "
+          f"pileup's, mix of {n_mix:,} reads, frag_len {sum(hist):,} reads")
+
+
+def phase_commands(work, ctx, seg_out):
+    """Phase 12: bam2pat --procs 2, add_cpg_counts / split_by_meth /
+    split_by_allele, find_markers / test_bimodal and the pat-stream
+    commands through the port's CLI. Returns the summary line."""
+    from wgbs_tools_tpu_torch.genome.refdir import Genome
+
+    t_phase = time.perf_counter()
+    idx = Genome(BAM_GENOME).index
+    bounds = {c: idx.chrom_site_bounds(c) for c in BAM_CHROMS}
+    regions = _sites_regions(ctx["n_sites"], bounds)
+    lines = []
+    for what, fn in (
+            ("procs", lambda: _procs_run(work, ctx, regions)),
+            ("split", lambda: _split_runs(work, ctx)),
+            ("markers", lambda: _markers_run(work, seg_out["exact_bed"])),
+            ("bimodal", lambda: _bimodal_run(
+                work, op.join(work, "bam_stream_cuda", "pe.pat.gz"),
+                bounds)),
+            ("stream", lambda: _stream_runs(work, ctx, regions))):
+        t0 = time.perf_counter()
+        line = fn()
+        log(f"phase 12: {line} [{time.perf_counter() - t0:.3f} s]")
+        lines.append(line)
+    log(f"phase 12: took {time.perf_counter() - t_phase:.3f} s")
+    return "; ".join(lines)
 
 
 def main():
@@ -5079,31 +5711,46 @@ def main():
 
     import torch
 
-    smi = phase_card()
-    build_s, regs = phase_build()
+    t_start = time.perf_counter()
+    seconds = {}
+
+    def phase(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = round(time.perf_counter() - t0, 3)
+        return out
+
+    smi = phase("1 card", phase_card)
+    build_s, regs = phase("2 build", phase_build)
     os.makedirs(op.join(REPO, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=op.join(REPO, "build"))
     try:
-        big, deep = phase_data(work, args.frags)
-        kernels, slab = phase_kernels(big, deep, regs)
-        single, e2e = phase_pat2beta(work, big, deep, args.frags)
-        sharded, split, e2e_sharded = phase_sharded(work, big, deep,
-                                                    args.frags, slab)
+        big, deep = phase("3 data", phase_data, work, args.frags)
+        kernels, slab = phase("3 kernels", phase_kernels, big, deep, regs)
+        single, e2e = phase("4 pat2beta", phase_pat2beta, work, big, deep,
+                            args.frags)
+        sharded, split, e2e_sharded = phase("5 sharded", phase_sharded, work,
+                                            big, deep, args.frags, slab)
         del slab
-        workers, e2e_procs = phase_procs(work, big, args.frags)
-        forms, e2e_forms = phase_forms(work, big, deep, args.frags)
-        seg_kernels, seg_launches, e2e_seg, seg_out = phase_segment(work,
-                                                                    regs)
+        workers, e2e_procs = phase("6 procs", phase_procs, work, big,
+                                   args.frags)
+        forms, e2e_forms = phase("7 forms", phase_forms, work, big, deep,
+                                 args.frags)
+        seg_kernels, seg_launches, e2e_seg, seg_out = phase(
+            "8 segment", phase_segment, work, regs)
         kernels.update(seg_kernels)
-        par_kernels, par_launches, e2e_par = phase_parallel(work, big,
-                                                            seg_out)
+        par_kernels, par_launches, e2e_par = phase(
+            "9 parallel", phase_parallel, work, big, seg_out)
         kernels.update(par_kernels)
         seg_launches.update(par_launches)
-        blk_kernels, blk_launches, e2e_blk = phase_blocks(
-            work, big, args.frags, seg_out, regs)
+        blk_kernels, blk_launches, e2e_blk = phase(
+            "10 blocks", phase_blocks, work, big, args.frags, seg_out, regs)
         kernels.update(blk_kernels)
-        bam_kernels, bam_launches, e2e_bam = phase_bam2pat(work, regs)
+        bam_kernels, bam_launches, e2e_bam, bam_ctx = phase(
+            "11 bam2pat", phase_bam2pat, work, regs)
         kernels.update(bam_kernels)
+        e2e_cmds = phase("12 commands", phase_commands, work, bam_ctx,
+                         seg_out)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if torch.cuda.current_device() != 0:
@@ -5133,6 +5780,10 @@ def main():
     log("end to end: " + e2e_par)
     log("end to end: " + e2e_blk)
     log("end to end: " + e2e_bam)
+    log("end to end: " + e2e_cmds)
+    print("[chip_smoke] seconds " + json.dumps(
+        {"total": round(time.perf_counter() - t_start, 3),
+         "phases": seconds}), flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name][1][name],

@@ -215,12 +215,21 @@ def test_cli_bam2pat_asks_for_cuda(inputs, tmp_path, monkeypatch):
     assert not os.listdir(tmp_path)
 
 
-def test_cli_bam2pat_has_no_procs(inputs, tmp_path):
+def test_cli_bam2pat_procs_equals_one_process(inputs, tmp_path):
+    """--procs 2 (two worker processes on the CPU): the pat inflates to the
+    one-process text, and the beta is the same bytes."""
     from wgbs_tools_tpu_torch.cli.main import main as port_main
 
-    with pytest.raises(SystemExit):
-        port_main(["bam2pat", inputs["pe"], "-o", str(tmp_path), "--procs",
-                   "2", "--device", "cpu"])
+    got = {}
+    for name, more in (("one", []), ("procs", ["--procs", "2"])):
+        d = tmp_path / name
+        d.mkdir()
+        assert port_main(["bam2pat", inputs["pe"], "-o", str(d), "--device",
+                          "cpu"] + more) == 0
+        got[name] = (gzip.decompress((d / "pe.pat.gz").read_bytes()),
+                     (d / "pe.beta").read_bytes())
+    assert got["procs"] == got["one"]
+    assert got["one"][0].count(b"\n") > 100
 
 
 @pytest.fixture(scope="module")

@@ -943,3 +943,248 @@ def test_concat_frags_equals_jax():
     parts[1] = _with_extras(parts[1])
     want = jax_concat(parts)
     assert_same_frags(_concat_frags([_port_frags(p) for p in parts]), want)
+
+
+# ------------------------------------------------ the pat-stream host ops
+
+
+def _blocks(seed, n, nr_sites=20000, overlapping=False):
+    rng = np.random.default_rng(seed)
+    s = np.sort(rng.integers(1, nr_sites, size=n)).astype(np.int64)
+    if overlapping:
+        e = s + rng.integers(1, 400, size=n)
+    else:
+        e = np.minimum(np.append(s[1:], nr_sites), s + rng.integers(1, 60,
+                                                                    size=n))
+        e = np.maximum(e, s + 1)
+        s, e = s[e > s], e[e > s]
+    return s, e
+
+
+@pytest.mark.parametrize("strict", [False, True])
+@pytest.mark.parametrize("strip,min_cpgs,no_gaps",
+                         [(False, 1, False), (True, 3, False),
+                          (False, 2, True), (True, 1, True)])
+@pytest.mark.parametrize("overlapping", [False, True])
+def test_frag_filters_equal_jax(strict, strip, min_cpgs, no_gaps,
+                                overlapping):
+    """filter_by_blocks (and through it overlap_pairs, strip_frags,
+    has_gaps and _pass_filters) equals JAX's on reads with '.' calls."""
+    from wgbs_tools_tpu.ops import frag_ops as jops
+    from wgbs_tools_tpu_torch.ops import frag_ops as pops
+
+    f = _with_extras(_frags(40, n=2500, dot_rate=0.3, h_rate=0.05))
+    bs, be = _blocks(41, 150, overlapping=overlapping)
+    want = jops.filter_by_blocks(f, bs, be, strict=strict, strip=strip,
+                                 min_cpgs=min_cpgs, no_gaps=no_gaps)
+    got = pops.filter_by_blocks(_port_frags(f), bs, be, strict=strict,
+                                strip=strip, min_cpgs=min_cpgs,
+                                no_gaps=no_gaps)
+    assert_same_frags(got, want)
+    assert want.nr_frags > 50
+    assert np.array_equal(pops.has_gaps(_port_frags(f)), jops.has_gaps(f))
+    assert_same_frags(pops.strip_frags(_port_frags(f)), jops.strip_frags(f))
+
+
+@pytest.mark.parametrize("rate,reps,seed", [(0.1, 1, 5), (0.25, 4, 6),
+                                            (1.0, 1, 7)])
+def test_sample_frags_equals_jax(rate, reps, seed):
+    from wgbs_tools_tpu.ops.frag_ops import sample_frags as jax_sample
+    from wgbs_tools_tpu_torch.ops.frag_ops import sample_frags
+
+    f = _frags(42, n=3000, max_count=9)
+    assert_same_frags(sample_frags(_port_frags(f), rate, reps=reps,
+                                   seed=seed),
+                      jax_sample(f, rate, reps=reps, seed=seed))
+    with pytest.raises(putils.IllegalArgumentError):
+        sample_frags(_port_frags(f), 1.5)
+
+
+@pytest.mark.parametrize("overlapping", [False, True])
+@pytest.mark.parametrize("strip", [True, False])
+def test_mask_sites_equals_jax(overlapping, strip):
+    from wgbs_tools_tpu.ops.frag_ops import mask_sites as jax_mask
+    from wgbs_tools_tpu_torch.ops.frag_ops import mask_sites
+
+    f = _with_extras(_frags(43, n=2000, max_len=20))
+    bs, be = _blocks(44, 80, overlapping=overlapping)
+    assert_same_frags(mask_sites(_port_frags(f), bs, be, strip=strip),
+                      jax_mask(f, bs, be, strip=strip))
+
+
+@pytest.mark.parametrize("kind", ["bgzf", "bgzf_noindex", "gzip", "text"])
+@pytest.mark.parametrize("region", [None, (1, 60_001), (17_000, 17_031)])
+def test_read_pat_equals_jax(pat_files, kind, region):
+    path = pat_files[kind]
+    for keep in (True, False):
+        assert_same_frags(ppat.read_pat(path, region_sites=region,
+                                        keep_extras=keep),
+                          jpat.read_pat(path, region_sites=region,
+                                        keep_extras=keep))
+
+
+def test_merge_betas_equals_jax(tmp_path):
+    from wgbs_tools_tpu.formats.beta import merge_betas as jax_merge
+    from wgbs_tools_tpu_torch.formats.beta import merge_betas
+
+    rng = np.random.default_rng(45)
+    paths = []
+    for k in range(3):
+        p = tmp_path / f"b{k}.beta"
+        rng.integers(0, 256, size=(500, 2)).astype(np.uint8).tofile(p)
+        paths.append(str(p))
+    for lbeta in (False, True):
+        a, b = tmp_path / "a.out", tmp_path / "b.out"
+        got = merge_betas(paths, str(a), lbeta)
+        want = jax_merge(paths, str(b), lbeta)
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+        assert a.read_bytes() == b.read_bytes()
+
+
+def test_bimodal_equals_jax():
+    from wgbs_tools_tpu.models import bimodal as jbi
+    from wgbs_tools_tpu_torch.models import bimodal as pbi
+
+    f = _frags(46, n=400, nr_sites=300, max_len=10, dot_rate=0.2)
+    for start, end, strict, min_len in ((20, 60, True, 1), (1, 300, False, 3),
+                                        (250, 290, True, 4)):
+        a = pbi.frags_to_matrix(_port_frags(f), start, end, strict, min_len)
+        b = jbi.frags_to_matrix(f, start, end, strict, min_len)
+        assert np.array_equal(a, b)
+        got = pbi.test_bimodal_region(_port_frags(f), start, end,
+                                      max_iter=20, strict=strict,
+                                      min_len=min_len)
+        want = jbi.test_bimodal_region(f, start, end, max_iter=20,
+                                       strict=strict, min_len=min_len)
+        assert got.keys() == want.keys()
+        for k in want:
+            assert got[k] == want[k] or (want[k] != want[k]
+                                          and got[k] != got[k]), k
+
+
+def test_shuffle_within_start_equals_jax():
+    from wgbs_tools_tpu.cli.cmd_vis import _shuffle_within_start as jshuf
+    from wgbs_tools_tpu_torch.cli.view import _shuffle_within_start
+
+    f = _with_extras(_frags(47, n=900, nr_sites=60))
+    for seed in (3, 11):
+        assert_same_frags(_shuffle_within_start(_port_frags(f), seed),
+                          jshuf(f, seed))
+
+
+def test_array_id_equals_jax(mini_genome, tmp_path, monkeypatch):
+    """GenomicRegion(array_id=...) through the genome's ilmn2CpG.tsv.gz,
+    its refusals too."""
+    from wgbs_tools_tpu.genome.region import GenomicRegion as JaxRegion
+    from wgbs_tools_tpu.utils import IllegalArgumentError as JaxErr
+    from wgbs_tools_tpu_torch.genome.region import GenomicRegion
+
+    root = os.path.dirname(mini_genome.refdir)
+    g = os.path.join(root, "mini_ilmn_host")
+    os.makedirs(g, exist_ok=True)
+    for f in os.listdir(mini_genome.refdir):
+        if not os.path.lexists(os.path.join(g, f)):
+            os.symlink(os.path.join(mini_genome.refdir, f),
+                       os.path.join(g, f))
+    with gzip.open(os.path.join(g, "ilmn2CpG.tsv.gz"), "wt") as f:
+        f.write("cg00000001\t150\ncg00000002\t1200-1260\n")
+    for aid in ("cg00000001", "cg00000002"):
+        a = GenomicRegion(array_id=aid, genome=Genome("mini_ilmn_host"))
+        b = JaxRegion(array_id=aid, genome=JaxGenome("mini_ilmn_host"))
+        assert (a.sites, a.chrom, a.region_str, a.bp_tuple, str(a)) == (
+            b.sites, b.chrom, b.region_str, b.bp_tuple, str(b))
+    for aid, genome in (("cg00000009", "mini_ilmn_host"),
+                        ("xx1", "mini_ilmn_host"), ("cg00000001", "mini")):
+        with pytest.raises(JaxErr) as je:
+            JaxRegion(array_id=aid, genome=JaxGenome(genome))
+        with pytest.raises(putils.IllegalArgumentError) as pe:
+            GenomicRegion(array_id=aid, genome=Genome(genome))
+        assert str(pe.value) == str(je.value)
+
+
+def test_snp_classify_and_yi_parse_equal_jax(sim_bams):
+    """split_by_allele's per-read verdict and split_by_meth's YI parse equal
+    JAX's on every record of the simulated BAMs, for each allele pair and
+    quality gate."""
+    from wgbs_tools_tpu.pipeline import bam_split as jsp
+    from wgbs_tools_tpu.pipeline.bam import BamReader as JaxReader
+    from wgbs_tools_tpu_torch.pipeline import bam_split as psp
+    from wgbs_tools_tpu_torch.pipeline.bam import BamReader
+
+    for path in sim_bams:
+        precs = list(BamReader(path))
+        jrecs = list(JaxReader(path))
+        for k, (pr, jr) in enumerate(zip(precs, jrecs)):
+            pos = pr.pos + 1 + (k % 90)
+            for let in (("C", "T"), ("G", "A"), ("A", "C"), ("C", "G")):
+                for q in (0, 30):
+                    assert (psp._snp_classify(pr, pos, *let, q, k % 2 == 0)
+                            == jsp._snp_classify(jr, pos, *let, q,
+                                                 k % 2 == 0))
+        assert len(precs) == len(jrecs) >= 60
+    for tags in (b"YIZ3,4\x00", b"NMi\x01\x00\x00\x00YIZ0,12\x00",
+                 b"YIZbad\x00", b"", None):
+        assert psp._parse_yi(tags) == jsp._parse_yi(tags)
+
+
+def test_marker_params_equal_jax(tmp_path):
+    from wgbs_tools_tpu.models import markers as jm
+    from wgbs_tools_tpu_torch.models import markers as pm
+
+    cfg = tmp_path / "p.cfg"
+    cfg.write_text("min_cov: 4 # cov\ndelta_means: 0.4\ntargets: A B\n"
+                   "only_hyper: True\nsort_by: None\nname: x\n")
+    assert pm._load_param_file(str(cfg)) == jm._load_param_file(str(cfg))
+    a = pm.MarkerParams(config_file=str(cfg), top=3, header=False, pval=0.1)
+    b = jm.MarkerParams(config_file=str(cfg), top=3, header=False, pval=0.1)
+    assert a.as_dict() == b.as_dict()
+    for bad in (dict(only_hyper=True, only_hypo=True), dict(pval=2.0),
+                dict(delta_means=-3), dict(test_type="z")):
+        with pytest.raises(putils.IllegalArgumentError):
+            pm.MarkerParams(**bad)
+        with pytest.raises(JaxIllegalArgument):
+            jm.MarkerParams(**bad)
+
+
+def test_bgzf_reader_reads_past_joined_parts(tmp_path):
+    """Two BGZF files joined by byte append (bam2pat --procs's parts, each
+    with its EOF block): the port's reader reads every line of both, from
+    the start and from any line's virtual offset; JAX's stops at the first
+    part's EOF block (a known divergence, ROADMAP section 3)."""
+    f1 = _frags(50, n=3000, nr_sites=20000)
+    f2 = _frags(51, n=2000, nr_sites=20000)
+    f2.start = f2.start + 20000
+    parts = []
+    for k, f in enumerate((f1, f2)):
+        p = tmp_path / f"p{k}.pat.gz"
+        jpat.write_pat(f, str(p), index=False)
+        parts.append(p.read_bytes())
+    joined = tmp_path / "j.pat.gz"
+    joined.write_bytes(b"".join(parts))
+    want = jpat.frags_to_bytes(f1) + jpat.frags_to_bytes(f2)
+
+    def lines(reader_cls, path):
+        r = reader_cls(str(path))
+        out, voffs = [], []
+        while True:
+            voffs.append(r.virtual_offset)
+            ln = r.readline()
+            if not ln:
+                break
+            out.append(ln)
+        r.close()
+        return out, voffs
+
+    got, voffs = lines(pbgzf.BgzfReader, joined)
+    assert b"".join(got) == want
+    jgot, _ = lines(jbgzf.BgzfReader, joined)
+    assert b"".join(jgot) == jpat.frags_to_bytes(f1)
+    r = pbgzf.BgzfReader(str(joined))
+    for k in (0, len(got) // 3, f1.nr_frags - 1, f1.nr_frags, len(got) - 1):
+        r.seek_virtual(voffs[k])
+        assert r.readline() == got[k]
+    r.close()
+    # the index of the joined file samples both parts
+    ppat.index_pat(str(joined), stride=100)
+    sites, _, _ = ppat.load_pat_index(str(joined))
+    assert sites[-1] > 20000

@@ -1,5 +1,5 @@
-"""The port imports without jax and without the JAX package, and refuses
-devices it has no path for."""
+"""The port imports without jax, without the JAX package and without
+pandas, and refuses devices it has no path for."""
 
 import ast
 import os.path as op
@@ -12,16 +12,17 @@ torch = pytest.importorskip("torch")
 
 REPO = op.dirname(op.dirname(op.abspath(__file__)))
 
-# a meta-path finder that fails any import of jax, jaxlib or the JAX package
-# (wgbs_tools_tpu and its submodules), then every module of the port; run in
-# a fresh interpreter because this test process (conftest.py) has imported
-# jax already
+# a meta-path finder that fails any import of jax, jaxlib, the JAX package
+# (wgbs_tools_tpu and its submodules) or pandas (the machine with the card
+# has none), then every module of the port; run in a fresh interpreter
+# because this test process (conftest.py) has imported jax already
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
 
 def blocked(name):
-    return (name in ("jax", "jaxlib", "wgbs_tools_tpu")
-            or name.startswith(("jax.", "jaxlib.", "wgbs_tools_tpu.")))
+    return (name in ("jax", "jaxlib", "wgbs_tools_tpu", "pandas")
+            or name.startswith(("jax.", "jaxlib.", "wgbs_tools_tpu.",
+                                "pandas.")))
 
 class Block:
     def find_spec(self, name, path=None, target=None):
@@ -41,13 +42,13 @@ print(" ".join(names))
 """
 
 
-def test_port_imports_without_jax():
+def test_port_imports_without_jax_and_pandas():
     r = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     # every module of the port was imported, not an empty walk
     names = set(r.stdout.split())
-    assert len(names) >= 53
+    assert len(names) >= 59
     assert {"wgbs_tools_tpu_torch.parallel.mesh",
             "wgbs_tools_tpu_torch.parallel.sharded",
             "wgbs_tools_tpu_torch.parallel.multihost",
@@ -86,7 +87,73 @@ def test_port_imports_without_jax():
             "wgbs_tools_tpu_torch.pipeline.bam_stream",
             "wgbs_tools_tpu_torch.pipeline.bam2pat_run",
             "wgbs_tools_tpu_torch.cli.cmd_pat",
-            "wgbs_tools_tpu_torch.cli.cmd_bam2pat"} <= names
+            "wgbs_tools_tpu_torch.cli.cmd_bam2pat",
+            "wgbs_tools_tpu_torch.pipeline.bam_split",
+            "wgbs_tools_tpu_torch.models.markers",
+            "wgbs_tools_tpu_torch.models.bimodal",
+            "wgbs_tools_tpu_torch.cli.cmd_markers",
+            "wgbs_tools_tpu_torch.cli.view",
+            "wgbs_tools_tpu_torch.cli.cmd_view",
+            "wgbs_tools_tpu_torch.cli.main"} <= names
+
+
+def test_new_commands_run_without_jax_and_pandas(tmp_path):
+    """The slice's commands run (their lazy imports too) with jax, the JAX
+    package and pandas blocked: find_markers, test_bimodal, view, merge,
+    mask_pat and frag_len on a two-site genome, on the CPU."""
+    script = _BLOCKED_IMPORT.split("import wgbs_tools_tpu_torch")[0] + r'''
+import os, sys
+import numpy as np
+root = sys.argv[1]
+os.environ["WGBS_TPU_REFDIR"] = os.path.join(root, "refs")
+g = os.path.join(root, "refs", "g")
+os.makedirs(g)
+np.savez(os.path.join(g, "cpg_index.npz"), loci=np.array([10, 20, 30, 40],
+         dtype=np.int32), chrom_offsets=np.array([0, 4]),
+         chrom_sizes=np.array([100]))
+import json
+json.dump({"chroms": ["chr1"], "name": "g"},
+          open(os.path.join(g, "cpg_index.json"), "w"))
+from wgbs_tools_tpu_torch.cli.main import main
+from wgbs_tools_tpu_torch.formats.pat import PatFrags, write_pat
+codes = np.array([[1, 1, 0], [0, 0, 3]], dtype=np.uint8)
+write_pat(PatFrags(np.array([1, 2], np.int32), np.array([3, 2], np.int32),
+                   np.array([2, 1], np.int32), codes,
+                   np.array([0, 0], np.int16), ["chr1"]),
+          os.path.join(root, "a.pat.gz"))
+bed = os.path.join(root, "b.bed")
+open(bed, "w").write("chr1\t9\t21\t1\t3\nchr1\t29\t41\t3\t5\n")
+for beta, rows in (("s1", [[0, 9], [1, 9], [8, 9], [9, 9]]),
+                   ("s2", [[9, 9], [8, 9], [0, 9], [1, 9]])):
+    np.array(rows, dtype=np.uint8).tofile(os.path.join(root, beta + ".beta"))
+open(os.path.join(root, "g.csv"), "w").write("name,group\ns1,A\ns2,B\n")
+G = ["--genome", "g"]
+out = os.path.join(root, "o")
+os.makedirs(out)
+assert main(["view", os.path.join(root, "a.pat.gz"), "-o",
+             os.path.join(out, "v.pat")] + G) == 0
+assert main(["merge", os.path.join(root, "a.pat.gz"), os.path.join(root,
+             "a.pat.gz"), "-p", os.path.join(out, "m")] + G) == 0
+assert main(["mask_pat", os.path.join(root, "a.pat.gz"), "-b", bed, "-p",
+             os.path.join(out, "mk"), "--beta", "--device", "cpu"] + G) == 0
+assert main(["frag_len", os.path.join(root, "a.pat.gz"), "--out_path",
+             os.path.join(out, "h.txt")] + G) == 0
+assert main(["test_bimodal", os.path.join(root, "a.pat.gz"), "-s", "1-4",
+             "-o", os.path.join(out, "bi.tsv")] + G) == 0
+assert main(["find_markers", "-b", bed, "-g", os.path.join(root, "g.csv"),
+             "--betas", os.path.join(root, "s1.beta"),
+             os.path.join(root, "s2.beta"), "-o", out, "--device", "cpu",
+             "-c", "1", "--delta_means", "0.5"]) == 0
+loaded = [m for m in sys.modules if blocked(m)]
+assert not loaded, loaded
+print(sorted(os.listdir(out)))
+'''
+    r = subprocess.run([sys.executable, "-c", script, str(tmp_path)],
+                       cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    for name in ("v.pat", "m.pat.gz", "mk.pat.gz", "mk.beta", "h.txt",
+                 "bi.tsv", "Markers.A.bed", "params.txt"):
+        assert name in r.stdout, (name, r.stdout)
 
 
 def _imported_modules(path):

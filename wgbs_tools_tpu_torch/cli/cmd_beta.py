@@ -1,7 +1,8 @@
 """beta-centric commands of the port: beta_to_blocks and beta_to_table.
 
 Port of wgbs_tools_tpu/cli/cmd_beta.py (:33-210; ref: src/python/
-beta_to_blocks.py, beta_to_table.py), plus --device. The block sums run
+beta_to_blocks.py, beta_to_table.py), plus --device, and of its
+`beta_cov_value` (:361), which mix_pat reads. The block sums run
 in ops/reduceat.py::reduce_data_to_blocks: on cuda the block_sums kernel
 (over every visible card's site shard when there are several), with
 --device cpu its plain twin. Both write the JAX CLI's bytes.
@@ -53,6 +54,24 @@ def reduce_beta_to_blocks(beta_path, blocks, devices=None, timings=None):
             data, base = load_beta(beta_path), 1
     return reduce_data_to_blocks(data, starts, ends, base=base,
                                  device=devices, timings=timings)
+
+
+def beta_cov_value(beta_path, genome, region=None, sites=None, blocks=None,
+                   devices=None):
+    """Mean coverage (ref: beta_cov.py:62-69); with `blocks`, the blocks'
+    sums come from reduce_beta_to_blocks on `devices`."""
+    from ..genome.region import GenomicRegion
+
+    if blocks is not None:
+        reduced = reduce_beta_to_blocks(beta_path, blocks, devices=devices)
+        nr_sites = (blocks["endCpG"] - blocks["startCpG"]).clip(0).sum()
+        return float(reduced[:, 1].sum() / max(nr_sites, 1))
+    gr = GenomicRegion(region=region, sites=sites, genome=genome)
+    if gr.is_whole():
+        data = load_beta(beta_path)
+    else:
+        data = load_beta(beta_path, sites=gr.sites)
+    return float(np.mean(data[:, 1]))
 
 
 def main_beta_to_blocks(argv, timings=None):

@@ -6,7 +6,7 @@
 
 Flags match wgbs_tools_tpu's segment (cli/cmd_segment.py::main), plus
 --device, less --array_id: the JAX CLI accepts it and segments the whole
-genome; here it is refused as an unknown flag. Both modes run on
+genome; here it is refused with a usage error. Both modes run on
 --device, cuda by default, which raises when CUDA is absent. Exact mode
 (the default) writes the JAX CLI's bytes: on cuda its DP runs in the
 kernel csrc/segment_exact.cu, on cpu in the host DP on a thread pool.
@@ -71,6 +71,8 @@ def main(argv, timings=None):
                         "CUDA) or cpu (exact mode: the host DP; fast mode: "
                         "the plain PyTorch path)")
     args = p.parse_args(argv)
+    if args.array_id:
+        p.error("--array_id is not supported by segment: it names one site")
 
     if args.betas:
         betas = args.betas

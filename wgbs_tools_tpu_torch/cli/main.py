@@ -13,23 +13,34 @@
     python -m wgbs_tools_tpu_torch homog x.pat.gz -b blocks.bed [-o out/ |
         -p prefix] [--binary] [--device cpu]
     python -m wgbs_tools_tpu_torch bam2pat x.bam [-o out/] [--device cpu]
-        [--clip N] [--min_cpg N] [--stream | --no_stream] [--mbias] ...
+        [--procs N] [--clip N] [--min_cpg N] [--stream | --no_stream] ...
+    python -m wgbs_tools_tpu_torch split_by_allele x.bam chr1:12345 C/T
+        [-o out/] [--device cpu]
+    python -m wgbs_tools_tpu_torch add_cpg_counts x.bam [-o out/]
+    python -m wgbs_tools_tpu_torch split_by_meth x.counts.bam 0.75
+    python -m wgbs_tools_tpu_torch find_markers -b blocks.bed -g groups.csv
+        --betas a.beta ... [-o out/] [--device cpu]
+    python -m wgbs_tools_tpu_torch test_bimodal x.pat.gz -r chr1:1000-2000
+    python -m wgbs_tools_tpu_torch view | cview x.pat.gz [-r ...]
+    python -m wgbs_tools_tpu_torch index | merge | frag_len ...
+    python -m wgbs_tools_tpu_torch mask_pat | mix_pat ... [--device cpu]
 
-Flags match wgbs_tools_tpu's pat2beta (cli/cmd_pat.py::main_pat2beta),
-segment (cli/cmd_segment.py), beta_to_blocks and beta_to_table
-(cli/cmd_beta.py), pat2pairs (cli/cmd_misc.py), homog
-(cli/cmd_homog.py) and bam2pat (cli/cmd_bam2pat.py, without --procs),
-plus --device. The device defaults to cuda
-and raises when CUDA is absent: the host path runs only when asked for.
-With more than one visible card pat2beta's table is sharded over the
-cards; --procs N (N > 1) runs N worker processes, one site range each
-(parallel/multihost.py). segment runs both its modes on --device too;
-its exact mode's --device cpu is the host DP (cli/cmd_segment.py).
-beta_to_blocks and beta_to_table sum blocks in the block_sums kernel,
-pat2pairs counts pairs in pair_counts and homog bins reads in homog_bins;
-bam2pat calls reads in call_reads and merges mates in merge_pe, then runs
-pat2beta; --device cpu runs each kernel's plain twin (bam2pat's calling:
-numpy on the host).
+Flags match wgbs_tools_tpu's commands of the same names (cli/cmd_pat.py,
+cmd_segment.py, cmd_beta.py, cmd_misc.py, cmd_homog.py, cmd_bam2pat.py,
+cmd_markers.py, cmd_view.py), plus --device on each command that reaches
+the card. The device defaults to cuda and raises when CUDA is absent: the
+host path runs only when asked for. With more than one visible card
+pat2beta's table is sharded over the cards; pat2beta --procs N and
+bam2pat --procs N (N > 1) run N worker processes (parallel/multihost.py).
+segment runs both its modes on --device too; its exact mode's --device
+cpu is the host DP (cli/cmd_segment.py). beta_to_blocks, beta_to_table
+and find_markers sum blocks in the block_sums kernel, pat2pairs counts
+pairs in pair_counts and homog bins reads in homog_bins; bam2pat (and
+split_by_allele on its parts) calls reads in call_reads and merges mates
+in merge_pe, then runs pat2beta, as mask_pat --beta and mix_pat do;
+--device cpu runs each kernel's plain twin (bam2pat's calling: numpy on
+the host). add_cpg_counts, split_by_meth, test_bimodal, view, cview,
+index, merge and frag_len are host code and take no --device.
 """
 
 import argparse
@@ -105,23 +116,85 @@ def main_segment(argv):
     return run(argv)
 
 
-def add_gr_args(parser, bed_file=False):
-    """Shared region flags (ref: utils_wgbs.py:233-247), without
-    --array_id and --no_anno: no command of the port reads them yet."""
+def _lazy(module, fn="main"):
+    """A command whose module imports add_gr_args from here, loaded at its
+    first call."""
+    def runner(argv):
+        import importlib
+
+        mod = importlib.import_module(f"wgbs_tools_tpu_torch.cli.{module}")
+        return getattr(mod, fn)(argv)
+
+    return runner
+
+
+def add_gr_args(parser, bed_file=False, no_anno=False):
+    """Shared region flags (ref: utils_wgbs.py:233-247)."""
     g = parser.add_mutually_exclusive_group()
     g.add_argument("-s", "--sites", help='CpG index range, e.g. "450000-450050"')
     g.add_argument("-r", "--region", help='genomic region, e.g. "chr1:10,000-10,500"')
+    g.add_argument("--array_id", help="Illumina array id, e.g. cg00001755")
     if bed_file:
         g.add_argument("-L", "--bed_file", help="bed file with CpG columns 4-5")
+    if no_anno:
+        parser.add_argument("--no_anno", action="store_true",
+                            help="do not print genome annotations")
     parser.add_argument("--genome", default=None, help="genome reference name")
     return parser
 
 
-COMMANDS = {"pat2beta": main_pat2beta, "segment": main_segment,
-            "beta_to_blocks": main_beta_to_blocks,
-            "beta_to_table": main_beta_to_table,
-            "pat2pairs": main_pat2pairs, "homog": main_homog,
-            "bam2pat": main_bam2pat}
+def add_view_args(parser, out_path=True, sub_sample=True):
+    parser.add_argument("--strict", action="store_true",
+                        help="truncate reads outside the region")
+    parser.add_argument("--strip", action="store_true",
+                        help="remove leading/trailing dots")
+    parser.add_argument("--min_len", type=int, default=1,
+                        help="only reads covering >= MIN_LEN CpGs")
+    parser.add_argument("--no_gaps", action="store_true",
+                        help="drop reads with unknown (.) sites")
+    if sub_sample:
+        parser.add_argument("--sub_sample", type=float, help="subsample rate")
+    parser.add_argument("--no_sort", action="store_true")
+    parser.add_argument("--shuffle", action="store_true",
+                        help="random order of reads sharing a start site "
+                             "(ref: cview.py:43-46, sort -k3,3R)")
+    parser.add_argument("-np", "--nanopore", action="store_true",
+                        help="(compat; ref cview.py:34-37 widens the tabix "
+                             "back-scan for very long reads — our .cdx "
+                             "index records the true max fragment length, "
+                             "so overlapping long reads are always pulled)")
+    parser.add_argument("--seed", type=int, default=None)
+    if out_path:
+        parser.add_argument("-o", "--out_path", default=None)
+    return parser
+
+
+COMMANDS = {
+    # view
+    "view": _lazy("cmd_view"),
+    "cview": _lazy("cmd_view", "main_cview"),
+    # beta ops
+    "beta_to_blocks": main_beta_to_blocks,
+    "beta_to_table": main_beta_to_table,
+    # generation
+    "bam2pat": main_bam2pat,
+    "index": _lazy("cmd_pat", "main_index"),
+    "pat2beta": main_pat2beta,
+    "mix_pat": _lazy("cmd_pat", "main_mix_pat"),
+    "merge": _lazy("cmd_pat", "main_merge"),
+    "mask_pat": _lazy("cmd_pat", "main_mask_pat"),
+    # analysis
+    "segment": main_segment,
+    "homog": main_homog,
+    "find_markers": _lazy("cmd_markers"),
+    "add_cpg_counts": _lazy("cmd_bam2pat", "main_add_cpg_counts"),
+    "frag_len": _lazy("cmd_pat", "main_frag_len"),
+    "split_by_allele": _lazy("cmd_bam2pat", "main_split_by_allele"),
+    "split_by_meth": _lazy("cmd_bam2pat", "main_split_by_meth"),
+    "test_bimodal": _lazy("cmd_markers", "main_test_bimodal"),
+    # extras beyond the reference's registered commands
+    "pat2pairs": main_pat2pairs,
+}
 
 
 def main(argv=None):

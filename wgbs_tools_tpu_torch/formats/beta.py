@@ -4,8 +4,8 @@ Format (ref: docs/beta_format.md): a raw binary (NR_SITES x 2) matrix of
 (#meth, #coverage) per CpG site, uint8 for .beta/.bin, uint16 for .lbeta.
 Random access by seeking to (site-1)*2*itemsize (ref: utils_wgbs.py:307-330).
 The port's copy of wgbs_tools_tpu/formats/beta.py's `beta_dtype`,
-`load_beta`, `save_beta`, `trim_to_uint`, `beta2vec` and
-`beta_sanity_check`.
+`load_beta`, `save_beta`, `trim_to_uint`, `beta2vec`,
+`beta_sanity_check` and `merge_betas`.
 """
 
 import os.path as op
@@ -83,3 +83,18 @@ def beta_sanity_check(path, nr_sites):
     if path.endswith(".lbeta"):
         found //= 2
     return int(found) == int(nr_sites)
+
+
+def merge_betas(beta_paths, out_path=None, lbeta=False):
+    """Element-wise sum of beta files, saturated back to uint8/16
+    (ref: merge.py:123-140). Returns the saturated array."""
+    data = load_beta(beta_paths[0]).astype(np.int64)
+    for b in beta_paths[1:]:
+        nxt = load_beta(b)
+        if nxt.shape != data.shape:
+            raise IllegalArgumentError("beta files have incompatible sizes")
+        data += nxt
+    data = trim_to_uint(data, lbeta=lbeta)
+    if out_path is not None:
+        data.tofile(out_path)
+    return data

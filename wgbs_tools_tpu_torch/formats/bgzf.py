@@ -10,6 +10,7 @@ total compressed block size. Virtual offsets are (compressed_block_offset
 
 import gzip
 import io
+import os
 import struct
 import zlib
 
@@ -110,10 +111,17 @@ def is_gzip(path) -> bool:
 
 
 class BgzfReader:
-    """Random-access BGZF reader: virtual-offset seeks, then line reads."""
+    """Random-access BGZF reader: virtual-offset seeks, then line reads.
+
+    Unlike wgbs_tools_tpu's copy, a line read goes on past an empty block
+    that is not the file's last, as htslib's reader does: in BGZF files
+    joined by byte append the JAX reader stops at the first part's EOF
+    marker, so an index built by index_pat covered the first part alone.
+    """
 
     def __init__(self, path):
         self._fh = open(path, "rb")
+        self._size = os.fstat(self._fh.fileno()).st_size
         self._block_coffset = 0
         self._block_data = b""
         self._within = 0
@@ -173,13 +181,17 @@ class BgzfReader:
                 self._within = nl + 1
                 return b"".join(chunks)
             chunks.append(self._block_data[self._within :])
-            prev = self._block_coffset
-            if not self._load_block(self._next_coffset) or (
-                not self._block_data and self._block_coffset == prev
-            ):
-                return b"".join(chunks)
-            if not self._block_data:
-                return b"".join(chunks)
+            # on to the next block with data: an empty block inside the file
+            # (the EOF marker of a part in BGZF files joined by byte append,
+            # as bam2pat --procs joins its parts) is skipped; the file's
+            # last block ends the read where it stands
+            while True:
+                if not self._load_block(self._next_coffset):
+                    return b"".join(chunks)
+                if self._block_data:
+                    break
+                if self._next_coffset >= self._size:
+                    return b"".join(chunks)
 
     def close(self):
         self._fh.close()

@@ -216,6 +216,24 @@ def parse_pat_bytes(data: bytes, keep_extras=True) -> PatFrags:
                     extras if keep_extras else None)
 
 
+def read_pat(path, region_sites=None, keep_extras=True) -> PatFrags:
+    """Read a pat[.gz] file, optionally restricted to a 1-based [s, e) site
+    window (random access through the .cdx index when present)."""
+    if region_sites is not None and path.endswith(".gz"):
+        idx = load_pat_index(path)
+        if idx is not None:
+            return _read_region_indexed(path, idx, region_sites, keep_extras)
+    with open(path, "rb") as f:
+        data = f.read()
+    if is_gzip(path):
+        # BGZF through the native inflater, a plain gzip through zlib
+        data = bgzf_decompress_native(data) or gzip.decompress(data)
+    frags = parse_pat_bytes(data, keep_extras=keep_extras)
+    if region_sites is not None:
+        frags = frags.slice_sites(*region_sites)
+    return frags
+
+
 def iter_pat(path, chunk_bytes=DEF_CHUNK_BYTES, keep_extras=False):
     """Stream a pat[.gz] file as a sequence of PatFrags batches.
 
@@ -361,6 +379,29 @@ def _last_block_end(slab):
         off += bsize
         last = off
     return last
+
+
+def _read_region_indexed(path, idx, region_sites, keep_extras):
+    s, e = region_sites
+    samples_sites, samples_voff, max_len = idx
+    # first sample whose site could still have overlapping reads
+    i = np.searchsorted(samples_sites, s - max_len + 1, side="right") - 1
+    i = max(int(i), 0)
+    reader = BgzfReader(path)
+    reader.seek_virtual(int(samples_voff[i]))
+    chunks = []
+    while True:
+        line = reader.readline()
+        if not line:
+            break
+        start = int(line.split(b"\t", 3)[1])
+        if start >= e:
+            break
+        chunks.append(line)
+    reader.close()
+    frags = parse_pat_bytes(b"".join(chunks), keep_extras=keep_extras)
+    return frags.slice_sites(s, e)
+
 
 
 def write_pat(frags: PatFrags, path, level=6, index=True, stride=INDEX_STRIDE,

@@ -87,6 +87,10 @@ class Genome:
     def whitelist(self):
         return self.join("whitelist.bed")
 
+    @property
+    def ilmn2cpg_dict(self):
+        return self.join("ilmn2CpG.tsv.gz")
+
     def get_chroms(self):
         return tuple(self.index.chrom_names)
 

@@ -3,10 +3,9 @@ between genomic loci and CpG-site indices.
 
 The port's copy of wgbs_tools_tpu/genome/region.py's `GenomicRegion`
 (same semantics as the reference, ref: src/python/genomic_region.py),
-against the in-memory CpGIndex. Annotation lookup is not ported: `__str__`
+against the in-memory CpGIndex, with Illumina array ids (`array_id`, through
+the genome's ilmn2CpG.tsv.gz). Annotation lookup is not ported: `__str__`
 prints the region line alone, as the JAX package does with `no_anno`.
-Illumina array ids (`array_id`) are not ported either: no command of the
-port takes them yet.
 """
 
 import re
@@ -16,7 +15,8 @@ from .refdir import Genome
 
 
 class GenomicRegion:
-    def __init__(self, region=None, sites=None, genome_name=None, genome=None):
+    def __init__(self, region=None, sites=None, genome_name=None, genome=None,
+                 array_id=None):
         self.genome = genome if genome is not None else Genome(genome_name)
         self.genome_name = self.genome.name
         self.chrom = None
@@ -28,6 +28,8 @@ class GenomicRegion:
             self.parse_region(region)
         elif sites is not None:
             self.parse_sites(sites)
+        elif array_id is not None:
+            self.parse_array_id(array_id)
         # else: whole genome
 
         self.nr_sites = None if self.sites is None else self.sites[1] - self.sites[0]
@@ -84,6 +86,24 @@ class GenomicRegion:
 
         self.bp_tuple = (region_from, region_to)
         self.sites = idx.region2sites(self.chrom, region_from, region_to)
+
+    def parse_array_id(self, array_id):
+        """Illumina array id (e.g. cg00001755) -> single site
+        (ref: genomic_region.py:212-232)."""
+        if not (array_id.startswith("cg") and len(array_id) > 2 and array_id[2:].isdigit()):
+            raise IllegalArgumentError(f"Invalid Illumina array id: {array_id}")
+        idict = self.genome.ilmn2cpg_dict
+        if idict is None:
+            raise IllegalArgumentError("Could not find Illumina map file")
+        import gzip
+
+        with gzip.open(idict, "rt") as f:
+            for line in f:
+                tokens = line.rstrip("\n").split("\t")
+                if tokens and tokens[0] == array_id:
+                    self.parse_sites(tokens[1])
+                    return
+        raise IllegalArgumentError(f"array id {array_id} not found in {idict}")
 
     def _sites_str_to_tuple(self, sites_str):
         if isinstance(sites_str, (tuple, list)):

@@ -1,8 +1,12 @@
-"""Fragment-level operations of homog: per-block U/X/M read counting.
+"""Fragment-level operations: region/blocks filtering (cview), strip/clip,
+subsampling (pat_sampler), site masking (mask_pat), and homog's per-block
+U/X/M read counting.
 
-The port's copy of what homog calls from wgbs_tools_tpu/ops/frag_ops.py:
-`overlap_pairs` (host numpy, :72) and `homog_counts` (:125), whose
-`device` takes the place of JAX's `backend`. The (read, block) overlap
+The port's copy of wgbs_tools_tpu/ops/frag_ops.py: the numpy host ops
+`strip_frags` (:22), `has_gaps` (:49), `_pass_filters` (:55),
+`overlap_pairs` (:72), `filter_by_blocks` (:94), `sample_frags` (:278)
+and `mask_sites` (:297), and `homog_counts` (:125), whose `device` takes
+the place of JAX's `backend`. The (read, block) overlap
 pairs are found on the host; each pair's clip, call counts, gates, bin
 and add run in `homog_bins`: CUDA tensors launch the kernel
 (csrc/homog.cu: chunks of CHUNK pairs a warp, each counting into a
@@ -26,7 +30,7 @@ import torch
 
 from .. import _kernels
 from ..device import resolve_device, timed
-from ..formats.pat import CODE_C, CODE_H, CODE_T, PatFrags
+from ..formats.pat import CODE_C, CODE_DOT, CODE_H, CODE_T, PatFrags
 from ..utils import IllegalArgumentError
 
 TWIN_PAIRS = 1 << 22  # pairs per slice of the twin's (pairs, L) masks
@@ -41,6 +45,52 @@ EDGES_MAX = 256
 LINEAR_BINS = 8
 TABLE_CALLS = 64
 PREFETCH_WORDS = 4
+
+
+def strip_frags(frags: PatFrags) -> PatFrags:
+    """Remove leading/trailing unknown ('.') calls, dropping all-dot reads
+    (ref: cview's --strip via patter_utils strip_read)."""
+    if frags.nr_frags == 0:
+        return frags
+    L = frags.max_len
+    cols = np.arange(L)[None, :]
+    in_read = cols < frags.length[:, None]
+    known = (frags.codes != CODE_DOT) & in_read
+    any_known = known.any(axis=1)
+    first = np.argmax(known, axis=1)
+    last = L - 1 - np.argmax(known[:, ::-1], axis=1)
+
+    out = frags.take(any_known)
+    first = first[any_known]
+    last = last[any_known]
+    new_len = (last - first + 1).astype(np.int32)
+    # shift codes left by `first` per row
+    idx = np.clip(first[:, None] + np.arange(out.max_len)[None, :], 0, L - 1)
+    codes = np.take_along_axis(out.codes, idx, axis=1)
+    codes[np.arange(out.max_len)[None, :] >= new_len[:, None]] = CODE_DOT
+    out.codes = codes
+    out.start = (out.start + first).astype(np.int32)
+    out.length = new_len
+    return out
+
+
+def has_gaps(frags: PatFrags) -> np.ndarray:
+    cols = np.arange(frags.max_len)[None, :]
+    in_read = cols < frags.length[:, None]
+    return ((frags.codes == CODE_DOT) & in_read).any(axis=1)
+
+
+def _pass_filters(frags: PatFrags, strip=False, min_cpgs=1, no_gaps=False):
+    """cview's pass_read filter chain (ref: cview.cpp:8-17)."""
+    if strip:
+        frags = strip_frags(frags)
+    keep = np.ones(frags.nr_frags, dtype=bool)
+    if min_cpgs > 1:
+        keep &= frags.length >= min_cpgs
+    if no_gaps:
+        keep &= ~has_gaps(frags)
+    return frags.take(keep) if not keep.all() else frags
+
 
 
 def overlap_pairs(frags: PatFrags, bstart, bend):
@@ -63,6 +113,33 @@ def overlap_pairs(frags: PatFrags, bstart, bend):
     # exact overlap check (running-max bound may over-include)
     ok = (bstart[bi] < e[fi]) & (bend[bi] > s[fi])
     return fi[ok], bi[ok]
+
+
+def filter_by_blocks(frags: PatFrags, bstart, bend, strict=False, strip=False,
+                     min_cpgs=1, no_gaps=False) -> PatFrags:
+    """cview: keep reads overlapping blocks; --strict clips each read to each
+    overlapping block (ref: cview.cpp:87-167)."""
+    fi, bi = overlap_pairs(frags, bstart, bend)
+    if not strict:
+        keep = np.unique(fi)
+        return _pass_filters(frags.take(keep), strip, min_cpgs, no_gaps)
+
+    bstart = np.asarray(bstart, dtype=np.int64)
+    bend = np.asarray(bend, dtype=np.int64)
+    sub = frags.take(fi)
+    os = np.maximum(sub.start.astype(np.int64), bstart[bi])
+    oe = np.minimum(sub.start.astype(np.int64) + sub.length, bend[bi])
+    shift = (os - sub.start).astype(np.int64)
+    new_len = (oe - os).astype(np.int32)
+    idx = np.clip(shift[:, None] + np.arange(sub.max_len)[None, :], 0,
+                  max(sub.max_len - 1, 0))
+    codes = np.take_along_axis(sub.codes, idx, axis=1)
+    codes[np.arange(sub.max_len)[None, :] >= new_len[:, None]] = CODE_DOT
+    sub.codes = codes
+    sub.start = os.astype(np.int32)
+    sub.length = new_len
+    return _pass_filters(sub, strip, min_cpgs, no_gaps)
+
 
 
 def _check_ranges(ranges):
@@ -261,3 +338,41 @@ def homog_counts(frags: PatFrags, bstart, bend, ranges, min_cpgs=5,
     hb = HomogBins(bstart, bend, ranges, min_cpgs, inclusive, device)
     hb.add(frags)
     return hb.result()
+
+
+def sample_frags(frags: PatFrags, rate, reps=1, seed=None) -> PatFrags:
+    """count' ~ Binomial(count*reps, rate); drop zero-count rows
+    (ref: src/pat_sampler/sampler.cpp:36-50 — which seeds per line from the
+    wall clock; we use a counter-based generator for reproducibility)."""
+    if not 0 < rate <= 1:
+        raise IllegalArgumentError(f"Invalid sampling rate: {rate}")
+    rng = np.random.default_rng(seed)
+    new_counts = rng.binomial(frags.count.astype(np.int64) * reps, rate)
+    keep = new_counts > 0
+    out = frags.take(keep)
+    out.count = new_counts[keep].astype(np.int32)
+    return out
+
+
+def mask_sites(frags: PatFrags, bstart, bend, strip=True) -> PatFrags:
+    """Replace calls falling in [bstart, bend) blocks with '.', then strip
+    (ref: src/pat2beta/mask_pat.cpp:12-150)."""
+    if frags.nr_frags == 0:
+        return frags
+    bstart = np.asarray(bstart, dtype=np.int64)
+    bend = np.asarray(bend, dtype=np.int64)
+    sites = frags.start.astype(np.int64)[:, None] + np.arange(frags.max_len)[None, :]
+    # site masked iff inside any block: use searchsorted over sorted blocks
+    be_max = np.maximum.accumulate(bend)
+    j = np.searchsorted(bstart, sites, side="right") - 1
+    jc = np.clip(j, 0, len(bstart) - 1)
+    masked = (j >= 0) & (sites < bend[jc]) & (sites >= bstart[jc])
+    if len(bstart) > 1 and not (bstart[1:] >= bend[:-1]).all():
+        # overlapping blocks: fall back to interval stabbing via running max
+        masked = (j >= 0) & (sites < be_max[jc])
+    codes = frags.codes.copy()
+    codes[masked] = CODE_DOT
+    out = PatFrags(frags.start.copy(), frags.length.copy(), frags.count.copy(),
+                   codes, frags.chrom_id.copy(), frags.chrom_names,
+                   frags.extras)
+    return strip_frags(out) if strip else out

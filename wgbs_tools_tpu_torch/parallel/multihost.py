@@ -1,11 +1,15 @@
-"""Multi-process pat2beta and segment: N worker processes on one machine.
+"""Multi-process pat2beta, segment and bam2pat: N worker processes on one
+machine.
 
-Port of wgbs_tools_tpu/parallel/multihost.py's pat2beta and segment jobs
+Port of wgbs_tools_tpu/parallel/multihost.py's three jobs
 (pat2beta_worker :67-157, segment_worker :160-214,
-run_segment_multiprocess :217-264, _worker_main :524-572, free_port :575,
-run_pat2beta_multiprocess :583-624). The workers join one
-torch.distributed job on the gloo backend, and rank r runs on one device,
-cuda:{r % device_count} (or the CPU).
+run_segment_multiprocess :217-264, _bam_ref_names :267,
+_bam_chrom_weights :287, _bai_ref_begs :342, _partition_contiguous :383,
+bam2pat_part_worker :402, run_bam2pat_multiprocess :424-521,
+_worker_main :524-572, free_port :575, run_pat2beta_multiprocess
+:583-624). The pat2beta and segment workers join one torch.distributed
+job on the gloo backend; the bam2pat workers are independent processes.
+Rank r runs on one device, cuda:{r % device_count} (or the CPU).
 
 - pat2beta: rank r owns the sites [r*S + 1, (r+1)*S + 1) with S =
   ceil(nr_sites / world). It streams the pat rows overlapping its range
@@ -20,6 +24,13 @@ cuda:{r % device_count} (or the CPU).
   route on cuda and the host DP on cpu, fast mode through
   segment_windows_fast) and writes a part file; after one barrier rank 0
   stitches (finalize_segmentation).
+- bam2pat: contiguous blocks of chromosomes (weighted by the .bai's
+  compressed spans, else by CpG counts), one a worker; with a .bai each
+  worker decodes only its block's byte range. A worker calls reads and
+  merges mates on its device (call_reads, merge_pe) and writes its part
+  pat; the parts join by BGZF byte append in chromosome order, and the
+  .cdx / .csi are rebuilt over the joined file. The parts depend on
+  nothing of each other, so these workers hold no process group.
 
 The collectives are host scalars and barriers, which is why gloo and not
 NCCL carries them (two ranks on one card cannot use NCCL).
@@ -27,10 +38,11 @@ NCCL carries them (two ranks on one card cannot use NCCL).
     python -m wgbs_tools_tpu_torch.parallel.multihost --coordinator HOST:PORT \\
         --num_processes N --process_id R [--device cuda|cpu] \\
         (--pat x.pat.gz --out x.beta --nr_sites S [--lbeta]
-         | --job segment --params job.json)
+         | --job segment --params job.json
+         | --job bam2pat --params parts.json)
 
-is one worker; run_pat2beta_multiprocess and run_segment_multiprocess
-start N of them on this machine.
+is one worker; run_pat2beta_multiprocess, run_segment_multiprocess and
+run_bam2pat_multiprocess start N of them on this machine.
 """
 
 import argparse
@@ -187,13 +199,254 @@ def segment_worker(beta_paths, ranges, out_prefix, max_cpg=1000,
     return out
 
 
+def _bam_ref_names(bam_path):
+    """Reference names from a BAM header (lazy gzip read — only the header
+    blocks are ever decompressed)."""
+    import gzip
+    import struct
+
+    with gzip.open(bam_path, "rb") as f:
+        if f.read(4) != b"BAM\x01":
+            raise IOError(f"{bam_path}: not a BAM file")
+        (l_text,) = struct.unpack("<i", f.read(4))
+        f.read(l_text)
+        (n_ref,) = struct.unpack("<i", f.read(4))
+        names = []
+        for _ in range(n_ref):
+            (l_name,) = struct.unpack("<i", f.read(4))
+            names.append(f.read(l_name)[:-1].decode())
+            f.read(4)  # l_ref
+        return names
+
+
+def _bam_chrom_weights(bam_path, chrom_names, idx):
+    """Per-chromosome work estimate for partitioning bam2pat workers.
+
+    With a .bai sidecar: compressed byte span of each reference's records
+    (linear-index min .. chunk-end max — the same information `samtools
+    view <chrom>` seeks by). Without one: the genome's per-chromosome CpG
+    counts as a proxy.
+    """
+    import struct
+
+    bai = bam_path + ".bai"
+    if not op.isfile(bai):
+        return {c: float(max(idx.chrom_nr_sites(c), 1))
+                for c in chrom_names}
+    try:
+        with open(bai, "rb") as f:
+            data = f.read()
+        if data[:4] != b"BAI\x01":
+            raise ValueError("bad magic")
+        off = 4
+        (n_ref,) = struct.unpack_from("<i", data, off)
+        off += 4
+        spans = []
+        for _ in range(n_ref):
+            (n_bin,) = struct.unpack_from("<i", data, off)
+            off += 4
+            beg, end = None, 0
+            for _ in range(n_bin):
+                bin_id, n_chunk = struct.unpack_from("<Ii", data, off)
+                off += 8
+                for _ in range(n_chunk):
+                    cbeg, cend = struct.unpack_from("<QQ", data, off)
+                    off += 16
+                    if bin_id == 37450:  # pseudo-bin: meta counts, not coords
+                        continue
+                    c0, c1 = cbeg >> 16, cend >> 16
+                    beg = c0 if beg is None else min(beg, c0)
+                    end = max(end, c1)
+            (n_intv,) = struct.unpack_from("<i", data, off)
+            off += 4 + 8 * n_intv
+            spans.append(0.0 if beg is None else float(end - beg + 1))
+        # map BAM ref order -> requested chromosome names via the header
+        ref_names = _bam_ref_names(bam_path)
+        w = {c: 1.0 for c in chrom_names}
+        for name, sp in zip(ref_names, spans):
+            if name in w:
+                w[name] = max(sp, 1.0)
+        return w
+    except Exception as e:
+        logger.info("bam2pat --procs: .bai parse failed (%s); using CpG "
+                    "counts for balance", e)
+        return {c: float(max(idx.chrom_nr_sites(c), 1))
+                for c in chrom_names}
+
+
+def _bai_ref_begs(bam_path):
+    """Per-reference smallest chunk-begin VIRTUAL offset from the .bai
+    (None for refs without alignments), in BAM header ref order — the
+    seek targets for per-worker ranged decode. Returns None when no
+    usable .bai exists."""
+    import struct
+
+    bai = bam_path + ".bai"
+    if not op.isfile(bai):
+        return None
+    try:
+        with open(bai, "rb") as f:
+            data = f.read()
+        if data[:4] != b"BAI\x01":
+            return None
+        off = 4
+        (n_ref,) = struct.unpack_from("<i", data, off)
+        off += 4
+        begs = []
+        for _ in range(n_ref):
+            (n_bin,) = struct.unpack_from("<i", data, off)
+            off += 4
+            beg = None
+            for _ in range(n_bin):
+                bin_id, n_chunk = struct.unpack_from("<Ii", data, off)
+                off += 8
+                for _ in range(n_chunk):
+                    cbeg, _cend = struct.unpack_from("<QQ", data, off)
+                    off += 16
+                    if bin_id == 37450:  # pseudo-bin
+                        continue
+                    beg = cbeg if beg is None else min(beg, cbeg)
+            (n_intv,) = struct.unpack_from("<i", data, off)
+            off += 4 + 8 * n_intv
+            begs.append(beg)
+        return begs
+    except Exception as e:
+        logger.info("bam2pat --procs: .bai voffset parse failed (%s)", e)
+        return None
+
+
+def _partition_contiguous(names, weights, n_parts):
+    """Split `names` (order preserved) into <= n_parts CONTIGUOUS groups
+    with roughly equal total weight. Contiguity matters: per-part pat
+    files concatenate in chromosome order, which IS global startCpG order
+    (chromosome site ranges are disjoint and increasing)."""
+    total = sum(weights[c] for c in names)
+    parts, cur, acc = [], [], 0.0
+    target = total / max(n_parts, 1)
+    for c in names:
+        cur.append(c)
+        acc += weights[c]
+        if acc >= target and len(parts) < n_parts - 1:
+            parts.append(cur)
+            cur, acc = [], 0.0
+    if cur:
+        parts.append(cur)
+    return parts
+
+
+def bam2pat_part_worker(bam, out_dir, chroms, genome=None, byte_range=None,
+                        device="cuda", **kw):
+    """Standalone worker: run bam2pat restricted to a CONTIGUOUS block of
+    chromosomes on `device` (reads call and mates merge there); the part
+    pat lands in out_dir. No process group: the parts have no cross-part
+    dependencies (mates pair within a chromosome, exactly as in the
+    single-process pipeline and the reference's per-chromosome Pool,
+    ref: src/python/bam2pat.py:303-356). byte_range: optional BAI
+    virtual-offset pair — only that slice of the BAM is decompressed."""
+    from ..genome.refdir import Genome
+    from ..pipeline.bam2pat_run import bam2pat
+
+    g = Genome(genome)
+    if byte_range is not None:
+        byte_range = (int(byte_range[0]),
+                      None if byte_range[1] is None else int(byte_range[1]))
+    logger.info("bam2pat --procs: part %s decodes BAM virtual offsets %s",
+                list(chroms), "none" if byte_range is None
+                else "%d-%s" % byte_range)
+    _, pat_path, _ = bam2pat(bam, genome=g, out_dir=out_dir,
+                             include_chroms=list(chroms),
+                             byte_range=byte_range, device=device, **kw)
+    return pat_path
+
+
+def run_bam2pat_multiprocess(bam, out_dir=".", num_processes=2,
+                             genome=None, device="cuda", timeout=1800,
+                             **kw):
+    """Multi-process bam2pat: contiguous chromosome blocks (.bai-weighted
+    when a BAI exists) across worker processes (_run_workers; worker w on
+    worker_device(device, w)); parts concatenate by raw BGZF byte append
+    (readers skip the embedded empty EOF blocks), then the .cdx/.csi index
+    is rebuilt over the final file. The decompressed pat is byte-identical
+    to the single-process output. `kw` are bam2pat's keyword arguments.
+    Returns the pat path."""
+    import shutil
+
+    from ..formats.pat import index_pat
+    from ..genome.refdir import Genome
+    from ..utils import pretty_name
+
+    g = Genome(genome)
+    idx = g.index
+    ref_names = _bam_ref_names(bam)
+    present = [c for c in idx.chrom_names if c in set(ref_names)]
+    weights = _bam_chrom_weights(bam, present, idx)
+    parts = _partition_contiguous(present, weights, num_processes)
+    out_path = op.join(out_dir, pretty_name(bam) + ".pat.gz")
+
+    # per-worker BYTE ranges from the .bai: each worker decompresses only
+    # its chromosome block's records (plus the header) instead of the
+    # whole BAM — decode then scales 1/N. Requires the BAM's on-disk ref
+    # order (restricted to present chroms) to match genome order, which a
+    # coordinate-sorted BAM against the same reference always satisfies;
+    # otherwise workers fall back to whole-file decode + chrom filter
+    # (identical output either way — the range is a pure IO optimization).
+    begs = _bai_ref_begs(bam)
+    ranges = [None] * len(parts)
+    if begs is not None:
+        beg_of = {n: begs[i] for i, n in enumerate(ref_names)
+                  if i < len(begs)}
+        order_ok = ([c for c in ref_names if c in set(present)] == present)
+        if order_ok:
+            starts = []
+            for chroms in parts:
+                vs = [beg_of.get(c) for c in chroms
+                      if beg_of.get(c) is not None]
+                starts.append(min(vs) if vs else None)
+            for w in range(len(parts)):
+                v0 = starts[w]
+                if v0 is None:
+                    continue
+                v1 = None
+                for w2 in range(w + 1, len(parts)):
+                    if starts[w2] is not None:
+                        v1 = starts[w2]
+                        break
+                ranges[w] = [int(v0), None if v1 is None else int(v1)]
+        else:
+            logger.info("bam2pat --procs: BAM ref order differs from the "
+                        "genome's; using whole-file decode per worker")
+
+    with tempfile.TemporaryDirectory() as td:
+        part_params, part_paths = [], []
+        for w, chroms in enumerate(parts):
+            wdir = op.join(td, f"w{w}")
+            os.makedirs(wdir)
+            part_params.append(dict(bam=bam, out_dir=wdir, chroms=chroms,
+                                    genome=genome, byte_range=ranges[w],
+                                    **kw))
+            part_paths.append(op.join(wdir, pretty_name(bam) + ".pat.gz"))
+        pfile = op.join(td, "parts.json")
+        with open(pfile, "w") as f:
+            json.dump({"parts": part_params}, f)
+        _run_workers("bam2pat", ["--params", pfile], len(parts), device,
+                     timeout)
+        with open(out_path, "wb") as dst:
+            for pp in part_paths:
+                if op.isfile(pp):
+                    with open(pp, "rb") as src:
+                        shutil.copyfileobj(src, dst)
+    index_pat(out_path)
+    return out_path
+
+
 # the kernels each job's worker reports on its launch line -> their module
 # in wgbs_tools_tpu_torch.ops
 JOB_KERNELS = {
     "pat2beta": {name: "pileup_v3" for name in (
         "flat_vals_fused", "flat_vals", "flat_vals_add", "flat_classic")},
     "segment": {"maxplus_closure": "maxplus",
-                "segment_exact_dp": "segment_exact"}}
+                "segment_exact_dp": "segment_exact"},
+    "bam2pat": {"call_reads": "calling", "merge_pe": "calling"}}
 
 
 def _launches(job):
@@ -210,7 +463,9 @@ def _worker_main(argv=None):
     p.add_argument("--process_id", type=int)
     p.add_argument("--job", default="pat2beta", choices=sorted(JOB_KERNELS))
     p.add_argument("--params", help="JSON file of the segment job's keyword "
-                                    "arguments")
+                                    "arguments, or of the bam2pat job's "
+                                    "parts ({'parts': [kwargs, ...]}, "
+                                    "worker r takes part r)")
     p.add_argument("--pat")
     p.add_argument("--out")
     p.add_argument("--nr_sites", type=int)
@@ -221,26 +476,34 @@ def _worker_main(argv=None):
     if not (args.coordinator and args.num_processes
             and args.process_id is not None):
         p.error("--coordinator/--num_processes/--process_id are required")
-    if args.job == "segment" and not args.params:
-        p.error("--params is required for the segment job")
+    if args.job in ("segment", "bam2pat") and not args.params:
+        p.error(f"--params is required for the {args.job} job")
     if args.job == "pat2beta" and not (args.pat and args.out
                                        and args.nr_sites):
         p.error("--pat/--out/--nr_sites are required")
     if not 0 <= args.process_id < args.num_processes:
         p.error(f"--process_id {args.process_id} outside [0, "
                 f"{args.num_processes})")
-    import torch.distributed as dist
+    if args.job == "bam2pat":
+        # independent parts: no process group to hold
+        with open(args.params) as f:
+            part = json.load(f)["parts"][args.process_id]
+        bam2pat_part_worker(**part, device=worker_device(args.device,
+                                                         args.process_id))
+    else:
+        import torch.distributed as dist
 
-    distributed_init(args.coordinator, args.num_processes, args.process_id)
-    try:
-        if args.job == "segment":
-            with open(args.params) as f:
-                segment_worker(**json.load(f), device=args.device)
-        else:
-            pat2beta_worker(args.pat, args.out, args.nr_sites,
-                            lbeta=args.lbeta, device=args.device)
-    finally:
-        dist.destroy_process_group()
+        distributed_init(args.coordinator, args.num_processes,
+                         args.process_id)
+        try:
+            if args.job == "segment":
+                with open(args.params) as f:
+                    segment_worker(**json.load(f), device=args.device)
+            else:
+                pat2beta_worker(args.pat, args.out, args.nr_sites,
+                                lbeta=args.lbeta, device=args.device)
+        finally:
+            dist.destroy_process_group()
     # one line a caller can parse: this worker's kernel launches
     print(f"[wgbs-torch worker {args.process_id}] launches "
           f"{json.dumps(_launches(args.job))}", flush=True)

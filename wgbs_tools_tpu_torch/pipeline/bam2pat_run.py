@@ -118,7 +118,7 @@ def bam2pat(bam_path, genome=None, out_dir=".", region=None, min_mapq=MIN_MAPQ,
             combine_mods=False, whitelist=None, blacklist=None,
             blueprint=False, threads=1, include_flags=None, top_strand=False,
             bottom_strand=False, read_group=None, stream=None,
-            slab_bytes=None, device="cuda", timings=None):
+            slab_bytes=None, device="cuda", timings=None, byte_range=None):
     """Convert a BAM to a sorted/collapsed PatFrags batch (and pat.gz file).
 
     Returns (frags, out_path or None, stats). `stream=True` (or BAMs larger
@@ -132,12 +132,16 @@ def bam2pat(bam_path, genome=None, out_dir=".", region=None, min_mapq=MIN_MAPQ,
     'cpu' is numpy on the host), except in --mbias runs and for nanopore
     reads, which call on the host. With `timings`, the seconds of "scan",
     "decode", "call", "merge" and "write" accumulate there (summed over
-    the chromosome threads).
+    the chromosome threads). `byte_range`, a BAI virtual-offset pair
+    (v_start, v_end or None), decodes only that slice of the BAM (plus its
+    header) on the whole-file route: the part of one `--procs` worker.
     """
     g = genome if genome is not None else Genome(None)
     idx = g.index
     call_device = calling_device(resolve_device(device), mbias_prefix)
 
+    if byte_range is not None:
+        stream = False  # ranged decode is an in-memory columnar feature
     if stream is None and not blueprint and not with_qname and write_output:
         try:
             stream = op.getsize(bam_path) >= STREAM_BYTES
@@ -177,7 +181,7 @@ def bam2pat(bam_path, genome=None, out_dir=".", region=None, min_mapq=MIN_MAPQ,
         from .bam_columnar import scan_bam_columnar
 
         with timed(timings, "scan", None):
-            columnar = scan_bam_columnar(bam_path)
+            columnar = scan_bam_columnar(bam_path, byte_range=byte_range)
     if columnar is not None:
         from .bam import parse_tag
         from .bam_columnar import process_chrom_columnar

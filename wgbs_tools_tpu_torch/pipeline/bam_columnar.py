@@ -22,16 +22,116 @@ from .bam import _PAIR_LUT, CIGAR_OPS
 from .calling import call_reads_mat, clean_cigar, merge_pe_batch, merge_pe_mat
 
 
-def scan_bam_columnar(path):
+def _bgzf_block_len(hdr18):
+    """Compressed length of the BGZF block whose first 18 bytes are hdr18
+    (BSIZE-1 lives in the BC extra subfield at bytes 16:18)."""
+    import struct
+
+    return struct.unpack_from("<H", hdr18, 16)[0] + 1
+
+
+def _read_bam_range(path, byte_range):
+    """Decompressed header + the record bytes of a BAI virtual-offset
+    range [v_start, v_end) — the per-worker input slice of the
+    multi-process bam2pat (the analogue of the reference's per-chromosome
+    `samtools view` seeks, ref: bam2pat.py:144-209).
+
+    v_start/v_end are BAI virtual offsets ((coffset << 16) | uoffset);
+    v_end None = EOF. Both must point at record boundaries (BAI linear /
+    chunk offsets do). Returns (buf, pos) with records starting at pos,
+    or None when the file is not BGZF.
+    """
+    import struct
+
+    from ..native import bgzf_decompress_native
+
+    v_start, v_end = byte_range
+    with open(path, "rb") as f:
+        # header: read + decompress blocks until the full header section
+        # (magic .. ref list) parses; alignment bytes in the final block
+        # are dropped
+        raw_hdr = b""
+        hdr = None
+        while True:
+            chunk = f.read(256 << 10)
+            if not raw_hdr and chunk[:2] != b"\x1f\x8b":
+                return None
+            raw_hdr += chunk
+            # keep only whole blocks
+            end = 0
+            while end + 18 <= len(raw_hdr):
+                bl = _bgzf_block_len(raw_hdr[end : end + 18])
+                if end + bl > len(raw_hdr):
+                    break
+                end += bl
+            if end == 0 and not chunk:
+                return None
+            dec = bgzf_decompress_native(raw_hdr[:end])
+            if dec is not None and len(dec) >= 12 and dec[:4] == b"BAM\x01":
+                (l_text,) = struct.unpack_from("<i", dec, 4)
+                pos = 8 + l_text
+                if len(dec) >= pos + 4:
+                    (n_ref,) = struct.unpack_from("<i", dec, pos)
+                    pos += 4
+                    ok = True
+                    for _ in range(n_ref):
+                        if len(dec) < pos + 4:
+                            ok = False
+                            break
+                        (l_name,) = struct.unpack_from("<i", dec, pos)
+                        pos += 4 + l_name + 4
+                    if ok and len(dec) >= pos:
+                        hdr = dec[:pos]
+                        break
+            if not chunk:
+                return None
+        c0, u0 = v_start >> 16, v_start & 0xFFFF
+        f.seek(c0)
+        if v_end is None:
+            body = bgzf_decompress_native(f.read())
+            if body is None:
+                return None
+            body = body[u0:]
+        else:
+            c1, u1 = v_end >> 16, v_end & 0xFFFF
+            mid_raw = f.read(max(c1 - c0, 0))
+            tail = b""
+            if u1:
+                h18 = f.read(18)
+                if len(h18) == 18:
+                    bl = _bgzf_block_len(h18)
+                    blk = bgzf_decompress_native(h18 + f.read(bl - 18))
+                    if blk is None:
+                        return None
+                    tail = blk[:u1]
+            mid = bgzf_decompress_native(mid_raw) if mid_raw else b""
+            if mid is None:
+                return None
+            body = (mid + tail)[u0:] if c1 > c0 else tail[u0:]
+    return hdr + body, len(hdr)
+
+
+def scan_bam_columnar(path, byte_range=None):
     """(buf, header info, cols, offs, rec_end), or None when the file is not
-    a BGZF (or plain) BAM whose records scan: the record path takes it."""
+    a BGZF (or plain) BAM whose records scan: the record path takes it.
+
+    byte_range: optional (v_start, v_end) BAI virtual-offset pair — only
+    that record range (plus the header) is decompressed and scanned
+    (_read_bam_range).
+    """
     import struct
 
     from ..native import bam_scan_native, bgzf_decompress_native
 
-    with open(path, "rb") as f:
-        raw = f.read()
-    buf = bgzf_decompress_native(raw) if raw[:2] == b"\x1f\x8b" else raw
+    if byte_range is not None:
+        got = _read_bam_range(path, byte_range)
+        if got is None:
+            return None
+        buf, _pos = got
+    else:
+        with open(path, "rb") as f:
+            raw = f.read()
+        buf = bgzf_decompress_native(raw) if raw[:2] == b"\x1f\x8b" else raw
     if buf is None or buf[:4] != b"BAM\x01":
         return None
     (l_text,) = struct.unpack_from("<i", buf, 4)
