@@ -193,13 +193,13 @@ result line:
      cuda, with the launch counters set to 0 just before and read just
      after: the default route (streamed), --no_stream and the single-end
      BAM; call_reads, merge_pe (paired-end) and flat_vals_fused must
-     launch; the streamed and the single-end runs' pat.gz and .csi equal
-     --device cpu's bytes and their .cdx arrays, their betas --device
-     cpu's; each beta equals native.pileup_native + trim_to_uint of its
-     pat, and the streamed pat inflates to the --no_stream pat's text (so
-     --no_stream has no --device cpu run of its own); stage seconds
-     (scan, decode, call with its h2d / kernel / d2h, merge, write,
-     pat2beta) of each.
+     launch; the single-end run's pat.gz and .csi equal --device cpu's
+     bytes and its .cdx arrays, its beta --device cpu's; each beta equals
+     native.pileup_native + trim_to_uint of its pat, and the streamed pat
+     inflates to the --no_stream pat's text (so neither PE run has a
+     --device cpu run of its own: their calling kernels are held to their
+     twins launch by launch below); stage seconds (scan, decode, call with
+     its h2d / kernel / d2h, merge, write, pat2beta) of each.
      call_reads and merge_pe (csrc/calling.cu) on every launch the
      streamed and the --no_stream runs on cuda made (their batches kept by
      wrapping call_reads_device and merge_mates, split as the wrappers
@@ -210,7 +210,10 @@ result line:
      must move over 3.35 TB/s: each row's packed calls up to its span, not
      the '.' padding past it) and its twin, with numpy's time and the h2d
      of the sequence matrices; call_reads also on chr1's whole-file batch
-     in one launch.
+     in one launch; merge_pe_device on MERGE_EDGE from two host threads at
+     once (launches of different shared memory meeting, as the whole-file
+     run's chromosome threads make them), each result the one-thread
+     run's.
  12. the commands users run after bam2pat and pat2beta, through the
      port's CLI on phase 11's files: bam2pat --procs 2 on the PE BAM with a
      .bai written here (_write_bai), both workers on cuda:0, each decoding
@@ -236,6 +239,31 @@ result line:
      mask_pat --beta and mix_pat on cuda (their betas == the host pileup
      of the masked pat and of the SE pat; flat_vals_fused must launch) and
      frag_len (the histogram counts every read); each command's wall.
+ 13. the last commands of the CLI, on the files of phases 4-11:
+     init_genome of phase 11's genome written as a FASTA of 100-bp lines
+     (its CpG index equal to the one phase 11 wrote by hand, its
+     CpG.chrome.size the per-chromosome counts), set_default_ref back to
+     the earlier default; on phase 4's big.beta and phase 8's betas over
+     phase 10's exact blocks: beta2bed -L, beta2bw -L and beta_stats -L
+     of the first P13_BED_BLOCKS blocks (the beta's rows, read_bigwig its
+     values, numpy's figures), beta_cov -L over all the blocks on cuda
+     (block_sums must launch) equal to --device cpu's text, lbeta2beta of
+     phase 10's block lbeta (trim_to_uint), compare_betas (numpy's
+     pearson and rmse), beta_to_450k over an Illumina map of P13_ILMN_IDS
+     ids made from a seed (numpy's gather), convert -L of
+     P13_CONVERT_BLOCKS blocks (its CpG columns equal to the bed's);
+     bed2beta --add_one of beta2bed -r's bed of phase 11's SE beta over
+     P13_BED2BETA_BP of chr2 (the beta there, 0 elsewhere; bed2beta and
+     convert search a chromosome's loci once a line, ~75 ms over
+     hg19seg's one chromosome); vis --text of a region of the big pat
+     (each column's letters equal to the oracle beta) and vis of two betas
+     (numpy's digits); `worker serve --warm` on cuda, then pat2beta of
+     phase 11's SE pat timed from process start in its own process and
+     twice through `worker run`, each beta phase 11's bytes, the server's
+     launch lines showing flat_vals_fused after the warm-up and each
+     job, and `worker stop` (the server starts with the phase, so its
+     start and warm-up run beside the other commands); each command's
+     wall. No figure mode runs: the card's machine has no matplotlib.
 Then a summary (the card line again, build, end to end), a line of the
 smoke's total seconds and each phase's, one {"kernels": [...]} line (the
 8 pileup kernels, maxplus_closure, segment_exact_dp, dp_scan,
@@ -4549,9 +4577,9 @@ EDGE_PATHS = {"sorted_tiles": {"staged"}, "dense": {"staged"},
 MERGE_BODIES = {"widths": "gather", "wide_mates": "gather"}
 
 
-def merge_body(S1, S2):
-    """The body csrc/calling.cu's merge_pe_plan takes at pattern widths S1,
-    S2: "staged" (a tile's rows in shared memory) or "gather"."""
+def merge_plan(S1, S2):
+    """csrc/calling.cu's merge_pe_plan at pattern widths S1, S2: (body 0
+    staged / 1 gather, pairs a tile, dynamic shared bytes)."""
     import ctypes
 
     from wgbs_tools_tpu_torch import _kernels
@@ -4559,7 +4587,13 @@ def merge_body(S1, S2):
     out = (ctypes.c_int64 * 3)()
     _kernels.check(_kernels.load().merge_pe_plan(int(S1), int(S2), out),
                    "merge_pe_plan")
-    return ("staged", "gather")[out[0]]
+    return tuple(out)
+
+
+def merge_body(S1, S2):
+    """The body merge_pe takes at pattern widths S1, S2: "staged" (a
+    tile's rows in shared memory) or "gather"."""
+    return ("staged", "gather")[merge_plan(S1, S2)[0]]
 
 
 def kernel_paths(launches, dev):
@@ -4967,10 +5001,73 @@ def _calling_edges(dev):
         k for k in ("staged", "gather") if k not in bodies]
     if missed:
         raise RuntimeError(f"the edges reach no {', '.join(missed)} path")
+    threads = _merge_threads(dev)
     return (f"call_reads on CALL_EDGE and the long batch (reads with a "
             f"call; tiles staged/unsorted/wide, long-body reads): "
             f"{', '.join(called)}; merge_pe on MERGE_EDGE (merged / too "
-            f"long; body): {', '.join(merged)}")
+            f"long; body): {', '.join(merged)}; {threads}")
+
+
+MERGE_THREAD_ROUNDS = 40   # rounds of the batches a thread
+MERGE_THREAD_WIDTHS = (80, 96, 112, 128)   # pattern widths: staged tiles
+                                           # of 4 shared-memory sizes
+
+
+def _merge_threads(dev):
+    """merge_pe on MERGE_EDGE's staged batches, their patterns widened with
+    '.' to each of MERGE_THREAD_WIDTHS, from two host threads that meet at
+    a barrier before every launch, in opposite orders, so that launches of
+    different dynamic shared memory meet, as the whole-file bam2pat's
+    chromosome threads make them (csrc/launch.cuh holds a lock from the
+    attribute to the launch): every result == the one-thread run's.
+    Returns its line."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from wgbs_tools_tpu_torch.ops import calling
+
+    def cuda(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def widened(p, S):
+        out = np.full((p.shape[0], S), ord("."), np.uint8)
+        out[:, :p.shape[1]] = p
+        return out
+
+    cols, sizes = [], set()
+    for name in MERGE_EDGE:
+        if MERGE_BODIES.get(name, "staged") != "staged":
+            continue
+        s1, p1, sp1, s2, p2, sp2 = merge_edge_batch(name)
+        for S in MERGE_THREAD_WIDTHS:
+            cols.append((cuda(s1), cuda(sp1.astype(np.int32)),
+                         cuda(widened(p1, S)), cuda(s2),
+                         cuda(sp2.astype(np.int32)), cuda(widened(p2, S))))
+            sizes.add(merge_plan(S, S)[2])
+    want = [calling.merge_pe(*c) for c in cols]
+    barrier = threading.Barrier(2)
+
+    def run(order):
+        for _ in range(MERGE_THREAD_ROUNDS):
+            for i in order:
+                barrier.wait()
+                got = calling.merge_pe(*cols[i])
+                if not all(torch.equal(g, w) for g, w in zip(got, want[i])):
+                    raise RuntimeError(f"merge_pe from two threads != the "
+                                       f"one-thread run on batch {i}")
+        return len(order) * MERGE_THREAD_ROUNDS
+
+    orders = [list(range(len(cols))), list(range(len(cols)))[::-1]]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        n = sum(pool.map(run, orders))
+    torch.cuda.synchronize()
+    return (f"merge_pe from 2 threads in step: {n:,} launches of "
+            f"{len(cols)} batches ({len(sizes)} shared-memory sizes "
+            f"{sorted(sizes)} B) in {time.perf_counter() - t0:.3f} s, each "
+            "== the one-thread run")
 
 
 def bam_data(work, refs, kinds=("pe", "se", "small", "counts")):
@@ -5026,9 +5123,11 @@ def phase_bam2pat(work, regs):
     lines, launches, batches, walls = [line], {}, {}, {}
     for name, bam, flags in BAM_RUNS:
         outs = {}
-        # --no_stream's pat text is held to the streamed run's below, and
-        # its beta to the host pileup: no --device cpu run of its own
-        for device in ("cuda",) if name == "no_stream" else ("cuda", "cpu"):
+        # the two PE runs' pat texts are held to each other below, their
+        # betas to the host pileup, and every launch of their calling
+        # kernels to its twin: no --device cpu run of their own; the SE
+        # run keeps its --device cpu run
+        for device in ("cuda", "cpu") if name == "se" else ("cuda",):
             d = op.join(work, f"bam_{name}_{device}")
             os.makedirs(d)
             need = ((("call_reads", "merge_pe") if bam == "pe"
@@ -5069,7 +5168,7 @@ def phase_bam2pat(work, regs):
                     f"({op.getsize(got):,} bytes) and .csi == --device "
                     f"cpu's, .cdx arrays equal, beta == --device cpu's and "
                     if "cpu" in outs else f"pat.gz ({op.getsize(got):,} "
-                    f"bytes) inflates to the streamed run's text (below), "
+                    f"bytes) inflates to the other PE run's text (below), "
                     f"beta == ") + "the host pileup's")
         log("phase 11: " + line)
         lines.append(line)
@@ -5703,6 +5802,486 @@ def phase_commands(work, ctx, seg_out):
     return "; ".join(lines)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the last commands of the CLI (init_genome / set_default_ref, the
+# beta text and bigWig commands, convert, vis's text modes, the worker)
+# ---------------------------------------------------------------------------
+
+FASTA_WIDTH = 100          # bases a FASTA line
+P13_BED_BLOCKS = 2_000     # beta2bed -L / beta2bw -L / beta_stats -L's
+                           # blocks (JAX's per-site Python loops)
+P13_CONVERT_BLOCKS = 20    # convert -L's blocks (two ~75 ms searches a
+                           # block over hg19seg's loci, as in bed2beta)
+P13_BED2BETA_BP = 1_000_000   # beta2bed -r / bed2beta's region of chr2
+P13_ILMN_IDS = 450_000     # the Illumina map's ids (a 450K array's count)
+P13_VIS_SITES = 60         # vis's region
+P13_VIS_FROM = 5_000_000   # its first site
+P13_GENOME = "bam2chr_init"
+
+
+def _cli_text(what, argv, walls, kernel=None):
+    """The port's CLI main(argv) in this process, its stdout kept, with the
+    launch counters set to 0 just before and read just after (`kernel`
+    must launch); its wall into walls[what]. Returns (stdout, launches)."""
+    import io
+
+    from wgbs_tools_tpu_torch.cli.main import main
+
+    buf = io.StringIO()
+    _zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    walls[what] = time.perf_counter() - t0
+    if rc:
+        raise RuntimeError(f"phase 13 {what} exited {rc}")
+    launches = _read_launches()
+    if kernel is not None:
+        _require_launches(f"phase 13 {what}", launches, (kernel,))
+    return buf.getvalue(), launches
+
+
+def write_fasta(path, seq, chroms, width=FASTA_WIDTH):
+    """The chromosomes' bytes (back to back in `seq`, equal lengths) as a
+    FASTA of `width`-base lines."""
+    import numpy as np
+
+    n = seq.shape[0] // len(chroms)
+    with open(path, "wb") as f:
+        for k, c in enumerate(chroms):
+            rows = seq[k * n:(k + 1) * n].reshape(-1, width)
+            f.write(f">{c}\n".encode())
+            f.write(np.hstack([rows, np.full((rows.shape[0], 1), 10,
+                                             np.uint8)]).tobytes())
+
+
+def _init_genome_run(work, refs, walls):
+    """init_genome of phase 11's genome written as a FASTA: its CpG index
+    equals the one phase 11 wrote by hand; then set_default_ref switches
+    the default back. Returns the summary line."""
+    import numpy as np
+
+    from wgbs_tools_tpu_torch.genome.cpg_index import CpGIndex
+    from wgbs_tools_tpu_torch.genome.refdir import Genome
+
+    t0 = time.perf_counter()
+    seq, _, _ = bam_genome(np.random.default_rng(180))
+    fa = op.join(work, "bam2chr.fa")
+    write_fasta(fa, seq, BAM_CHROMS)
+    del seq
+    walls["write FASTA"] = time.perf_counter() - t0
+    link = op.join(refs, "default")
+    before = os.readlink(link)
+    _cli_text("init_genome", ["init_genome", P13_GENOME, "--fasta_path", fa],
+              walls)
+    if os.readlink(link) != P13_GENOME:
+        raise RuntimeError("init_genome did not set the default genome")
+    got = CpGIndex.load(op.join(refs, P13_GENOME))
+    want = Genome(BAM_GENOME).index
+    if not (got.chrom_names == want.chrom_names
+            and np.array_equal(got.loci, want.loci)
+            and np.array_equal(got.chrom_offsets, want.chrom_offsets)
+            and np.array_equal(got.chrom_sizes, want.chrom_sizes)):
+        raise RuntimeError("init_genome's CpG index != phase 11's")
+    with open(op.join(refs, P13_GENOME, "CpG.chrome.size")) as f:
+        counts = f.read()
+    if counts != "".join(f"{c}\t{want.chrom_nr_sites(c)}\n"
+                         for c in BAM_CHROMS):
+        raise RuntimeError(f"CpG.chrome.size: {counts!r}")
+    _cli_text("set_default_ref", ["set_default_ref", before], walls)
+    if os.readlink(link) != before:
+        raise RuntimeError("set_default_ref did not switch the default")
+    return (f"init_genome of a {op.getsize(fa) / 1e6:.1f} MB FASTA "
+            f"({len(BAM_CHROMS)} x {BAM_CHROM_BP:,} bp): {got.nr_sites:,} "
+            f"CpG sites, its loci and per-chromosome counts == phase 11's "
+            f"index; set_default_ref back to {before}")
+
+
+def _head_bed(src, dst, n):
+    with open(src) as f, open(dst, "w") as g:
+        for _, line in zip(range(n), f):
+            g.write(line)
+    return dst
+
+
+def _numbers(text, col):
+    """Column `col` of a table's data rows as floats (NA -> nan)."""
+    import numpy as np
+
+    return np.array([float("nan") if r[col] == "NA" else float(r[col])
+                     for r in (ln.split("\t") for ln in
+                               text.splitlines()[1:])])
+
+
+def _beta_runs(work, refs, seg_out, walls):
+    """The beta commands on phase 4's big.beta, phase 8's betas and
+    phase 10's blocks (genome hg19seg, whose 28,217,448 loci the big beta's
+    sites are read on), each against a numpy oracle or its --device cpu
+    run. Returns the summary line."""
+    import gzip
+
+    import numpy as np
+
+    from wgbs_tools_tpu_torch.formats.beta import (beta2vec, load_beta,
+                                                   trim_to_uint)
+    from wgbs_tools_tpu_torch.formats.bigwig import read_bigwig
+    from wgbs_tools_tpu_torch.genome.refdir import Genome
+
+    d = op.join(work, "p13")
+    os.makedirs(d)
+    G = ["--genome", SEG_GENOME]
+    bed = seg_out["exact_bed"]
+    sub = _head_bed(bed, op.join(d, "sub.bed"), P13_BED_BLOCKS)
+    starts, ends = _blocks_of_head(sub)
+    beta = op.join(work, "gpu", "big.beta")
+    data = load_beta(beta).astype(np.int64)
+    loci = Genome(SEG_GENOME).index.loci.astype(np.int64)
+    lines = []
+
+    # beta2bed -L: one line a covered site of the blocks
+    out_bed = op.join(d, "big.bed")
+    _cli_text("beta2bed -L", ["beta2bed", beta, "-L", sub, "-o", out_bed]
+              + G, walls)
+    rows = np.arange(starts[0] - 1, ends[-1] - 1)
+    rows = rows[data[rows, 1] > 0]
+    want = "".join(f"chr1\t{a - 1}\t{a + 1}\t{m}\t{c}\n" for a, m, c in zip(
+        loci[rows].tolist(), data[rows, 0].tolist(), data[rows, 1].tolist()))
+    with open(out_bed) as f:
+        if f.read() != want:
+            raise RuntimeError("beta2bed -L != the beta's rows")
+    lines.append(f"beta2bed -L of {P13_BED_BLOCKS:,} blocks: {len(rows):,} "
+                 f"lines == the beta's rows")
+    # bed2beta --add_one of beta2bed's bed: the beta's bytes at its sites, 0
+    # elsewhere. On phase 11's SE beta over a region of its genome: bed2beta
+    # (JAX's code) searches a chromosome's int32 loci with a Python int a
+    # line, which numpy casts to int64 whole: ~75 ms a search over the
+    # 28,217,448 loci of hg19seg's one chromosome, ~0.3 ms over bam2chr's
+    se_beta = op.join(work, "bam_se_cuda", "se.beta")
+    region = f"chr2:1-{P13_BED2BETA_BP}"
+    se_bed = op.join(d, "se.bed")
+    B = ["--genome", BAM_GENOME]
+    _cli_text("beta2bed -r", ["beta2bed", se_beta, "-r", region, "-o",
+                              se_bed] + B, walls)
+    os.makedirs(op.join(d, "rt"))
+    _cli_text("bed2beta", ["bed2beta", se_bed, "--add_one", "-o",
+                           op.join(d, "rt")] + B, walls)
+    se_data = load_beta(se_beta)
+    lo, hi = Genome(BAM_GENOME).index.region2sites("chr2", 1,
+                                                   P13_BED2BETA_BP)
+    rt = np.zeros_like(se_data)
+    rt[lo - 1:hi - 1] = se_data[lo - 1:hi - 1]
+    with open(op.join(d, "rt", "se.beta"), "rb") as f:
+        if f.read() != rt.tobytes():
+            raise RuntimeError("bed2beta of beta2bed's bed != the beta")
+    with open(se_bed) as f:
+        n_rt = sum(1 for _ in f)
+    lines.append(f"bed2beta --add_one of beta2bed -r {region} of the SE "
+                 f"beta ({n_rt:,} lines) == the beta there, 0 elsewhere")
+
+    # beta2bw -L: read back, the beta's values at the covered sites
+    _cli_text("beta2bw -L", ["beta2bw", beta, "-L", sub, "-o", d] + G, walls)
+    tracks, summary = read_bigwig(op.join(d, "big.bigwig"))
+    st, en, vals = tracks["chr1"]
+    if not (np.array_equal(st, loci[rows] - 1)
+            and np.array_equal(en, loci[rows] + 1)
+            and np.array_equal(vals, (data[rows, 0] / data[rows, 1])
+                               .astype(np.float32))):
+        raise RuntimeError("beta2bw -L: read_bigwig != the beta's values")
+    lines.append(f"beta2bw -L: {op.getsize(op.join(d, 'big.bigwig')):,} "
+                 f"bytes, read_bigwig == the beta's {len(rows):,} values")
+
+    # beta_stats -L of the first blocks: numpy's figures
+    betas = [beta, seg_out["betas"][0]]
+    datas = [data, load_beta(betas[1]).astype(np.int64)]
+    text, _ = _cli_text("beta_stats -L", ["beta_stats"] + betas + ["-L", sub]
+                        + G, walls)
+    span = slice(starts[0] - 1, ends[-1] - 1)
+    for col, name in ((1, "mean_meth"), (2, "covered"), (3, "total"),
+                      (4, "mean_depth")):
+        want = []
+        for x in (x[span] for x in datas):
+            ok = x[:, 1] >= 1
+            want.append({1: (x[ok, 0] / x[ok, 1]).mean(), 2: ok.sum(),
+                         3: x.shape[0], 4: x[:, 1].mean()}[col])
+        got = _numbers(text, col)
+        if not np.allclose(got, want, rtol=0, atol=1e-4 if col == 1 else
+                           (0.01 if col == 4 else 0)):
+            raise RuntimeError(f"beta_stats {name}: {got} != {want}")
+    lines.append(f"beta_stats -L of {len(betas)} betas == numpy's")
+
+    # beta_cov -L over all the blocks on cuda (block_sums) == --device cpu's
+    covs, ln = _cli_text("beta_cov -L", ["beta_cov"] + betas + ["-L", bed,
+                         "--device", "cuda"] + G, walls, "block_sums")
+    cpu, _ = _cli_text("beta_cov -L --device cpu", ["beta_cov"] + betas
+                       + ["-L", bed, "--device", "cpu"] + G, walls)
+    if covs != cpu or covs.count("\n") != len(betas):
+        raise RuntimeError(f"beta_cov -L on cuda {covs!r} != --device cpu's "
+                           f"{cpu!r}")
+    lines.append(f"beta_cov -L of {len(betas)} betas over all the blocks on "
+                 f"cuda == --device cpu's text, block_sums launches "
+                 f"{ln['block_sums']}")
+
+    # lbeta2beta of phase 10's block lbeta: trim_to_uint of its counts
+    lbeta = op.join(work, "blocks_out", "big.lbeta")
+    _cli_text("lbeta2beta", ["lbeta2beta", lbeta, "-o", d], walls)
+    with open(op.join(d, "big.beta"), "rb") as f:
+        if f.read() != trim_to_uint(load_beta(lbeta).astype(np.int64)) \
+                .tobytes():
+            raise RuntimeError("lbeta2beta != trim_to_uint of the lbeta")
+    lines.append(f"lbeta2beta of a {op.getsize(lbeta):,}-byte lbeta == "
+                 f"trim_to_uint")
+
+    # compare_betas (text): numpy's pearson and rmse
+    pair = list(seg_out["betas"][:2])
+    text, _ = _cli_text("compare_betas", ["compare_betas"] + pair + G, walls)
+    got = [float(x) for x in text.splitlines()[1].split("\t")[2:5]]
+    a, b = (beta2vec(x, min_cov=10) for x in (datas[1],
+                                              load_beta(pair[1])))
+    both = ~np.isnan(a) & ~np.isnan(b)
+    a, b = a[both], b[both]
+    want = [np.corrcoef(a, b)[0, 1], np.sqrt(np.mean((a - b) ** 2)),
+            both.sum()]
+    if not (abs(got[0] - want[0]) <= 1e-4 and abs(got[1] - want[1]) <= 1e-4
+            and got[2] == want[2]):
+        raise RuntimeError(f"compare_betas {got} != numpy's {want}")
+    lines.append(f"compare_betas of 2 betas == numpy's (pearson "
+                 f"{got[0]:.4f})")
+
+    # beta_to_450k over an Illumina map made from a seed: a numpy gather
+    sites = np.sort(np.random.default_rng(131).choice(
+        np.arange(1, N_SITES + 1), P13_ILMN_IDS, replace=False))
+    with gzip.open(op.join(refs, SEG_GENOME, "ilmn2CpG.tsv.gz"), "wt",
+                   compresslevel=1) as f:
+        f.write("".join(f"cg{k:08d}\t{s}\n" for k, s in
+                        enumerate(sites.tolist())))
+    csv = op.join(d, "450k.csv")
+    _cli_text("beta_to_450k", ["beta_to_450k"] + betas + ["-o", csv] + G,
+              walls)
+    with open(csv) as f:
+        rows_ = [r.split(",") for r in f.read().splitlines()[1:]]
+    if len(rows_) != P13_ILMN_IDS or rows_[7][0] != "cg00000007":
+        raise RuntimeError(f"beta_to_450k: {len(rows_)} rows")
+    for k, x in enumerate(datas):
+        want = beta2vec(x)[sites - 1]
+        got = np.array([float("nan") if r[k + 1] == "NA" else float(r[k + 1])
+                        for r in rows_])
+        if not (np.array_equal(np.isnan(got), np.isnan(want))
+                and np.allclose(got[~np.isnan(want)], want[~np.isnan(want)],
+                                rtol=0, atol=5.001e-4)):
+            raise RuntimeError(f"beta_to_450k: column {k + 1} != numpy's "
+                               "gather of the beta")
+    lines.append(f"beta_to_450k of {P13_ILMN_IDS:,} ids == numpy's gather")
+
+    # convert -L of the blocks: its CpG columns == the bed's own
+    cbed = _head_bed(bed, op.join(d, "convert.bed"), P13_CONVERT_BLOCKS)
+    out = op.join(d, "converted.bed")
+    _cli_text("convert -L", ["convert", "-L", cbed, "-o", out] + G, walls)
+    with open(out) as f:
+        rows_ = [r.split("\t") for r in f.read().splitlines()]
+    if len(rows_) != P13_CONVERT_BLOCKS or not all(
+            r[3] == r[5] and r[4] == r[6] for r in rows_):
+        raise RuntimeError("convert -L: the CpG columns != the bed's")
+    lines.append(f"convert -L of {P13_CONVERT_BLOCKS:,} blocks: CpG columns "
+                 f"== the bed's")
+    return "; ".join(lines)
+
+
+def _blocks_of_head(path):
+    import numpy as np
+
+    cols = np.loadtxt(path, dtype=np.int64, usecols=(3, 4), ndmin=2)
+    return cols[:, 0], cols[:, 1]
+
+
+def _vis_runs(work, big, walls):
+    """vis --text of a region of the big pat (every read placed once a
+    count: its C / H letters a column are the oracle beta's meth, its C /
+    T / H letters the coverage) and vis of two betas (numpy's digits)."""
+    import numpy as np
+
+    from wgbs_tools_tpu_torch.formats.beta import load_beta
+
+    s, e = P13_VIS_FROM, P13_VIS_FROM + P13_VIS_SITES
+    text, _ = _cli_text("vis --text (pat)", [
+        "vis", big, "-s", f"{s}-{e}", "--text", "--no_color", "-m",
+        "1000000"], walls)
+    lines = text.splitlines()
+    k = next(i for i, ln in enumerate(lines) if "+" in ln and not
+             ln.strip(" +"))
+    col0 = lines[k].index("+")
+    table = lines[k + 1:]
+    oracle = load_beta(op.join(work, "big.oracle.beta"), sites=(s, e))
+    for j in range(e - s):
+        col = [r[col0 + j] if col0 + j < len(r) else " " for r in table]
+        meth = sum(c in "CH" for c in col)
+        cov = sum(c in "CTH" for c in col)
+        if (meth, cov) != tuple(int(x) for x in oracle[j]):
+            raise RuntimeError(f"vis --text: site {s + j} shows {meth}/{cov},"
+                               f" the beta {oracle[j]}")
+    betas = [op.join(work, "gpu", "big.beta"), op.join(work,
+                                                       "big.oracle.beta")]
+    text, _ = _cli_text("vis (betas)", ["vis"] + betas + [
+        "-s", f"{s}-{e}", "--no_color"], walls)
+    rows = [ln.split(": ", 1)[1] for ln in text.splitlines()[-2:]]
+    for row, b in zip(rows, betas):
+        x = load_beta(b, sites=(s, e)).astype(np.float64)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            v = np.round(x[:, 0] / x[:, 1] * 10, 0)
+        v = np.nan_to_num(v, nan=-1).astype(int)
+        v[v == 10] = 9
+        v[x[:, 1] < 1] = -1
+        if row != "".join("." if q == -1 else str(q) for q in v):
+            raise RuntimeError(f"vis of {b}: {row!r}")
+    return (f"vis --text of sites {s}-{e} of the big pat ({len(table)} "
+            f"rows): each column's C / H / T letters == the oracle beta; vis "
+            f"of 2 betas == numpy's digits")
+
+
+_LAUNCH_LINE = re.compile(r"\[wgbs-torch worker serve\] launches (\{.*\})")
+
+
+def _start_worker(work):
+    """Starts `worker serve --warm` on the card, so that its start and
+    warm-up run beside the other commands of the phase; a thread notes
+    when its socket and its warm-up's launch line appear. Returns what
+    _worker_runs and _end_worker take."""
+    d = op.join(work, "p13_worker")
+    os.makedirs(d)
+    sock_dir = d if len(d) < 90 else tempfile.mkdtemp(prefix="wt")
+    ctx = {"dir": d, "sock_dir": sock_dir,
+           "sock": op.join(sock_dir, "w.sock"),
+           "log": op.join(d, "server.log"),
+           "cli": [sys.executable, "-m", "wgbs_tools_tpu_torch"],
+           "pool": ThreadPoolExecutor(1)}
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    ctx["t0"] = time.perf_counter()
+    with open(ctx["log"], "w") as srv_log:
+        ctx["server"] = subprocess.Popen(
+            ctx["cli"] + ["worker", "serve", "--warm", "--socket", ctx["sock"],
+                          "--device", "cuda"],
+            stdout=srv_log, stderr=subprocess.STDOUT, env=env,
+            start_new_session=True)
+    ctx["marks"] = ctx["pool"].submit(_watch_worker, ctx)
+    return ctx
+
+
+def _watch_worker(ctx):
+    """Seconds from the server's start to its socket and to its warm-up's
+    launch line (the socket is bound before the warm-up)."""
+    marks = {}
+    while "warm" not in marks:
+        if ctx["server"].poll() is not None:
+            with open(ctx["log"]) as f:
+                raise RuntimeError(f"worker serve --warm exited "
+                                   f"{ctx['server'].returncode}:\n"
+                                   f"{f.read()[-3000:]}")
+        t = time.perf_counter() - ctx["t0"]
+        if t > 300:
+            raise RuntimeError(f"worker serve --warm: not warm after 300 s "
+                               f"({marks})")
+        if "socket" not in marks and op.exists(ctx["sock"]):
+            marks["socket"] = t
+        if "socket" in marks:
+            with open(ctx["log"]) as f:
+                if _LAUNCH_LINE.search(f.read()):
+                    marks["warm"] = t
+        time.sleep(0.05)
+    return marks
+
+
+def _end_worker(ctx):
+    """Kills a server still running (a phase that failed) and cleans up."""
+    if ctx["server"].poll() is None:
+        os.killpg(ctx["server"].pid, signal.SIGKILL)
+        ctx["server"].wait()
+    ctx["pool"].shutdown(wait=True)
+    if ctx["sock_dir"] != ctx["dir"]:
+        shutil.rmtree(ctx["sock_dir"], ignore_errors=True)
+
+
+def _worker_runs(work, walls, ctx):
+    """The server _start_worker started, once warm: pat2beta of phase 11's
+    single-end pat in a process of its own and twice through `worker run`,
+    each timed from process start; the betas the same bytes; the server's
+    launch lines show flat_vals_fused at its warm-up and at each job; then
+    `worker stop`. Returns the summary line."""
+    se = op.join(work, "bam_se_cuda", "se.pat.gz")
+    cli, sock, server = ctx["cli"], ctx["sock"], ctx["server"]
+    marks = ctx["marks"].result(timeout=600)
+    walls["worker serve (to its socket)"] = marks["socket"]
+    walls["worker serve --warm (warm)"] = marks["warm"]
+    outs = {}
+    for name, pre in (("in-process", []),
+                      ("worker, first", ["worker", "run", "--socket", sock]),
+                      ("worker, second", ["worker", "run", "--socket",
+                                          sock])):
+        o = op.join(ctx["dir"], name.replace(", ", "_").replace("-", "_"))
+        os.makedirs(o)
+        t1 = time.perf_counter()
+        rc, _, err = _run_group(cli + pre + [
+            "pat2beta", se, "-o", o, "--genome", BAM_GENOME, "--device",
+            "cuda"], 600)
+        walls[f"pat2beta ({name})"] = time.perf_counter() - t1
+        if rc:
+            raise RuntimeError(f"pat2beta ({name}) exited {rc}:\n"
+                               f"{err[-3000:]}")
+        outs[name] = op.join(o, "se.beta")
+    want = se[:-len(".pat.gz")] + ".beta"
+    for name, path in outs.items():
+        if not _same(path, want):
+            raise RuntimeError(f"pat2beta ({name}): the beta != phase 11's")
+    rc, _, err = _run_group(cli + ["worker", "stop", "--socket", sock], 120)
+    if rc or server.wait(timeout=120):
+        raise RuntimeError(f"worker stop: rc {rc}, server rc "
+                           f"{server.returncode}:\n{err[-2000:]}")
+    with open(ctx["log"]) as f:
+        counts = [json.loads(m.group(1))["flat_vals_fused"]
+                  for m in _LAUNCH_LINE.finditer(f.read())]
+    if len(counts) != 3 or not 0 < counts[0] < counts[1] < counts[2]:
+        raise RuntimeError(f"worker: flat_vals_fused launches after the "
+                           f"warm-up and each job {counts}")
+    return (f"worker serve --warm on cuda (started with the phase, beside "
+            f"its other commands): socket after {marks['socket']:.3f} s, "
+            f"warm after {marks['warm']:.3f} s; pat2beta of the SE pat from "
+            f"process start: in-process {walls['pat2beta (in-process)']:.3f}"
+            f" s, through the worker {walls['pat2beta (worker, first)']:.3f}"
+            f" s then {walls['pat2beta (worker, second)']:.3f} s; the betas "
+            f"== phase 11's bytes; flat_vals_fused launches in the server "
+            f"after the warm-up and each job {counts}")
+
+
+def phase_last(work, big, seg_out):
+    """Phase 13: init_genome / set_default_ref, the beta text and bigWig
+    commands, convert, vis's text modes and the worker through the port's
+    CLI, each against its oracle, each command's wall. No figure mode runs:
+    the card's machine has no matplotlib. Returns the summary line."""
+    t_phase = time.perf_counter()
+    refs = os.environ["WGBS_TPU_REFDIR"]
+    log("phase 13: no figure mode runs here (pat_fig, vis --plot, beta_cov "
+        "--plot, compare_betas' figure, mbias_plot, bam2pat --mbias's plot): "
+        "the card's machine has no matplotlib; tests/test_torch_vis.py holds "
+        "each figure to the JAX CLI's on the CPU")
+    walls, lines = {}, []
+    ctx = _start_worker(work)
+    try:
+        for what, fn in (
+                ("init", lambda: _init_genome_run(work, refs, walls)),
+                ("beta", lambda: _beta_runs(work, refs, seg_out, walls)),
+                ("vis", lambda: _vis_runs(work, big, walls)),
+                ("worker", lambda: _worker_runs(work, walls, ctx))):
+            t0 = time.perf_counter()
+            line = fn()
+            log(f"phase 13: {line} [{time.perf_counter() - t0:.3f} s]")
+            lines.append(line)
+    finally:
+        _end_worker(ctx)
+    walls_line = ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+    log(f"phase 13: walls: {walls_line}")
+    log(f"phase 13: took {time.perf_counter() - t_phase:.3f} s")
+    return "; ".join(lines) + "; walls: " + walls_line
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--frags", type=int, default=20_000_000,
@@ -5751,6 +6330,7 @@ def main():
         kernels.update(bam_kernels)
         e2e_cmds = phase("12 commands", phase_commands, work, bam_ctx,
                          seg_out)
+        e2e_last = phase("13 last commands", phase_last, work, big, seg_out)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if torch.cuda.current_device() != 0:
@@ -5781,6 +6361,7 @@ def main():
     log("end to end: " + e2e_blk)
     log("end to end: " + e2e_bam)
     log("end to end: " + e2e_cmds)
+    log("end to end: " + e2e_last)
     print("[chip_smoke] seconds " + json.dumps(
         {"total": round(time.perf_counter() - t_start, 3),
          "phases": seconds}), flush=True)

@@ -3,8 +3,10 @@ JAX package's originals exactly, on seeded numpy inputs: the pat parser
 and streams, the BGZF reader, writer, compressor and inflater, beta IO and
 saturation, the host pileup (the device kernels' oracle), the v3 row
 packer and placers, blocks beds and their .tbi, the genome's site count,
-CpG index and region parsing, the CLI's file checks, and exact
-segmentation's host helpers (the ll table and the band sizes)."""
+CpG index and region parsing, the CLI's file checks, exact segmentation's
+host helpers (the ll table and the band sizes), and init_genome's host
+code: the FASTA's CpG scan and chromosome rules, the reference files'
+writers, the annotation queries and the bigWig writer and reader."""
 
 import gzip
 import io
@@ -1188,3 +1190,143 @@ def test_bgzf_reader_reads_past_joined_parts(tmp_path):
     ppat.index_pat(str(joined), stride=100)
     sites, _, _ = ppat.load_pat_index(str(joined))
     assert sites[-1] > 20000
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cpg_scan_and_chromosome_rules_equal_jax(tmp_path, seed):
+    from synth import make_fasta
+    from wgbs_tools_tpu.genome import cpg_index as jidx
+    from wgbs_tools_tpu_torch.genome import cpg_index as pidx
+
+    rng = np.random.default_rng(seed)
+    for n in (0, 1, 2, 3, 500):
+        seq = rng.choice(np.frombuffer(b"ACGTN", np.uint8), n)
+        seq[: min(n, 2)] = np.frombuffer(b"CG", np.uint8)[: min(n, 2)]
+        a, b = pidx.find_cpg_loci(seq), jidx.find_cpg_loci(seq)
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    names = ["chr1", "chr10", "chr2", "X", "chrY", "chrM", "MT", "chrUn_1",
+             "chr1_alt", "7", "chrx", "chr01"]
+    for c in names:
+        assert pidx.is_valid_chrom(c) == jidx.is_valid_chrom(c), c
+        assert pidx.chromosome_order(c) == jidx.chromosome_order(c), c
+    fa = make_fasta(str(tmp_path / "g.fa"), {c: int(rng.integers(1, 900))
+                                            for c in names}, rng)
+    for kw in ({}, {"sort_chroms": False},
+               {"chrom_filter": lambda c: c.startswith("chr")},
+               {"name": "gg", "chrom_filter": lambda c: True}):
+        a, b = pidx.build_from_fasta(fa, **kw), jidx.build_from_fasta(fa, **kw)
+        assert a.chrom_names == b.chrom_names and a.name == b.name
+        for field in ("loci", "chrom_offsets", "chrom_sizes"):
+            x, y = getattr(a, field), getattr(b, field)
+            assert x.dtype == y.dtype and np.array_equal(x, y), field
+
+
+def test_annotations_equal_jax(mini_genome, tmp_path, monkeypatch):
+    from wgbs_tools_tpu.genome import annotations as janno
+    from wgbs_tools_tpu.genome.refdir import Genome as JGenome
+    from wgbs_tools_tpu_torch.genome import annotations as panno
+
+    rng = np.random.default_rng(44)
+    g = tmp_path / "refs" / "ag"
+    g.mkdir(parents=True)
+    for f in os.listdir(mini_genome.refdir):
+        os.symlink(op.join(mini_genome.refdir, f), g / f)
+    rows = []
+    for _ in range(300):
+        c = ("chr1", "chr2", "chrX", "chrZ")[int(rng.integers(0, 4))]
+        s = int(rng.integers(0, 30000))
+        e = s + int(rng.integers(1, 3000))
+        rows.append(f"{c}\t{s}\t{e}\tt{int(rng.integers(0, 5))}"
+                    + ("" if rng.random() < 0.2
+                       else f"\tG{int(rng.integers(0, 9))}") + "\n")
+    rows += ["# comment\n", "\n", "chr1\t5\n"]
+    with gzip.open(g / "annotations.bed.gz", "wt") as f:
+        f.writelines(rows)
+    mini = Genome("mini")
+    monkeypatch.setenv("WGBS_TPU_REFDIR", str(tmp_path / "refs"))
+    pg, jg = Genome("ag"), JGenome("ag")
+    assert pg.annotations == jg.annotations
+    a, b = panno.load_annotations(pg.annotations), janno.load_annotations(
+        jg.annotations)
+    assert sorted(a) == sorted(b)
+    for c in b:
+        assert all(np.array_equal(x, y) for x, y in zip(a[c][:2], b[c][:2]))
+        assert a[c][2] == b[c][2]
+    queries = [("chr1", int(s), int(s) + int(k)) for s, k in zip(
+        rng.integers(1, 40000, 200), rng.integers(1, 4000, 200))]
+    queries += [("chrZ", 10, 20), ("chr9", 1, 2)]
+    for c, s, e in queries:
+        assert panno.region_annotation(pg, c, s, e) == \
+            janno.region_annotation(jg, c, s, e)
+    bed_rows = [(c, s - 1, e) for c, s, e in queries]
+    got = panno.annotate_rows(bed_rows, pg)
+    assert got == janno.annotate_rows(bed_rows, jg)
+    assert sum(t != "." for t, _ in got) > 50
+    assert panno.annotate_rows(bed_rows, mini) is None
+
+
+@pytest.mark.parametrize("n_per_chrom", [0, 3, 2500, 270_000])
+def test_bigwig_writer_and_reader_equal_jax(tmp_path, n_per_chrom):
+    from wgbs_tools_tpu.formats import bigwig as jbw
+    from wgbs_tools_tpu_torch.formats import bigwig as pbw
+
+    rng = np.random.default_rng(n_per_chrom)
+    sizes = [("chr1", 60_000_000), ("chr10", 9_000_000), ("chrX", 500)]
+    data = {}
+    for c, size in sizes[:2]:
+        if n_per_chrom == 0:
+            continue
+        starts = np.sort(rng.choice(size // 2, n_per_chrom, replace=False)) * 2
+        data[c] = (starts, starts + 2, rng.random(n_per_chrom).astype(
+            np.float32))
+    pbw.write_bigwig(str(tmp_path / "t.bw"), sizes, data)
+    jbw.write_bigwig(str(tmp_path / "j.bw"), sizes, data)
+    got = (tmp_path / "t.bw").read_bytes()
+    assert got == (tmp_path / "j.bw").read_bytes()
+    tracks, summary = pbw.read_bigwig(str(tmp_path / "t.bw"))
+    want_tracks, want_summary = jbw.read_bigwig(str(tmp_path / "j.bw"))
+    assert summary == want_summary and sorted(tracks) == sorted(want_tracks)
+    for c, cols in data.items():
+        for x, y, z in zip(tracks[c], want_tracks[c], cols):
+            assert np.array_equal(x, y) and np.array_equal(x, z)
+    assert summary["valid"] == 2 * n_per_chrom * len(data)
+
+
+def test_init_genome_writers_equal_jax(mini_genome, tmp_path):
+    import importlib
+
+    from wgbs_tools_tpu.utils import IllegalArgumentError as JErr
+
+    jinit = importlib.import_module("wgbs_tools_tpu.genome.init_genome")
+    pinit = importlib.import_module("wgbs_tools_tpu_torch.genome.init_genome")
+
+    idx = mini_genome.index
+    for who, mod in (("t", pinit), ("j", jinit)):
+        d = tmp_path / who
+        d.mkdir()
+        mod.write_reference_compat_files(idx, str(d))
+        text = b"chr1\t1\t9\tx\n" * 50
+        (tmp_path / "plain.txt").write_bytes(text)
+        (tmp_path / "z.gz").write_bytes(gzip.compress(text))
+        for src, dst, gz in (("plain.txt", "a.gz", True),
+                             ("plain.txt", "b.bed", False),
+                             ("z.gz", "c.gz", True), ("z.gz", "d.bed", False)):
+            mod._ingest_aux_file(str(tmp_path / src), str(d / dst), gz)
+    names = sorted(p.name for p in (tmp_path / "j").iterdir())
+    assert names == sorted(p.name for p in (tmp_path / "t").iterdir())
+    assert len(names) == 8
+    for name in names:
+        a, b = tmp_path / "t" / name, tmp_path / "j" / name
+        if a.is_symlink():
+            assert os.readlink(a) == os.readlink(b)
+        else:
+            assert a.read_bytes() == b.read_bytes(), name
+    with gzip.open(tmp_path / "t" / "CpG.bed.gz", "rt") as f:
+        assert sum(1 for _ in f) == idx.nr_sites
+    assert pinit.KNOWN_NR_SITES == jinit.KNOWN_NR_SITES
+    assert pinit.UCSC_FASTA_URL == jinit.UCSC_FASTA_URL
+    with pytest.raises(putils.IllegalArgumentError) as got:
+        pinit.download_fasta("hg19", str(tmp_path))
+    with pytest.raises(JErr) as want:
+        jinit.download_fasta("hg19", str(tmp_path))
+    assert str(got.value) == str(want.value)

@@ -38,6 +38,8 @@ for name in names:
     importlib.import_module(name)
 loaded = [m for m in sys.modules if blocked(m)]
 assert not loaded, loaded
+# matplotlib is imported only when a figure is asked for
+assert not [m for m in sys.modules if m.split(".")[0] == "matplotlib"]
 print(" ".join(names))
 """
 
@@ -48,7 +50,7 @@ def test_port_imports_without_jax_and_pandas():
     assert r.returncode == 0, r.stderr
     # every module of the port was imported, not an empty walk
     names = set(r.stdout.split())
-    assert len(names) >= 59
+    assert len(names) >= 66
     assert {"wgbs_tools_tpu_torch.parallel.mesh",
             "wgbs_tools_tpu_torch.parallel.sharded",
             "wgbs_tools_tpu_torch.parallel.multihost",
@@ -94,7 +96,14 @@ def test_port_imports_without_jax_and_pandas():
             "wgbs_tools_tpu_torch.cli.cmd_markers",
             "wgbs_tools_tpu_torch.cli.view",
             "wgbs_tools_tpu_torch.cli.cmd_view",
-            "wgbs_tools_tpu_torch.cli.main"} <= names
+            "wgbs_tools_tpu_torch.cli.main",
+            "wgbs_tools_tpu_torch.genome.init_genome",
+            "wgbs_tools_tpu_torch.genome.annotations",
+            "wgbs_tools_tpu_torch.formats.bigwig",
+            "wgbs_tools_tpu_torch.cli.cmd_genome",
+            "wgbs_tools_tpu_torch.cli.cmd_convert",
+            "wgbs_tools_tpu_torch.cli.cmd_vis",
+            "wgbs_tools_tpu_torch.cli.worker"} <= names
 
 
 def test_new_commands_run_without_jax_and_pandas(tmp_path):
@@ -153,6 +162,72 @@ print(sorted(os.listdir(out)))
     assert r.returncode == 0, r.stderr
     for name in ("v.pat", "m.pat.gz", "mk.pat.gz", "mk.beta", "h.txt",
                  "bi.tsv", "Markers.A.bed", "params.txt"):
+        assert name in r.stdout, (name, r.stdout)
+
+
+def test_last_commands_run_without_jax_pandas_and_matplotlib(tmp_path):
+    """The last slice's commands run (their lazy imports too) with jax, the
+    JAX package, pandas and matplotlib blocked, in their text modes:
+    init_genome and set_default_ref of a FASTA written here, convert,
+    beta2bed, beta2bw, beta_cov -L, beta_stats, bed2beta, lbeta2beta,
+    beta_to_450k, compare_betas and vis, on the CPU."""
+    script = _BLOCKED_IMPORT.split("import wgbs_tools_tpu_torch")[0] \
+        .replace('"pandas")', '"pandas", "matplotlib")') \
+        .replace('"pandas.")', '"pandas.", "matplotlib.")') + r'''
+import gzip, os, sys
+import numpy as np
+root = sys.argv[1]
+os.environ["WGBS_TPU_REFDIR"] = os.path.join(root, "refs")
+rng = np.random.default_rng(3)
+fa = os.path.join(root, "g.fa")
+with open(fa, "w") as f:
+    for c, n in (("chr1", 4000), ("chr2", 2000)):
+        seq = "".join(rng.choice(list("ACGT"), n)) + "CG" * 20
+        f.write(f">{c}\n{seq}\n")
+from wgbs_tools_tpu_torch.cli.main import main
+assert main(["init_genome", "g", "--fasta_path", fa]) == 0
+assert main(["init_genome", "h", "--fasta_path", fa, "--no_default"]) == 0
+assert main(["set_default_ref", "h"]) == 0
+assert main(["set_default_ref", "g"]) == 0
+from wgbs_tools_tpu_torch.genome.refdir import Genome
+n = Genome().get_nr_sites()
+cov = rng.integers(0, 30, n)
+beta = os.path.join(root, "a.beta")
+np.stack([cov // 2, cov], 1).astype(np.uint8).tofile(beta)
+np.stack([cov // 3, cov], 1).astype(np.uint8).tofile(
+    os.path.join(root, "b.beta"))
+np.stack([cov, cov * 40], 1).astype(np.uint16).tofile(
+    os.path.join(root, "c.lbeta"))
+with gzip.open(os.path.join(root, "refs", "g", "ilmn2CpG.tsv.gz"), "wt") as f:
+    f.write("cg00000001\t3\ncg00000002\t9\n")
+out = os.path.join(root, "o")
+os.makedirs(out)
+bed = os.path.join(root, "x.bed")
+open(bed, "w").write("chr1\t10\t900\nchr2\t5\t700\n")
+assert main(["convert", "-L", bed, "-o", os.path.join(out, "x5.bed")]) == 0
+x5 = os.path.join(out, "x5.bed")
+assert main(["convert", "-r", "chr1:100-900"]) == 0
+assert main(["convert", "--array_id", "cg00000002"]) == 0
+assert main(["beta2bed", beta, "-L", x5, "-o",
+             os.path.join(out, "a.bed")]) == 0
+assert main(["beta2bw", beta, "-o", out, "--cov"]) == 0
+assert main(["beta_cov", beta, "-L", x5, "--device", "cpu"]) == 0
+assert main(["beta_stats", beta, "-r", "chr2"]) == 0
+assert main(["bed2beta", os.path.join(out, "a.bed"), "-o", out,
+             "--add_one"]) == 0
+assert main(["lbeta2beta", os.path.join(root, "c.lbeta"), "-o", out]) == 0
+assert main(["beta_to_450k", beta, "-o", os.path.join(out, "a.csv")]) == 0
+assert main(["compare_betas", beta, os.path.join(root, "b.beta")]) == 0
+assert main(["vis", beta, "-s", "3-30", "--no_color"]) == 0
+loaded = [m for m in sys.modules if blocked(m)]
+assert not loaded, loaded
+print(sorted(os.listdir(out)))
+'''
+    r = subprocess.run([sys.executable, "-c", script, str(tmp_path)],
+                       cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    for name in ("x5.bed", "a.bed", "a.bigwig", "a.cov.bigwig", "a.beta",
+                 "c.beta", "a.csv"):
         assert name in r.stdout, (name, r.stdout)
 
 

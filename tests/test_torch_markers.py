@@ -120,6 +120,10 @@ MARKER_CASES = {
     "config": ["-g", "groups", "--beta_list_file", "blist", "-p", "cfg"],
     "numeric_groups": ["-g", "numeric", "--betas", "BETAS", "--test_type",
                        "mw", "--pval", "0.2"],
+    "sort_chr": ["-g", "groups", "--betas", "BETAS", "--sort_by", "chr",
+                 "--pval", "1", "--delta_means", "0"],
+    "sort_direction": ["-g", "groups", "--betas", "BETAS", "--sort_by",
+                       "direction"],
 }
 
 

@@ -8,10 +8,8 @@ its C++ source `host/wgbsio.cpp`, built with g++ at first use, `utils`):
 importing this package imports neither jax nor anything of
 wgbs_tools_tpu.
 
-Ported so far: `pat2beta` (`pipeline.pat2beta`, CLI
-`python -m wgbs_tools_tpu_torch pat2beta`) on one GPU, over site shards
-on several devices (`parallel.sharded`) and over worker processes
-(`--procs`, `parallel.multihost`).
+Its command line (`python -m wgbs_tools_tpu_torch`, installed as
+`wgbstools-torch`) has every command of the JAX CLI (`cli/main.py`).
 """
 
 __version__ = "0.1.0"

@@ -8,9 +8,10 @@ there (call_reads, merge_pe), and the beta piles up there. bam2pat
 --procs N runs N worker processes, one contiguous block of chromosomes
 each (parallel/multihost.py::run_bam2pat_multiprocess), each on
 cuda:{rank % cards}. --mbias writes the JAX command's m-bias tables
-(<name>.mbias.OT.txt and .OB.txt) but not its plot, which waits for the
-port's mbias_plot (matplotlib). bam2pat refuses --array_id (JAX accepts
-and ignores it). add_cpg_counts and split_by_meth are host code
+(<name>.mbias.OT.txt and .OB.txt) and draws their plot as JAX does
+(cli/cmd_misc.py::plot_mbias, matplotlib; a plot that fails is logged and
+the run goes on). bam2pat refuses --array_id (JAX accepts and ignores
+it). add_cpg_counts and split_by_meth are host code
 (pipeline/bam_split.py) and take no --device.
 """
 
@@ -33,9 +34,7 @@ def main(argv, timings=None):
         prog="bam2pat",
         description="Convert aligned BAM to pat + beta (PyTorch/CUDA): "
                     "reads call and mates merge on --device, and the beta "
-                    "piles up there",
-        epilog="Not ported yet: the m-bias plot (--mbias writes the "
-               "tables only).")
+                    "piles up there")
     p.add_argument("bam", nargs="+")
     p.add_argument("-o", "--out_dir", default=".")
     p.add_argument("-f", "--force", action="store_true")
@@ -65,9 +64,8 @@ def main(argv, timings=None):
                    help="clip first/last bases of each read")
     p.add_argument("--min_cpg", type=int, default=1)
     p.add_argument("--mbias", "-mb", action="store_true",
-                   help="dump m-bias tables alongside the pat (calling "
-                        "then runs on the host; the plot is not ported "
-                        "yet)")
+                   help="dump m-bias tables and their plot alongside the "
+                        "pat (calling then runs on the host)")
     p.add_argument("--no_beta", action="store_true")
     p.add_argument("--no_pat", action="store_true")
     p.add_argument("-l", "--lbeta", action="store_true")
@@ -187,6 +185,14 @@ def main(argv, timings=None):
                     if op.isfile(pat_path + ext):
                         os.replace(pat_path + ext, out_pat + ext)
                 pat_path = out_pat
+            if mb:
+                try:
+                    from .cmd_misc import plot_mbias
+
+                    plot_mbias([mb + ".OT.txt", mb + ".OB.txt"],
+                               args.out_dir, PE=True)
+                except Exception as e:
+                    eprint(f"[wt bam2pat] mbias plot failed: {e}")
             if not args.no_beta and pat_path:
                 with timed(timings, "pat2beta", device):
                     pat2beta(pat_path, args.out_dir, genome=g,

@@ -1,14 +1,21 @@
-"""beta-centric commands of the port: beta_to_blocks and beta_to_table.
+"""beta-centric commands of the port: beta_to_blocks, beta_to_table,
+beta2bed, beta2bw, beta_cov, beta_stats, bed2beta, lbeta2beta,
+beta_to_450k and compare_betas.
 
-Port of wgbs_tools_tpu/cli/cmd_beta.py (:33-210; ref: src/python/
-beta_to_blocks.py, beta_to_table.py), plus --device, and of its
-`beta_cov_value` (:361), which mix_pat reads. The block sums run
-in ops/reduceat.py::reduce_data_to_blocks: on cuda the block_sums kernel
+Port of wgbs_tools_tpu/cli/cmd_beta.py (ref: src/python/beta_to_blocks.py,
+beta_to_table.py, beta2bed.py, beta2bw.py, beta_cov.py, beta_stats.py,
+bed2beta.py, lbeta2beta.py, beta_to_450k.py, compare_betas.py). The block
+sums of beta_to_blocks, beta_to_table and beta_cov -L run in
+ops/reduceat.py::reduce_data_to_blocks: on cuda the block_sums kernel
 (over every visible card's site shard when there are several), with
---device cpu its plain twin. Both write the JAX CLI's bytes.
+--device cpu its plain twin; those three take --device. The other seven
+are host code (numpy; beta2bw writes its bigWig with formats/bigwig.py),
+and beta_cov --plot and compare_betas' figure import matplotlib when
+asked for. Each writes the JAX CLI's bytes.
 """
 
 import argparse
+import gzip
 import os.path as op
 import sys
 
@@ -17,6 +24,8 @@ import numpy as np
 from ..device import resolve_device, timed
 from ..formats.beta import beta2vec, load_beta, trim_to_uint
 from ..formats.blocks import is_block_file_nice, load_blocks
+from ..genome.refdir import Genome
+from ..genome.region import GenomicRegion
 from ..ops.reduceat import reduce_data_to_blocks
 from ..parallel.mesh import shard_devices
 from ..utils import (
@@ -24,8 +33,12 @@ from ..utils import (
     delete_or_skip,
     logger,
     pretty_name,
+    set_verbose,
+    splitextgz,
     validate_file_list,
+    validate_single_file,
 )
+from .main import add_gr_args
 
 DEVICE_HELP = ("torch device: cuda (default; an error without CUDA) or cpu "
                "(the kernels' plain PyTorch twins)")
@@ -60,8 +73,6 @@ def beta_cov_value(beta_path, genome, region=None, sites=None, blocks=None,
                    devices=None):
     """Mean coverage (ref: beta_cov.py:62-69); with `blocks`, the blocks'
     sums come from reduce_beta_to_blocks on `devices`."""
-    from ..genome.region import GenomicRegion
-
     if blocks is not None:
         reduced = reduce_beta_to_blocks(beta_path, blocks, devices=devices)
         nr_sites = (blocks["endCpG"] - blocks["startCpG"]).clip(0).sum()
@@ -235,4 +246,435 @@ def main_beta_to_table(argv, timings=None):
                 out.write("\t".join(row) + "\n")
     if args.output:
         out.close()
+    return 0
+
+
+# ------------------------------------------------------------ beta2bed / bw
+
+
+def main_beta2bed(argv):
+    p = argparse.ArgumentParser(prog="beta2bed",
+                                description="beta -> bedGraph text")
+    p.add_argument("beta_path")
+    p.add_argument("-c", "--min_cov", type=int, default=1)
+    p.add_argument("--mean", action="store_true",
+                   help="print mean methylation instead of meth/cov pair")
+    p.add_argument("--keep_na", action="store_true",
+                   help="keep sites below min_cov (as NaN in --mean mode)")
+    p.add_argument("-o", "--out_path", "--outpath", dest="out_path",
+                   default=None)
+    p.add_argument("-f", "--force", action="store_true",
+                   help="overwrite an existing output file")
+    add_gr_args(p, bed_file=True)
+    args = p.parse_args(argv)
+    g = Genome(args.genome)
+    gr = GenomicRegion(region=args.region, sites=args.sites, genome=g)
+    idx = g.index
+    if args.out_path and not delete_or_skip(args.out_path, args.force):
+        return 0
+    # -L: one site range per block, emitted in block order (the reference
+    # streams bview per block, ref: beta2bed.py:11 -> view.py bview with -L)
+    if args.bed_file:
+        blocks = load_blocks(args.bed_file)
+        keep = blocks["startCpG"] >= 0
+        ranges = list(zip(blocks["startCpG"][keep].tolist(),
+                          blocks["endCpG"][keep].tolist()))
+    else:
+        s, e = (1, idx.nr_sites + 1) if gr.is_whole() else gr.sites
+        ranges = [(s, e)]
+    out = open(args.out_path, "w") if args.out_path else sys.stdout
+    names = idx.chrom_names
+    for s, e in ranges:
+        data = load_beta(args.beta_path, sites=(s, e))
+        loci = idx.loci[s - 1 : e - 1]
+        cids = idx.site2chrom_id(np.arange(s, e))
+        # ref: beta2bed.py:11-19 — sites below min_cov are zeroed; without
+        # keep_na zero-coverage rows are dropped; --mean prints -1 for them
+        for i in range(e - s):
+            cov = int(data[i, 1])
+            m = int(data[i, 0])
+            if cov < args.min_cov:
+                cov = m = 0
+            if cov == 0 and not args.keep_na:
+                continue
+            loc = int(loci[i])
+            if args.mean:
+                val = -1.0 if cov == 0 else m / cov
+                out.write(
+                    f"{names[cids[i]]}\t{loc - 1}\t{loc + 1}\t{val:.3g}\n")
+            else:
+                out.write(
+                    f"{names[cids[i]]}\t{loc - 1}\t{loc + 1}\t{m}\t{cov}\n")
+    if args.out_path:
+        out.close()
+    return 0
+
+
+def main_beta2bw(argv):
+    """beta -> bigWig (native container writer; ref: beta2bw.py shells out
+    to UCSC bedGraphToBigWig instead)."""
+    p = argparse.ArgumentParser(prog="beta2bw", description="beta -> bigWig")
+    p.add_argument("beta_paths", nargs="+")
+    p.add_argument("-c", "--min_cov", type=int, default=1)
+    p.add_argument("-o", "--outdir", default=".")
+    p.add_argument("--cov", "--dump_cov", dest="with_cov",
+                   action="store_true", help="also emit a coverage track")
+    p.add_argument("--keep_na", action="store_true",
+                   help="emit sites below min_cov with value -1")
+    p.add_argument("-f", "--force", action="store_true")
+    p.add_argument("-b", "--bedGraph", action="store_true",
+                   help="also keep a compressed bedGraph of the meth track "
+                        "(ref: beta2bw.py:48-51)")
+    p.add_argument("-@", "--threads", type=int, default=None,
+                   help="(compat; tracks are written in one pass)")
+    add_gr_args(p, bed_file=True)
+    args = p.parse_args(argv)
+    from ..formats.bigwig import write_bigwig
+
+    if not op.isdir(args.outdir):
+        # ref: src/python/beta2bw.py:30-31
+        raise IllegalArgumentError(f"Invalid output directory: "
+                                   f"{args.outdir}")
+    g = Genome(args.genome)
+    idx = g.index
+    chrom_sizes = [(c, int(s)) for c, s in
+                   zip(idx.chrom_names, idx.chrom_sizes.tolist())]
+    site_mask = None
+    if args.bed_file:  # -L: restrict tracks to the bed's site ranges
+        blocks = load_blocks(args.bed_file)
+        site_mask = np.zeros(idx.nr_sites, dtype=bool)
+        for bs, be in zip(blocks["startCpG"], blocks["endCpG"]):
+            if bs >= 1:
+                site_mask[bs - 1 : be - 1] = True
+    for beta in args.beta_paths:
+        out = op.join(args.outdir, pretty_name(beta) + ".bigwig")
+        if not delete_or_skip(out, args.force):
+            continue
+        data = load_beta(beta)
+        meth_tracks, cov_tracks = {}, {}
+        for cid, chrom in enumerate(idx.chrom_names):
+            lo, hi = idx.chrom_offsets[cid], idx.chrom_offsets[cid + 1]
+            sub = data[lo:hi]
+            loci = idx.loci[lo:hi].astype(np.int64)
+            keep = (sub[:, 1] >= args.min_cov)
+            if args.keep_na:  # NA sites emitted as -1 (ref: beta2bed.py:18)
+                keep = np.ones(sub.shape[0], dtype=bool)
+            if site_mask is not None:
+                keep &= site_mask[lo:hi]
+            if keep.any():
+                covd = np.maximum(sub[keep, 1], 1)
+                vals = np.where(sub[keep, 1] >= max(args.min_cov, 1),
+                                sub[keep, 0] / covd, -1.0)
+                meth_tracks[chrom] = (loci[keep] - 1, loci[keep] + 1,
+                                      vals.astype(np.float32))
+            covk = sub[:, 1] > 0
+            if site_mask is not None:
+                covk &= site_mask[lo:hi]
+            if args.with_cov and covk.any():
+                cov_tracks[chrom] = (loci[covk] - 1, loci[covk] + 1,
+                                     sub[covk, 1].astype(np.float32))
+        write_bigwig(out, chrom_sizes, meth_tracks)
+        logger.info("beta2bw: %s", out)
+        if args.bedGraph:
+            bg = op.join(args.outdir, pretty_name(beta) + ".bedGraph.gz")
+            with gzip.open(bg, "wt") as f:
+                for chrom, (st, en, vals) in meth_tracks.items():
+                    for j in range(st.shape[0]):
+                        f.write(f"{chrom}\t{st[j]}\t{en[j]}"
+                                f"\t{vals[j]:.3g}\n")
+            logger.info("beta2bw: %s", bg)
+        if args.with_cov:
+            covout = op.join(args.outdir, pretty_name(beta) + ".cov.bigwig")
+            write_bigwig(covout, chrom_sizes, cov_tracks)
+            logger.info("beta2bw: %s", covout)
+    return 0
+
+
+# ------------------------------------------------------------ cov / stats
+
+
+def main_beta_cov(argv):
+    p = argparse.ArgumentParser(prog="beta_cov",
+                                description="Mean coverage of beta files")
+    p.add_argument("betas", nargs="+")
+    p.add_argument("-L", "--bed_file", default=None)
+    p.add_argument("--plot", action="store_true",
+                   help="matplotlib histogram of per-file coverages")
+    p.add_argument("--hist", action="store_true",
+                   help="in-terminal histogram of per-file coverages")
+    p.add_argument("-o", "--out_path", default=None,
+                   help="save the --plot figure here instead of showing it")
+    p.add_argument("-@", "--threads", type=int, default=None,
+                   help="(compat; -L's block sums run on the device)")
+    add_gr_args(p)
+    p.add_argument("--device", default="cuda", help=DEVICE_HELP)
+    args = p.parse_args(argv)
+    devices = shard_devices(resolve_device(args.device))
+    g = Genome(args.genome)
+    blocks = load_blocks(args.bed_file) if args.bed_file else None
+    names, covs = [], []
+    for beta in args.betas:
+        cov = beta_cov_value(beta, g, region=args.region, sites=args.sites,
+                             blocks=blocks, devices=devices)
+        names.append(pretty_name(beta))
+        covs.append(cov)
+        print(f"{names[-1]}\t{cov:.2f}")
+    if args.hist:
+        # in-terminal histogram (ref: beta_cov.py:13-17 uses plotille)
+        lo, hi = min(covs), max(covs)
+        nb = min(20, max(len(covs), 1))
+        edges = np.linspace(lo, hi + 1e-9, nb + 1)
+        counts, _ = np.histogram(covs, bins=edges)
+        peak = max(int(counts.max()), 1)
+        for k in range(nb):
+            bar = "#" * int(40 * counts[k] / peak)
+            print(f"{edges[k]:8.2f}-{edges[k + 1]:<8.2f} {bar} {counts[k]}")
+    if args.plot:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        plt.hist(covs)
+        plt.title(f"beta coverage histogram\nmean cov:{np.mean(covs):.2f}")
+        plt.xticks(rotation=70)
+        plt.subplots_adjust(bottom=0.15)
+        out = args.out_path or "beta_cov_hist.png"
+        plt.savefig(out)
+        print(f"[wt beta_cov] saved {out}")
+    return 0
+
+
+def main_beta_stats(argv):
+    p = argparse.ArgumentParser(prog="beta_stats",
+                                description="Summary stats per beta file")
+    p.add_argument("betas", nargs="+")
+    p.add_argument("-c", "--min_cov", type=int, default=1)
+    p.add_argument("-w", "--width", type=int, default=120,
+                   help="(compat; output is plain TSV, never wrapped)")
+    p.add_argument("-@", "--threads", type=int, default=None,
+                   help="(compat; stats are one vectorized pass per file)")
+    add_gr_args(p, bed_file=True)
+    args = p.parse_args(argv)
+    g = Genome(args.genome)
+    gr = GenomicRegion(region=args.region, sites=args.sites, genome=g)
+    sel = None
+    if args.bed_file:  # -L: stats over the bed's site ranges only
+        blocks = load_blocks(args.bed_file)
+        sel = np.zeros(g.index.nr_sites, dtype=bool)
+        for bs, be in zip(blocks["startCpG"], blocks["endCpG"]):
+            if bs >= 1:
+                sel[bs - 1 : be - 1] = True
+    print("name\tmean_meth\tcovered_sites\ttotal_sites\tmean_depth")
+    for beta in args.betas:
+        data = (load_beta(beta) if gr.is_whole()
+                else load_beta(beta, sites=gr.sites))
+        if sel is not None:
+            data = data[sel if gr.is_whole()
+                        else sel[gr.sites[0] - 1 : gr.sites[1] - 1]]
+        vec = beta2vec(data, min_cov=args.min_cov)
+        covered = int((data[:, 1] >= args.min_cov).sum())
+        mean_meth = float(np.nanmean(vec)) if covered else float("nan")
+        print(f"{pretty_name(beta)}\t{mean_meth:.4f}\t{covered}\t"
+              f"{data.shape[0]}\t{np.mean(data[:, 1]):.2f}")
+    return 0
+
+
+# ------------------------------------------------------------ conversions
+
+
+def main_bed2beta(argv):
+    p = argparse.ArgumentParser(
+        prog="bed2beta",
+        description="bed (chr start end #meth #total) -> beta")
+    p.add_argument("bed_paths", nargs="+")
+    p.add_argument("-f", "--force", action="store_true")
+    p.add_argument("--add_one", action="store_true",
+                   help="add 1 to start column to match CpG dictionary loci")
+    p.add_argument("-o", "--outdir", default=".")
+    p.add_argument("--genome", default=None)
+    p.add_argument("-d", "--debug", action="store_true",
+                   help="verbose (DEBUG-level) logging")
+    args = p.parse_args(argv)
+    if args.debug:
+        set_verbose()
+    validate_file_list(args.bed_paths)
+    g = Genome(args.genome)
+    idx = g.index
+    for bed in args.bed_paths:
+        outpath = op.join(args.outdir, splitextgz(op.basename(bed))[0] + ".beta")
+        if not delete_or_skip(outpath, args.force):
+            continue
+        counts = np.zeros((idx.nr_sites, 2), dtype=np.int64)
+        opener = gzip.open if bed.endswith(".gz") else open
+        seen = set()
+        with opener(bed, "rb") as f:
+            for line in f:
+                tokens = line.rstrip(b"\n").split(b"\t")
+                if len(tokens) < 5 or not tokens[1].isdigit():
+                    continue
+                chrom = tokens[0].decode()
+                if chrom not in idx._chrom_lookup:
+                    continue
+                start = int(tokens[1]) + (1 if args.add_one else 0)
+                key = (chrom, start)
+                if key in seen:
+                    continue
+                seen.add(key)
+                site = idx.locus2site(chrom, start)
+                lo, hi = idx.chrom_site_bounds(chrom)
+                if site < hi and int(idx.loci[site - 1]) == start:
+                    counts[site - 1, 0] = int(tokens[3])
+                    counts[site - 1, 1] = int(tokens[4])
+        trim_to_uint(counts).tofile(outpath)
+        logger.info("bed2beta: %s", outpath)
+    return 0
+
+
+def main_lbeta2beta(argv):
+    p = argparse.ArgumentParser(prog="lbeta2beta", description="uint16 -> uint8")
+    p.add_argument("lbetas", nargs="+")
+    p.add_argument("-f", "--force", action="store_true")
+    p.add_argument("-o", "--out_dir", default=".")
+    p.add_argument("--genome", default=None,
+                   help="genome name for the size sanity check")
+    args = p.parse_args(argv)
+    if args.genome:
+        from ..formats.beta import beta_sanity_check
+
+        nr = Genome(args.genome).index.nr_sites
+        for lb in args.lbetas:
+            if not beta_sanity_check(lb, nr):
+                raise IllegalArgumentError(
+                    f"{lb} does not match genome {args.genome} "
+                    f"({nr} sites)")
+    for lb in args.lbetas:
+        validate_single_file(lb, ".lbeta")
+        out = op.join(args.out_dir, op.basename(lb)[: -len(".lbeta")] + ".beta")
+        if not delete_or_skip(out, args.force):
+            continue
+        data = load_beta(lb).astype(np.int64)
+        trim_to_uint(data, lbeta=False).tofile(out)
+    return 0
+
+
+def main_beta_to_450k(argv):
+    p = argparse.ArgumentParser(
+        prog="beta_to_450k",
+        description="beta -> Illumina 450K/EPIC array-style csv")
+    p.add_argument("betas", nargs="+")
+    p.add_argument("-o", "--out_path", default=None)
+    p.add_argument("-c", "--min_cov", "--cov_thresh", dest="min_cov",
+                   type=int, default=1)
+    p.add_argument("--EPIC", action="store_true",
+                   help="also emit EPIC-only probes (default: 450K subset)")
+    p.add_argument("--ref", default=None,
+                   help="one-column file of Illumina IDs to use instead of "
+                        "the genome map's default subset")
+    p.add_argument("-@", "--threads", type=int, default=None,
+                   help="(compat; one vectorized gather per file)")
+    p.add_argument("--genome", default=None)
+    args = p.parse_args(argv)
+    g = Genome(args.genome)
+    idict = g.ilmn2cpg_dict
+    if idict is None:
+        raise IllegalArgumentError(
+            "no ilmn2CpG.tsv.gz map in the genome reference dir")
+    ids, sites, is450 = [], [], []
+    with gzip.open(idict, "rt") as f:
+        for line in f:
+            tokens = line.rstrip("\n").split("\t")
+            if len(tokens) >= 2 and tokens[1].isdigit():
+                ids.append(tokens[0])
+                sites.append(int(tokens[1]))
+                # optional 3rd column marks 450K membership
+                # (ref: beta_to_450k.py:39-41 drops EPIC-only probes)
+                is450.append(len(tokens) < 3 or tokens[2] == "1")
+    sites = np.array(sites, dtype=np.int64)
+    if args.ref:
+        with open(args.ref) as f:
+            wanted = {line.strip() for line in f if line.strip()}
+        keep = np.array([i in wanted for i in ids])
+    elif args.EPIC:
+        keep = np.ones(len(ids), dtype=bool)
+    else:
+        keep = np.array(is450, dtype=bool)
+    ids = [i for i, k in zip(ids, keep) if k]
+    sites = sites[keep]
+    out = open(args.out_path, "w") if args.out_path else sys.stdout
+    names = [pretty_name(b) for b in args.betas]
+    out.write("ID_REF," + ",".join(names) + "\n")
+    vecs = []
+    for b in args.betas:
+        data = load_beta(b)
+        vec = beta2vec(data, min_cov=args.min_cov)
+        vecs.append(vec[sites - 1])
+    for i, cgid in enumerate(ids):
+        row = [cgid]
+        for v in vecs:
+            row.append("NA" if np.isnan(v[i]) else f"{v[i]:.3f}")
+        out.write(",".join(row) + "\n")
+    if args.out_path:
+        out.close()
+    return 0
+
+
+def main_compare_betas(argv):
+    p = argparse.ArgumentParser(
+        prog="compare_betas",
+        description="Pairwise comparison of beta files")
+    p.add_argument("betas", nargs="+")
+    p.add_argument("-c", "--min_cov", type=int, default=10)
+    p.add_argument("-o", "--outpath", default=None,
+                   help="save pairwise 2-D histogram figure (png/pdf)")
+    p.add_argument("--bins", type=int, default=101,
+                   help="histogram bins (resolution) [101]")
+    p.add_argument("--show", action="store_true",
+                   help="display the figure (matplotlib.pyplot.show)")
+    add_gr_args(p)
+    args = p.parse_args(argv)
+    validate_file_list(args.betas, min_len=2)
+    g = Genome(args.genome)
+    gr = GenomicRegion(region=args.region, sites=args.sites, genome=g)
+    vecs = []
+    for b in args.betas:
+        data = (load_beta(b) if gr.is_whole() else load_beta(b, sites=gr.sites))
+        vecs.append(beta2vec(data, min_cov=args.min_cov))
+    n = len(vecs)
+    print("fileA\tfileB\tpearson\trmse\tn_common")
+    for i in range(n):
+        for j in range(i + 1, n):
+            both = ~np.isnan(vecs[i]) & ~np.isnan(vecs[j])
+            a, b = vecs[i][both], vecs[j][both]
+            r = float(np.corrcoef(a, b)[0, 1]) if both.sum() > 1 else float("nan")
+            rmse = float(np.sqrt(np.mean((a - b) ** 2))) if both.sum() else float("nan")
+            print(f"{pretty_name(args.betas[i])}\t{pretty_name(args.betas[j])}"
+                  f"\t{r:.4f}\t{rmse:.4f}\t{int(both.sum())}")
+    if args.outpath or args.show:
+        import matplotlib
+
+        if not args.show:
+            matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        fig, axes = plt.subplots(n, n, figsize=(3 * n, 3 * n))
+        axes = np.atleast_2d(axes)
+        for i in range(n):
+            for j in range(n):
+                ax = axes[i][j]
+                if i == j:
+                    ax.hist(vecs[i][~np.isnan(vecs[i])], bins=args.bins)
+                else:
+                    both = ~np.isnan(vecs[i]) & ~np.isnan(vecs[j])
+                    ax.hist2d(vecs[j][both], vecs[i][both], bins=args.bins,
+                              cmap="viridis", cmin=1)
+                if i == n - 1:
+                    ax.set_xlabel(pretty_name(args.betas[j]))
+                if j == 0:
+                    ax.set_ylabel(pretty_name(args.betas[i]))
+        fig.tight_layout()
+        if args.outpath:
+            fig.savefig(args.outpath)
+        if args.show:
+            plt.show()
     return 0

@@ -24,37 +24,46 @@
     python -m wgbs_tools_tpu_torch view | cview x.pat.gz [-r ...]
     python -m wgbs_tools_tpu_torch index | merge | frag_len ...
     python -m wgbs_tools_tpu_torch mask_pat | mix_pat ... [--device cpu]
+    python -m wgbs_tools_tpu_torch beta_cov a.beta ... [-L blocks.bed]
+        [--device cpu]
+    python -m wgbs_tools_tpu_torch beta2bed | beta2bw | beta_stats |
+        compare_betas | beta_to_450k | bed2beta | lbeta2beta ...
+    python -m wgbs_tools_tpu_torch convert -r chr1:1000-2000 | -s 10-20 |
+        -L x.bed | --array_id cg...
+    python -m wgbs_tools_tpu_torch init_genome NAME --fasta_path x.fa
+    python -m wgbs_tools_tpu_torch set_default_ref NAME
+    python -m wgbs_tools_tpu_torch vis | pat_fig x.pat.gz -s 100-140 ...
+    python -m wgbs_tools_tpu_torch mbias_plot x.mbias.OT.txt x.mbias.OB.txt
+    python -m wgbs_tools_tpu_torch worker serve [--warm] | run CMD ... | stop
 
-Flags match wgbs_tools_tpu's commands of the same names (cli/cmd_pat.py,
-cmd_segment.py, cmd_beta.py, cmd_misc.py, cmd_homog.py, cmd_bam2pat.py,
-cmd_markers.py, cmd_view.py), plus --device on each command that reaches
-the card. The device defaults to cuda and raises when CUDA is absent: the
-host path runs only when asked for. With more than one visible card
-pat2beta's table is sharded over the cards; pat2beta --procs N and
-bam2pat --procs N (N > 1) run N worker processes (parallel/multihost.py).
-segment runs both its modes on --device too; its exact mode's --device
-cpu is the host DP (cli/cmd_segment.py). beta_to_blocks, beta_to_table
-and find_markers sum blocks in the block_sums kernel, pat2pairs counts
-pairs in pair_counts and homog bins reads in homog_bins; bam2pat (and
+The installed script is `wgbstools-torch`. The registry holds the JAX
+CLI's 34 commands (wgbs_tools_tpu/cli/main.py). Flags match
+wgbs_tools_tpu's commands of the same names, plus --device on each command
+that reaches the card (and on `worker`, for its --warm pileup). The
+device defaults to cuda and raises when CUDA is absent: the host path
+runs only when asked for. With more than one visible card pat2beta's
+table is sharded over the cards; pat2beta --procs N and bam2pat --procs N
+(N > 1) run N worker processes (parallel/multihost.py). segment runs both
+its modes on --device too; its exact mode's --device cpu is the host DP
+(cli/cmd_segment.py). beta_to_blocks, beta_to_table, beta_cov -L and
+find_markers sum blocks in the block_sums kernel, pat2pairs counts pairs
+in pair_counts and homog bins reads in homog_bins; bam2pat (and
 split_by_allele on its parts) calls reads in call_reads and merges mates
 in merge_pe, then runs pat2beta, as mask_pat --beta and mix_pat do;
 --device cpu runs each kernel's plain twin (bam2pat's calling: numpy on
-the host). add_cpg_counts, split_by_meth, test_bimodal, view, cview,
-index, merge and frag_len are host code and take no --device.
+the host). The other commands are host code and take no --device.
+WGBS_TPU_WORKER=1 routes a command to a running `worker serve`
+(cli/worker.py), and runs it in-process where none answers. This module
+imports no torch: a command imports what it runs when it runs, so a
+`worker run` client starts without torch.
 """
 
 import argparse
 import difflib
+import os
 import os.path as op
 import sys
 
-from ..device import resolve_device
-from ..genome.refdir import Genome
-from ..parallel.multihost import run_pat2beta_multiprocess
-from ..pipeline.pat2beta import pat2beta
-from .cmd_beta import main_beta_to_blocks, main_beta_to_table
-from .cmd_homog import main as main_homog
-from .cmd_misc import main_pat2pairs
 from ..utils import (
     IllegalArgumentError,
     delete_or_skip,
@@ -84,6 +93,11 @@ def main_pat2beta(argv):
                    help="torch device: cuda (default; an error without "
                         "CUDA) or cpu (the kernels' plain PyTorch twins)")
     args = p.parse_args(argv)
+    from ..device import resolve_device
+    from ..genome.refdir import Genome
+    from ..parallel.multihost import run_pat2beta_multiprocess
+    from ..pipeline.pat2beta import pat2beta
+
     device = resolve_device(args.device)
     g = Genome(args.genome)
     for pat in args.pat_paths:
@@ -171,21 +185,34 @@ def add_view_args(parser, out_path=True, sub_sample=True):
 
 COMMANDS = {
     # view
+    "vis": _lazy("cmd_vis"),
     "view": _lazy("cmd_view"),
     "cview": _lazy("cmd_view", "main_cview"),
+    "convert": _lazy("cmd_convert"),
+    "pat_fig": _lazy("cmd_vis", "main_pat_fig"),
     # beta ops
-    "beta_to_blocks": main_beta_to_blocks,
-    "beta_to_table": main_beta_to_table,
+    "beta_to_blocks": _lazy("cmd_beta", "main_beta_to_blocks"),
+    "beta_to_table": _lazy("cmd_beta", "main_beta_to_table"),
+    "beta2bed": _lazy("cmd_beta", "main_beta2bed"),
+    "beta2bw": _lazy("cmd_beta", "main_beta2bw"),
+    "beta_cov": _lazy("cmd_beta", "main_beta_cov"),
+    "beta_stats": _lazy("cmd_beta", "main_beta_stats"),
+    "beta_to_450k": _lazy("cmd_beta", "main_beta_to_450k"),
+    "compare_betas": _lazy("cmd_beta", "main_compare_betas"),
     # generation
+    "init_genome": _lazy("cmd_genome", "main_init_genome"),
+    "set_default_ref": _lazy("cmd_genome", "main_set_default_ref"),
     "bam2pat": main_bam2pat,
     "index": _lazy("cmd_pat", "main_index"),
     "pat2beta": main_pat2beta,
+    "bed2beta": _lazy("cmd_beta", "main_bed2beta"),
+    "lbeta2beta": _lazy("cmd_beta", "main_lbeta2beta"),
     "mix_pat": _lazy("cmd_pat", "main_mix_pat"),
     "merge": _lazy("cmd_pat", "main_merge"),
     "mask_pat": _lazy("cmd_pat", "main_mask_pat"),
     # analysis
     "segment": main_segment,
-    "homog": main_homog,
+    "homog": _lazy("cmd_homog"),
     "find_markers": _lazy("cmd_markers"),
     "add_cpg_counts": _lazy("cmd_bam2pat", "main_add_cpg_counts"),
     "frag_len": _lazy("cmd_pat", "main_frag_len"),
@@ -193,7 +220,9 @@ COMMANDS = {
     "split_by_meth": _lazy("cmd_bam2pat", "main_split_by_meth"),
     "test_bimodal": _lazy("cmd_markers", "main_test_bimodal"),
     # extras beyond the reference's registered commands
-    "pat2pairs": main_pat2pairs,
+    "pat2pairs": _lazy("cmd_misc", "main_pat2pairs"),
+    "mbias_plot": _lazy("cmd_misc", "main_mbias_plot"),
+    "worker": _lazy("worker"),
 }
 
 
@@ -221,6 +250,15 @@ def main(argv=None):
         if close:
             eprint("did you mean", " or ".join(close), "?")
         return 1
+    if cmd != "worker" and os.environ.get("WGBS_TPU_WORKER") == "1":
+        # transparent routing: run on the persistent worker when one is up
+        # (its process keeps the CUDA context and kernels loaded across
+        # invocations); fall through to in-process execution when it is not
+        from .worker import run_via_worker
+
+        rc = run_via_worker(argv)
+        if rc is not None:
+            return rc
     try:
         return COMMANDS[cmd](argv[1:]) or 0
     except IllegalArgumentError as e:

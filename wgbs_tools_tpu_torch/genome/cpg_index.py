@@ -171,3 +171,55 @@ def _concat_seq(parts):
     lower = (seq >= 97) & (seq <= 122)
     seq[lower] -= 32
     return seq
+
+
+def find_cpg_loci(seq: np.ndarray) -> np.ndarray:
+    """1-based positions of the C of each CG dinucleotide (vectorized scan)."""
+    if seq.shape[0] < 2:
+        return np.empty(0, dtype=np.int32)
+    hits = (seq[:-1] == ord("C")) & (seq[1:] == ord("G"))
+    return (np.nonzero(hits)[0] + 1).astype(np.int32)
+
+
+def build_from_fasta(fasta_path, name="genome", chrom_filter=None, sort_chroms=True):
+    """Scan a FASTA and build a CpGIndex.
+
+    `chrom_filter`/`sort_chroms` mirror the reference's chromosome validation
+    and ordering (ref: init_genome.py:263-281): keep chr1..chrN/X/Y/M style
+    names, order numerically then X, Y, M.
+    """
+    seqs = read_fasta(fasta_path)
+    names = list(seqs.keys())
+    if chrom_filter is None:
+        chrom_filter = is_valid_chrom
+    names = [c for c in names if chrom_filter(c)]
+    if sort_chroms:
+        names = sorted(names, key=chromosome_order)
+    loci_parts = []
+    offsets = [0]
+    sizes = []
+    for c in names:
+        loci_c = find_cpg_loci(seqs[c])
+        loci_parts.append(loci_c)
+        offsets.append(offsets[-1] + loci_c.shape[0])
+        sizes.append(seqs[c].shape[0])
+    loci = (
+        np.concatenate(loci_parts) if loci_parts else np.empty(0, dtype=np.int32)
+    )
+    return CpGIndex(loci, np.asarray(offsets), names, np.asarray(sizes), name=name)
+
+
+def chromosome_order(c):
+    """chr1 < chr2 < ... < chrX < chrY < chrM (ref: init_genome.py:263-275)."""
+    if c.startswith("chr"):
+        c = c[3:]
+    if c.isdigit():
+        return int(c)
+    return {"X": 10000, "Y": 10001, "M": 10002, "MT": 10002}.get(c, 10003)
+
+
+def is_valid_chrom(chrom):
+    """chrN / N / X / Y / M / MT names only (ref: init_genome.py:278-281)."""
+    import re
+
+    return bool(re.match(r"^(chr)?([\d]+|[XYM]|(MT))$", chrom))

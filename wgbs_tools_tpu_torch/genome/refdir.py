@@ -1,13 +1,14 @@
-"""Genome reference directories, read only.
+"""Genome reference directories.
 
-The port's copy of what pat2beta, segment and the CLI need from
-wgbs_tools_tpu/genome/refdir.py: the `references/<name>/` layout with a
-`default` symlink (ref: src/python/utils_wgbs.py:53-115), rooted at
-$WGBS_TPU_REFDIR (default: <repo>/references); the genome's number of CpG
-sites, read from the CpG index that `init_genome` writes
-(`cpg_index.npz` + `cpg_index.json`); the whole index
-(`genome/cpg_index.py::CpGIndex`), loaded at first use; and bam2pat's
-files in the directory (`join`, `blacklist`, `whitelist`).
+The port's copy of wgbs_tools_tpu/genome/refdir.py: the
+`references/<name>/` layout with a `default` symlink (ref:
+src/python/utils_wgbs.py:53-115, set_default_ref.py:35-49), rooted at
+$WGBS_TPU_REFDIR (default: <repo>/references, made at first use); the
+genome's number of CpG sites, read from the CpG index that `init_genome`
+writes (`cpg_index.npz` + `cpg_index.json`); the whole index
+(`genome/cpg_index.py::CpGIndex`), loaded at first use; and the files in
+the directory (`join`, `annotations`, `blocks`, `blacklist`, `whitelist`,
+`ilmn2cpg_dict`).
 """
 
 import os
@@ -16,16 +17,16 @@ from pathlib import Path
 
 import numpy as np
 
-from ..utils import IllegalArgumentError
+from ..utils import IllegalArgumentError, mkdirp
 from .cpg_index import INDEX_BASENAME, META_BASENAME, CpGIndex
 
 
 def references_root():
     env = os.environ.get("WGBS_TPU_REFDIR")
     if env:
-        return env
-    return op.join(str(Path(op.realpath(__file__)).parent.parent.parent),
-                   "references")
+        return mkdirp(env)
+    pkg_root = Path(op.realpath(__file__)).parent.parent.parent
+    return mkdirp(op.join(str(pkg_root), "references"))
 
 
 def genome_dir(name=None):
@@ -48,6 +49,20 @@ def resolve_genome_name(name=None):
             raise IllegalArgumentError("No default genome set.")
         return os.readlink(refdir)
     return name
+
+
+def set_default_ref(name):
+    """Point the `default` symlink at references/<name>."""
+    root = references_root()
+    target = op.join(root, name)
+    if not op.isdir(target):
+        raise IllegalArgumentError(f"Invalid reference name: {name}")
+    link = op.join(root, "default")
+    if op.islink(link):
+        os.unlink(link)
+    elif op.exists(link):
+        raise IllegalArgumentError(f"{link} exists and is not a symlink")
+    os.symlink(name, link)
 
 
 class Genome:
@@ -78,6 +93,14 @@ class Genome:
                 raise IllegalArgumentError(f"Invalid reference path: {path}")
             return None
         return path
+
+    @property
+    def annotations(self):
+        return self.join("annotations.bed.gz")
+
+    @property
+    def blocks(self):
+        return self.join("blocks.bed.gz")
 
     @property
     def blacklist(self):

@@ -4,8 +4,8 @@ between genomic loci and CpG-site indices.
 The port's copy of wgbs_tools_tpu/genome/region.py's `GenomicRegion`
 (same semantics as the reference, ref: src/python/genomic_region.py),
 against the in-memory CpGIndex, with Illumina array ids (`array_id`, through
-the genome's ilmn2CpG.tsv.gz). Annotation lookup is not ported: `__str__`
-prints the region line alone, as the JAX package does with `no_anno`.
+the genome's ilmn2CpG.tsv.gz) and the genome's annotation lines under the
+region line unless `no_anno` (`genome/annotations.py`).
 """
 
 import re
@@ -16,13 +16,15 @@ from .refdir import Genome
 
 class GenomicRegion:
     def __init__(self, region=None, sites=None, genome_name=None, genome=None,
-                 array_id=None):
+                 array_id=None, no_anno=True):
         self.genome = genome if genome is not None else Genome(genome_name)
         self.genome_name = self.genome.name
         self.chrom = None
         self.sites = None
         self.region_str = None
         self.bp_tuple = None
+        self.no_anno = no_anno
+        self._annotation = None
 
         if region is not None:
             self.parse_region(region)
@@ -131,9 +133,25 @@ class GenomicRegion:
             site2 += 1
         return site1, site2
 
+    @property
+    def annotation(self):
+        """Annotation lines for the region, or '' (ref:
+        genomic_region.py:58-70 — fetched unless no_anno/whole-genome)."""
+        if self.no_anno or self.is_whole():
+            return ""
+        if self._annotation is None:
+            from .annotations import region_annotation
+
+            self._annotation = region_annotation(
+                self.genome, self.chrom, self.bp_tuple[0], self.bp_tuple[1])
+        return self._annotation
+
     def __str__(self):
         if self.sites is None:
             return "Whole genome"
         s1, s2 = self.sites
         nr_bp = self.bp_tuple[1] - self.bp_tuple[0] + 1
-        return f"{self.region_str} - {nr_bp:,}bp, {s2 - s1:,}CpGs: {s1}-{s2}"
+        res = f"{self.region_str} - {nr_bp:,}bp, {s2 - s1:,}CpGs: {s1}-{s2}"
+        if self.annotation:
+            res += "\n" + self.annotation
+        return res

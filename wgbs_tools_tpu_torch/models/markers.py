@@ -460,13 +460,22 @@ def _isna(values):
 
 
 def _nargsort(items, ascending=True):
-    """pandas.core.sorting.nargsort (kind "quicksort", NaNs last): the
-    order DataFrame.sort_values gives a column of numpy values."""
+    """The order DataFrame.sort_values gives a column, NaNs last.
+
+    A numeric column sorts as pandas.core.sorting.nargsort sorts numpy
+    values (kind "quicksort"). A text column sorts as pandas sorts a
+    string column backed by Arrow (pandas 3's default `str` dtype): a
+    stable sort, so tied rows keep their row order in either direction."""
     mask = _isna(items)
     idx = np.arange(len(items))
     non_nans = items[~mask]
     non_nan_idx = idx[~mask]
     nan_idx = np.nonzero(mask)[0]
+    if items.dtype.kind in "OUS":
+        vals = non_nans.tolist()
+        order = sorted(range(len(vals)), key=vals.__getitem__,
+                       reverse=not ascending)
+        return np.concatenate([non_nan_idx[order], nan_idx]).astype(np.int64)
     if not ascending:
         non_nans = non_nans[::-1]
         non_nan_idx = non_nan_idx[::-1]
