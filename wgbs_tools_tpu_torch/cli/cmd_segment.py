@@ -29,6 +29,7 @@ from ..genome.refdir import Genome
 from ..genome.region import GenomicRegion
 from ..models.segment import DEF_CHUNK, SegmentConfig, segment_ranges
 from ..parallel.multihost import run_segment_multiprocess
+from ..trace import count, on, span
 from ..utils import IllegalArgumentError, eprint, validate_file_list, \
     validate_single_file
 from .main import add_gr_args
@@ -36,7 +37,37 @@ from .main import add_gr_args
 
 def main(argv, timings=None):
     """Run the command on argv. `timings`, a dict, collects the stage
-    seconds of the segmentation (SegmentConfig.timings)."""
+    seconds of the segmentation (SegmentConfig.timings). While a torch
+    profiler runs, the command is the span segment.run, and the counter
+    segment.bed_rows counts the blocks it writes (see trace.py)."""
+    with span("segment.run"):
+        with span("segment.setup"):
+            args, betas, idx, ranges, cfg = _setup(argv, timings)
+        if args.procs and args.procs > 1:
+            with tempfile.TemporaryDirectory() as td:
+                starts, ends = run_segment_multiprocess(
+                    betas, ranges, op.join(td, "seg"),
+                    num_processes=args.procs, device=args.device,
+                    max_cpg=cfg.max_cpg, max_bp=cfg.max_bp,
+                    pseudo_count=cfg.pseudo_count, chunk_size=cfg.chunk_size,
+                    min_cpg=cfg.min_cpg, mode=cfg.mode, genome=args.genome,
+                    threads=args.threads)
+        else:
+            starts, ends = segment_ranges(betas, ranges, idx, cfg)
+        eprint(f"[wt segment] found {len(starts):,} blocks")
+
+        with span("segment.bed_loci"):
+            blocks = sites_blocks(idx, np.stack([starts, ends], axis=1))
+        with span("segment.bed_write"):
+            _write_bed(args.out_path, blocks, len(starts))
+        if on():
+            count("segment.bed_rows", len(starts))
+    return 0
+
+
+def _setup(argv, timings):
+    """The parsed arguments, the betas, the genome's CpG index, the site
+    ranges to segment and the SegmentConfig of argv."""
     p = argparse.ArgumentParser(
         prog="segment",
         description="Segment the genome into homogeneously methylated blocks")
@@ -114,24 +145,16 @@ def main(argv, timings=None):
         device=args.device,
         timings=timings,
     )
-    if args.procs and args.procs > 1:
-        with tempfile.TemporaryDirectory() as td:
-            starts, ends = run_segment_multiprocess(
-                betas, ranges, op.join(td, "seg"), num_processes=args.procs,
-                device=args.device, max_cpg=cfg.max_cpg, max_bp=cfg.max_bp,
-                pseudo_count=cfg.pseudo_count, chunk_size=cfg.chunk_size,
-                min_cpg=cfg.min_cpg, mode=cfg.mode, genome=args.genome,
-                threads=args.threads)
-    else:
-        starts, ends = segment_ranges(betas, ranges, idx, cfg)
-    eprint(f"[wt segment] found {len(starts):,} blocks")
+    return args, betas, idx, ranges, cfg
 
-    blocks = sites_blocks(idx, np.stack([starts, ends], axis=1))
-    out_path = args.out_path
+
+def _write_bed(out_path, blocks, n):
+    """The n blocks' bed lines to out_path (stdout where it is None); a
+    path ending in .gz is bgzipped and indexed after."""
     gz = bool(out_path) and out_path.endswith(".gz")
     txt_path = out_path[:-3] if gz else out_path
     out = open(txt_path, "w") if out_path else sys.stdout
-    for i in range(len(starts)):
+    for i in range(n):
         out.write(
             f"{blocks['chr'][i]}\t{blocks['start'][i]}\t{blocks['end'][i]}"
             f"\t{blocks['startCpG'][i]}\t{blocks['endCpG'][i]}\n"
@@ -142,4 +165,3 @@ def main(argv, timings=None):
             # bgzip + .tbi like the reference's Indxer on block outputs
             # (ref: src/python/index.py:96-139)
             index_bed(txt_path)
-    return 0

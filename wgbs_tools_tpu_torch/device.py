@@ -1,13 +1,11 @@
 """Device selection and stage timing. There is no silent fallback: asking
 for CUDA on a host without it raises."""
 
-import threading
-import time
-from contextlib import contextmanager
+import sys
 
 import torch
 
-_TIMINGS_LOCK = threading.Lock()
+from . import trace
 
 
 def require_cuda():
@@ -33,22 +31,19 @@ def resolve_device(device):
     return dev
 
 
-@contextmanager
-def timed(timings, stage, device):
-    """Add the wall seconds of the block to timings[stage].
+def timed(timings, stage, device, span=None):
+    """Add the wall seconds of the block to timings[stage], and name the
+    block in the profiler's trace.
 
-    A no-op when `timings` is None. Otherwise the block ends with a
-    synchronize of a CUDA `device`, so the seconds include the device work
-    the block queued; a run measured this way waits for the device at the
-    end of each device stage. Blocks on several host threads (bam2pat's
-    chromosome threads) add their seconds into one sum."""
-    if timings is None:
-        yield
-        return
-    t0 = time.perf_counter()
-    yield
-    if device is not None and torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-    dt = time.perf_counter() - t0
-    with _TIMINGS_LOCK:
-        timings[stage] = timings.get(stage, 0.0) + dt
+    While a torch profiler runs, the block is the span `span` (see
+    trace.py), by default `<module>.<stage>` after the calling module.
+    With `timings` None nothing is timed and nothing synchronises.
+    Otherwise the block ends with a synchronize of a CUDA `device`, so the
+    seconds include the device work the block queued; a run measured this
+    way waits for the device at the end of each device stage. Blocks on
+    several host threads (bam2pat's chromosome threads) add their seconds
+    into one sum."""
+    if span is None and trace.on():
+        module = sys._getframe(1).f_globals.get("__name__", "")
+        span = f"{module.rpartition('.')[2]}.{stage}"
+    return trace.stage(timings, stage, device, span)

@@ -47,6 +47,7 @@ from ..device import resolve_device, timed
 from ..formats.beta import load_beta
 from ..native import segment_exact_native
 from ..ops.maxplus import maxplus_closure
+from ..trace import span
 from ..utils import IllegalArgumentError
 
 DEF_CHUNK = 60000  # ref: segment.py:21
@@ -318,25 +319,26 @@ def segment_windows_fast(datas, locis, max_cpg=1000, max_bp=2000,
     max_bp = int(max_bp) if max_bp else 0
     pc = float(pseudo_count)
     pms, pts = [], []
-    for w in range(nw):
-        pm, pt = _prefix_sums(datas[w])
-        pms.append(pm)
-        pts.append(pt)
+    with span("segment.fast.prefix"):
+        for w in range(nw):
+            pm, pt = _prefix_sums(datas[w])
+            pms.append(pm)
+            pts.append(pt)
     outs = []
     for lo in range(0, nw, batch):
         sel = list(range(lo, min(lo + batch, nw)))
         sel = sel + [sel[0]] * (batch - len(sel))
-        with timed(timings, "h2d", dev):
+        with timed(timings, "h2d", dev, span="segment.fast.h2d"):
             pm = _int32(np.stack([pms[w] for w in sel]), dev)
             pt = _int32(np.stack([pts[w] for w in sel]), dev)
             loci = _int32(locis[sel], dev)
-        with timed(timings, "cost", dev):
+        with timed(timings, "cost", dev, span="segment.fast.cost"):
             Crev = _cost_fast(pm, pt, loci, W, max_bp, pc)
-        with timed(timings, "dp", dev):
+        with timed(timings, "dp", dev, span="segment.fast.dp"):
             outs.append(pack_mask_bits(_borders_mask(_dp_fast_blocked(Crev,
                                                                       W))))
         del Crev
-    with timed(timings, "mask_fetch", None):
+    with timed(timings, "mask_fetch", None, span="segment.fast.mask_fetch"):
         masks = [unpack_mask_bits(o.cpu().numpy(), n + 1) for o in outs]
     res = []
     for li, lo in enumerate(range(0, nw, batch)):
@@ -472,10 +474,11 @@ def segment_ranges(beta_paths, ranges, index, cfg: SegmentConfig):
     """Segment a list of site ranges; returns (startCpG, endCpG) block arrays."""
     tags, chunks = break_to_chunks(ranges, cfg.chunk_size)
     seg = _seg_fn(beta_paths, index, cfg)
-    results = segment_chunks(beta_paths, chunks, index, cfg)
+    with span("segment.chunks"):
+        results = segment_chunks(beta_paths, chunks, index, cfg)
     batch_seg = (_batch_seg_fast(beta_paths, index, cfg)
                  if cfg.mode == "fast" else None)
-    with timed(cfg.timings, "stitch", cfg.device):
+    with timed(cfg.timings, "stitch", cfg.device, span="segment.stitch"):
         return finalize_segmentation(tags, chunks, results, seg, cfg,
                                      batch_seg=batch_seg)
 
@@ -521,7 +524,8 @@ def segment_chunks(beta_paths, chunks, index, cfg: SegmentConfig,
             if e - s > 1:
                 by_size.setdefault(e - s, []).append(i)
         for n, idxs in by_size.items():
-            with timed(cfg.timings, "beta_load", None):
+            with timed(cfg.timings, "beta_load", None,
+                       span="segment.beta_load"):
                 datas, locis = _load_windows(beta_paths,
                                              [chunks[i] for i in idxs], index)
             # the host path's invalid-beta guard (segment_sites_window), on
@@ -534,9 +538,10 @@ def segment_chunks(beta_paths, chunks, index, cfg: SegmentConfig,
                 datas, locis, int(min(cfg.max_cpg, n)), cfg.max_bp,
                 cfg.pseudo_count, device=cfg.device, timings=cfg.timings)
             del datas
-            for i, T in zip(idxs, Ts):
-                if T is not None:
-                    results[i] = _traceback(T, n) + chunks[i][0]
+            with span("segment.traceback"):
+                for i, T in zip(idxs, Ts):
+                    if T is not None:
+                        results[i] = _traceback(T, n) + chunks[i][0]
     if cfg.mode == "fast":
         # batch all equal-size chunks into single device launches
         by_size = {}
@@ -546,7 +551,8 @@ def segment_chunks(beta_paths, chunks, index, cfg: SegmentConfig,
         for n, idxs in by_size.items():
             if n <= 1 or len(idxs) == 1:
                 continue
-            with timed(cfg.timings, "beta_load", None):
+            with timed(cfg.timings, "beta_load", None,
+                       span="segment.beta_load"):
                 datas, locis = _load_windows(beta_paths,
                                              [chunks[i] for i in idxs], index)
             if (cfg.device.type == "cuda" and cfg.device.index is None
@@ -567,7 +573,8 @@ def segment_chunks(beta_paths, chunks, index, cfg: SegmentConfig,
             for i, rel in zip(idxs, borders):
                 results[i] = rel + chunks[i][0]
     todo = [i for i in own if results[i] is None]
-    with timed(cfg.timings, "chunks", cfg.device):
+    with timed(cfg.timings, "chunks", cfg.device,
+               span="segment.host_chunks"):
         if cfg.mode == "exact" and cfg.threads > 1 and len(todo) > 1:
             # thread pool over chunks (the reference forks a process per
             # chunk, segment.py:144-146; the C++ DP releases the GIL, so
@@ -621,9 +628,10 @@ def finalize_segmentation(tags, chunks, results, seg, cfg: SegmentConfig,
     groups = [[results[i] for i in range(len(results)) if tags[i] == tag]
               for tag in order_tags]
     if batch_seg is not None:
-        merged_list = _merge_groups_batched(groups, batch_seg)
+        merged_list = _merge_groups_batched(groups, _resegment(batch_seg))
     else:
-        merged_list = [_merge_border_list(g, seg) for g in groups]
+        merged_list = [_merge_border_list(g, _resegment(seg))
+                       for g in groups]
     all_starts, all_ends = [], []
     for merged in merged_list:
         all_starts.append(merged[:-1])
@@ -634,6 +642,17 @@ def finalize_segmentation(tags, chunks, results, seg, cfg: SegmentConfig,
     starts, ends = starts[order], ends[order]
     keep = ends - starts > cfg.min_cpg - 1
     return starts[keep], ends[keep]
+
+
+def _resegment(seg_fn):
+    """`seg_fn` with each call (one patch window, or a round's batch of
+    them) in the span segment.stitch.reseg."""
+
+    def run(windows):
+        with span("segment.stitch.reseg"):
+            return seg_fn(windows)
+
+    return run
 
 
 def _merge_border_list(blist, seg_fn):

@@ -203,7 +203,7 @@ def segment_exact_device_batch(datas, locis, W, max_bp, pseudo_count,
     if n < 2:
         return res
     max_bp = int(max_bp) if max_bp else 0
-    with timed(timings, "plan", None):
+    with timed(timings, "plan", None, span="segment.exact.plan"):
         elig, tbl, Wb = plan_windows(datas, locis, W, max_bp, pseudo_count,
                                      cap_limit)
     if len(elig) < B:
@@ -213,20 +213,21 @@ def segment_exact_device_batch(datas, locis, W, max_bp, pseudo_count,
                     "non-monotone loci; they run on the host")
     if not elig:
         return res
-    with timed(timings, "h2d", dev):
+    with timed(timings, "h2d", dev, span="segment.exact.h2d"):
         tbl_d = _device_table(pseudo_count, tbl, dev)
     outs = []
     for lo in range(0, len(elig), max(1, int(batch))):
         sel = elig[lo:lo + batch]
-        with timed(timings, "h2d", dev):
+        with timed(timings, "h2d", dev, span="segment.exact.h2d"):
             counts, loci = _upload(datas[sel], locis[sel], dev)
-        with timed(timings, "dp", dev):
+        with timed(timings, "dp", dev, span="segment.exact.dp"):
             pm, pt = _prefix_sums_wrapped(counts)
             del counts
             outs.append((sel, segment_exact_dp(pm, pt, loci, tbl_d, Wb,
                                                max_bp)))
             del pm, pt, loci
-    with timed(timings, "ks_fetch", None):
+    with timed(timings, "ks_fetch", None,
+               span="segment.exact.ks_fetch"):
         for sel, ks in outs:
             ks = ks.cpu().numpy()
             for j, w in enumerate(sel):

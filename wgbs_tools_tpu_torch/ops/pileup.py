@@ -40,6 +40,7 @@ import os
 import numpy as np
 import torch
 
+from .. import trace
 from ..device import resolve_device, timed
 from ..formats.beta import trim_to_uint
 from ..formats.pat import CODE_C, CODE_DOT, CODE_H, PatFrags
@@ -168,10 +169,15 @@ class PileupAccumulator:
             self.total = torch.zeros((self.n, 2), dtype=torch.int32,
                                      device=self.device)
 
-    def _timed(self, stage):
-        return timed(self.timings, stage, self.device)
+    def _timed(self, stage, span=None):
+        return timed(self.timings, stage, self.device,
+                     span=span or "pileup." + stage)
 
     def add(self, frags: PatFrags):
+        with trace.span("pileup.add"):
+            self._add(frags)
+
+    def _add(self, frags):
         hit = overlap_span(frags, self.window)
         if hit is None:
             return
@@ -191,6 +197,9 @@ class PileupAccumulator:
                 res = pileup_torch(sel.start, sel.length, sel.count,
                                    sel.codes, lo, span, self.device)
         else:
+            if trace.on():
+                trace.count("pileup.sites", np.asarray(sel.length).sum(
+                    dtype=np.int64))
             with self._timed("stage"):
                 staged = self._stage(sel.start, sel.length, sel.count,
                                      sel.codes, lo, span)
@@ -198,7 +207,7 @@ class PileupAccumulator:
                 staged = self._upload(staged, self.device)
             with self._timed("kernel"):
                 res = self._kernel(staged, span)
-        with self._timed("kernel"):
+        with self._timed("kernel", "pileup.fold"):
             # in place, where the JAX package donates the total to _fold_at
             self.total[lo - s : lo - s + span].add_(res)
 

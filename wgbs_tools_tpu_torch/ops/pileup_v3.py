@@ -47,6 +47,7 @@ import torch
 
 from .. import _kernels, native
 from ..formats.pat import CODE_DOT
+from ..trace import span
 
 SB = 128  # sites per sub-block = lanes per row
 # Hopper gives a block at most 227 KB (232,448 bytes) of dynamic shared
@@ -155,30 +156,31 @@ def stage_v3(start, length, count, codes, window_start, window_len,
     native call refuses its input, where the JAX package falls back to
     another form or to v2."""
     native.get_lib()
-    rel, length, count, codes = _prep_window(
-        start, length, count, codes, window_start, window_len)
-    F = rel.shape[0]
+    with span("pileup.stage.prep"):
+        rel, length, count, codes = _prep_window(
+            start, length, count, codes, window_start, window_len)
+        F = rel.shape[0]
 
-    # split at sub-block boundaries: each fragment (len <= SB) yields <= 2
-    # pieces, each inside a single sub-block
-    rr_all = (rel % SB).astype(np.int64)
-    g_all = (rel // SB).astype(np.int64)
-    len1 = np.minimum(length, SB - rr_all).astype(np.int64)
-    len2 = (length - len1).astype(np.int64)
-    has2 = len2 > 0
+        # split at sub-block boundaries: each fragment (len <= SB) yields <= 2
+        # pieces, each inside a single sub-block
+        rr_all = (rel % SB).astype(np.int64)
+        g_all = (rel // SB).astype(np.int64)
+        len1 = np.minimum(length, SB - rr_all).astype(np.int64)
+        len2 = (length - len1).astype(np.int64)
+        has2 = len2 > 0
 
-    p_g = np.concatenate([g_all, g_all[has2] + 1])
-    p_rr = np.concatenate([rr_all, np.zeros(int(has2.sum()), np.int64)])
-    p_len = np.concatenate([len1, len2[has2]])
-    p_cnt = np.concatenate([count, count[has2]]).astype(np.int32)
-    # piece code source: (frag index, column offset within the fragment)
-    p_src = np.concatenate([np.arange(F), np.nonzero(has2)[0]])
-    p_off = np.concatenate([np.zeros(F, np.int64), len1[has2]])
+        p_g = np.concatenate([g_all, g_all[has2] + 1])
+        p_rr = np.concatenate([rr_all, np.zeros(int(has2.sum()), np.int64)])
+        p_len = np.concatenate([len1, len2[has2]])
+        p_cnt = np.concatenate([count, count[has2]]).astype(np.int32)
+        # piece code source: (frag index, column offset within the fragment)
+        p_src = np.concatenate([np.arange(F), np.nonzero(has2)[0]])
+        p_off = np.concatenate([np.zeros(F, np.int64), len1[has2]])
 
-    order = np.argsort(p_g, kind="stable")
-    p_g, p_rr, p_len, p_cnt = (p_g[order], p_rr[order], p_len[order],
-                               p_cnt[order])
-    p_src, p_off = p_src[order], p_off[order]
+        order = np.argsort(p_g, kind="stable")
+        p_g, p_rr, p_len, p_cnt = (p_g[order], p_rr[order], p_len[order],
+                                   p_cnt[order])
+        p_src, p_off = p_src[order], p_off[order]
 
     # value planes and count words hold one count per byte: any count >=
     # 256 (and the empty batch, as in JAX) takes the classic per-count-row
@@ -202,74 +204,82 @@ def stage_v3(start, length, count, codes, window_start, window_len,
         raise ValueError(f"tile={tile} must be a multiple of SB={SB}")
     tile_sb = tile // SB
 
-    if F:
-        # value-plane and lane-count rows are count-agnostic: pieces of any
-        # count share
-        pk_cnt = np.ones_like(p_cnt) if lane_counts else p_cnt
-        packed = _native_ok(native.pack_rows_native(p_g, pk_cnt, p_rr, p_len),
-                            "pack_rows128")
-    else:
-        packed = (np.zeros(0, np.int32),) * 3
+    with span("pileup.stage.pack"):
+        if F:
+            # value-plane and lane-count rows are count-agnostic: pieces of
+            # any count share
+            pk_cnt = np.ones_like(p_cnt) if lane_counts else p_cnt
+            packed = _native_ok(native.pack_rows_native(p_g, pk_cnt, p_rr,
+                                                        p_len),
+                                "pack_rows128")
+        else:
+            packed = (np.zeros(0, np.int32),) * 3
     piece_row, row_g, row_count = packed
     R = row_g.shape[0]
 
-    if vals:
-        all_mv = np.zeros((max(R, 1), SB), dtype=np.uint8)
-        all_cv = np.zeros((max(R, 1), SB), dtype=np.uint8)
-        _native_ok(native.place_vals_native(codes, p_src, p_off, p_rr, p_len,
-                                            p_cnt, piece_row, all_mv, all_cv),
-                   "place_vals_rows")
-    else:
-        all_words = np.full((max(R, 1), SB // 16), -1, dtype=np.int32)
-        if F:
-            _native_ok(native.place_pack_native(codes, p_src, p_off, p_rr,
-                                                p_len, piece_row, all_words),
-                       "place_pack_rows")
-    all_cnts = None
-    if lane_counts and not vals:
-        all_cnts = np.zeros((R, SB // 4), dtype=np.int32)  # R >= 1: F > 0
-        _native_ok(native.place_counts_native(p_cnt, p_rr, p_len, piece_row,
-                                              all_cnts), "place_counts_rows")
-
-    # chunking over rows: bounded rows, sub-block span, single tile
-    row_tile = row_g // tile_sb
-    breaks = [0]
-    cstart = 0
-    while cstart < R:
-        lim1 = cstart + rc - 1
-        lim2 = int(np.searchsorted(row_g, row_g[cstart] + g_max, side="left"))
-        lim3 = int(np.searchsorted(row_tile, row_tile[cstart] + 1,
-                                   side="left"))
-        nxt = max(min(lim1, lim2, lim3, R), cstart + 1)
-        breaks.append(nxt)
-        cstart = nxt
-    bstarts = np.asarray(breaks[:-1], dtype=np.int64)
-    bends = np.asarray(breaks[1:], dtype=np.int64)
-    if not R:
+    with span("pileup.stage.place"):
         if vals:
-            all_mv = np.zeros((0, SB), dtype=np.uint8)
-            all_cv = np.zeros((0, SB), dtype=np.uint8)
+            all_mv = np.zeros((max(R, 1), SB), dtype=np.uint8)
+            all_cv = np.zeros((max(R, 1), SB), dtype=np.uint8)
+            _native_ok(native.place_vals_native(codes, p_src, p_off, p_rr,
+                                                p_len, p_cnt, piece_row,
+                                                all_mv, all_cv),
+                       "place_vals_rows")
         else:
-            all_words = np.zeros((0, SB // 16), dtype=np.int32)
-    rows = (all_mv, all_cv) if vals else all_words
-    num_tiles = (window_len + tile - 1) // tile
-    if classes is None:
-        return _assemble_class(row_g, row_tile, row_count, rows, bstarts,
-                               bends, rc, g_max, tile, num_tiles, R, fused,
-                               all_cnts)
-    out = []
-    lens_c = bends - bstarts
-    lo = 0
-    for rc_c in classes:
-        # a class-rc_c chunk holds at most rc_c - 1 rows: row rc_c - 1 must
-        # stay padding (it carries the base_g stash)
-        sel = (lens_c > lo) & (lens_c <= rc_c - 1) if rc_c != classes[-1] \
-            else (lens_c > lo)
-        out.append(_assemble_class(
-            row_g, row_tile, row_count, rows, bstarts[sel], bends[sel],
-            rc_c, g_max, tile, num_tiles, R, fused, all_cnts))
-        lo = rc_c - 1
-    return out
+            all_words = np.full((max(R, 1), SB // 16), -1, dtype=np.int32)
+            if F:
+                _native_ok(native.place_pack_native(codes, p_src, p_off,
+                                                    p_rr, p_len, piece_row,
+                                                    all_words),
+                           "place_pack_rows")
+        all_cnts = None
+        if lane_counts and not vals:
+            all_cnts = np.zeros((R, SB // 4), dtype=np.int32)  # R >= 1
+            _native_ok(native.place_counts_native(p_cnt, p_rr, p_len,
+                                                  piece_row, all_cnts),
+                       "place_counts_rows")
+
+    with span("pileup.stage.assemble"):
+        # chunking over rows: bounded rows, sub-block span, single tile
+        row_tile = row_g // tile_sb
+        breaks = [0]
+        cstart = 0
+        while cstart < R:
+            lim1 = cstart + rc - 1
+            lim2 = int(np.searchsorted(row_g, row_g[cstart] + g_max,
+                                       side="left"))
+            lim3 = int(np.searchsorted(row_tile, row_tile[cstart] + 1,
+                                       side="left"))
+            nxt = max(min(lim1, lim2, lim3, R), cstart + 1)
+            breaks.append(nxt)
+            cstart = nxt
+        bstarts = np.asarray(breaks[:-1], dtype=np.int64)
+        bends = np.asarray(breaks[1:], dtype=np.int64)
+        if not R:
+            if vals:
+                all_mv = np.zeros((0, SB), dtype=np.uint8)
+                all_cv = np.zeros((0, SB), dtype=np.uint8)
+            else:
+                all_words = np.zeros((0, SB // 16), dtype=np.int32)
+        rows = (all_mv, all_cv) if vals else all_words
+        num_tiles = (window_len + tile - 1) // tile
+        if classes is None:
+            return _assemble_class(row_g, row_tile, row_count, rows, bstarts,
+                                   bends, rc, g_max, tile, num_tiles, R, fused,
+                                   all_cnts)
+        out = []
+        lens_c = bends - bstarts
+        lo = 0
+        for rc_c in classes:
+            # a class-rc_c chunk holds at most rc_c - 1 rows: row rc_c - 1 must
+            # stay padding (it carries the base_g stash)
+            sel = (lens_c > lo) & (lens_c <= rc_c - 1) if rc_c != classes[-1] \
+                else (lens_c > lo)
+            out.append(_assemble_class(
+                row_g, row_tile, row_count, rows, bstarts[sel], bends[sel],
+                rc_c, g_max, tile, num_tiles, R, fused, all_cnts))
+            lo = rc_c - 1
+        return out
 
 
 def _assemble_class(row_g, row_tile, row_count, rows, bstarts, bends, rc,

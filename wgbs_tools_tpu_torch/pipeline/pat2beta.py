@@ -17,6 +17,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from ..device import resolve_device, timed
+from ..trace import span
 from ..formats.pat import DEF_CHUNK_BYTES, iter_pat
 from ..genome.refdir import Genome
 from ..ops.pileup import PileupAccumulator
@@ -55,6 +56,13 @@ def _accumulator(window, device, backend, timings, sharded, devices,
                            timings=timings)
 
 
+def _decode_next(batches):
+    """The next batch of `batches`, or None at its end, in the span
+    pat2beta.decode (on the lookahead thread)."""
+    with span("pat2beta.decode"):
+        return next(batches, None)
+
+
 def stream_into(acc, batches, timings=None):
     """Fold an iterator of PatFrags batches into the accumulator `acc`;
     returns the number of fragments. One-slab lookahead: the next slab
@@ -63,13 +71,13 @@ def stream_into(acc, batches, timings=None):
     time spent waiting for the next slab."""
     nf = 0
     with ThreadPoolExecutor(1) as ex:
-        fut = ex.submit(next, batches, None)
+        fut = ex.submit(_decode_next, batches)
         while True:
-            with timed(timings, "decode", None):
+            with timed(timings, "decode", None, span="pat2beta.decode_wait"):
                 chunk = fut.result()
             if chunk is None:
                 break
-            fut = ex.submit(next, batches, None)
+            fut = ex.submit(_decode_next, batches)
             acc.add(chunk)
             nf += chunk.nr_frags
     return nf
@@ -80,8 +88,9 @@ def _accumulate_pat(pat_path, nr_sites, device, backend="cuda",
                     devices=None, **forms):
     """Stream a pat file into a pileup accumulator. Returns
     (accumulator, nr_frags)."""
-    acc = _accumulator((1, nr_sites + 1), device, backend, timings, sharded,
-                       devices, forms)
+    with span("pat2beta.setup"):
+        acc = _accumulator((1, nr_sites + 1), device, backend, timings,
+                           sharded, devices, forms)
     nf = stream_into(acc, iter_pat(pat_path, chunk_bytes=chunk_bytes),
                      timings)
     return acc, nf
@@ -103,21 +112,25 @@ def pat2beta(pat_path, out_dir=".", genome=None, lbeta=False, backend="cuda",
     wait, stage, h2d, kernel, saturate_fetch, write) accumulate there; the
     device is synchronized at the end of each device stage, and the decode
     lookahead runs as it does untimed."""
-    g = genome if genome is not None else Genome(None)
-    nr_sites = g.get_nr_sites() if hasattr(g, "get_nr_sites") else g.nr_sites
+    with span("pat2beta.run"):
+        with span("pat2beta.setup"):
+            g = genome if genome is not None else Genome(None)
+            nr_sites = (g.get_nr_sites() if hasattr(g, "get_nr_sites")
+                        else g.nr_sites)
 
-    acc, nf = _accumulate_pat(pat_path, nr_sites, device, backend=backend,
-                              chunk_bytes=chunk_bytes, timings=timings,
-                              sharded=sharded, devices=devices, **forms)
-    beta = acc.finalize(lbeta)
-    suff = ".lbeta" if lbeta else ".beta"
-    if out_path is None:
-        out_path = op.join(out_dir, splitextgz(op.basename(pat_path))[0] + suff)
-    with timed(timings, "write", None):
-        beta.tofile(out_path)
-    logger.info("pat2beta: %s -> %s (%d frags, %d sites, %s)", pat_path,
-                out_path, nf, nr_sites,
-                getattr(acc, "devices", None) or acc.device)
+        acc, nf = _accumulate_pat(pat_path, nr_sites, device, backend=backend,
+                                  chunk_bytes=chunk_bytes, timings=timings,
+                                  sharded=sharded, devices=devices, **forms)
+        beta = acc.finalize(lbeta)
+        suff = ".lbeta" if lbeta else ".beta"
+        if out_path is None:
+            out_path = op.join(out_dir,
+                               splitextgz(op.basename(pat_path))[0] + suff)
+        with timed(timings, "write", None, span="pat2beta.write"):
+            beta.tofile(out_path)
+        logger.info("pat2beta: %s -> %s (%d frags, %d sites, %s)", pat_path,
+                    out_path, nf, nr_sites,
+                    getattr(acc, "devices", None) or acc.device)
     return out_path
 
 
