@@ -2,7 +2,8 @@
 JAX package's originals exactly, on seeded numpy inputs: the pat parser
 and streams, the BGZF reader, writer, compressor and inflater, beta IO and
 saturation, the host pileup (the device kernels' oracle), the v3 row
-packer and placers, blocks beds and their .tbi, the genome's site count,
+packer and placers (and the v3 staging's native prep against its numpy
+prep), blocks beds and their .tbi, the genome's site count,
 CpG index and region parsing, the CLI's file checks, exact segmentation's
 host helpers (the ll table and the band sizes), and init_genome's host
 code: the FASTA's CpG scan and chromosome rules, the reference files'
@@ -34,6 +35,7 @@ from wgbs_tools_tpu_torch.formats import bgzf as pbgzf
 from wgbs_tools_tpu_torch.formats import pat as ppat
 from wgbs_tools_tpu_torch.formats.beta import trim_to_uint
 from wgbs_tools_tpu_torch.genome.refdir import Genome
+from wgbs_tools_tpu_torch.ops import pileup_v3
 
 pytestmark = pytest.mark.skipif(oracle_lib() is None,
                                 reason="the JAX package's native library "
@@ -279,6 +281,97 @@ def test_pack_and_place_refuse_what_jax_refuses():
                                      mv, cv) is None
         assert mod.place_counts_native(big, rr, ln, piece_row,
                                        np.zeros((R, 32), np.int32)) is None
+
+
+def _numpy_pieces(start, length, count, codes, window_start, window_len):
+    """stage_v3's numpy prep before the native pass: _prep_window, then the
+    split at sub-block boundaries and its stable sort by g. Returns the
+    pieces, each with its codes cut out: (g, rr, len, cnt, piece codes
+    (P, 128), '.' past each piece's end)."""
+    rel, length, count, codes = pileup_v3._prep_window(
+        start, length, count, codes, window_start, window_len)
+    F = rel.shape[0]
+    rr, g = rel % 128, rel // 128
+    len1 = np.minimum(length, 128 - rr)
+    len2 = length - len1
+    has2 = len2 > 0
+    p_g = np.concatenate([g, g[has2] + 1])
+    p_rr = np.concatenate([rr, np.zeros(int(has2.sum()), np.int64)])
+    p_len = np.concatenate([len1, len2[has2]])
+    p_cnt = np.concatenate([count, count[has2]])
+    p_src = np.concatenate([np.arange(F), np.nonzero(has2)[0]])
+    p_off = np.concatenate([np.zeros(F, np.int64), len1[has2]])
+    order = np.argsort(p_g, kind="stable")
+    cut = _cut(codes, p_src[order], p_off[order], p_len[order])
+    return p_g[order], p_rr[order], p_len[order], p_cnt[order], cut
+
+
+def _cut(codes, src, off, ln):
+    """codes[src, off : off + ln] of each piece into a '.'-padded (P, 128)
+    array."""
+    col = np.arange(128)
+    inside = col[None, :] < ln[:, None]
+    at = np.where(inside, off[:, None] + col[None, :], 0)
+    return np.where(inside, codes[src[:, None], at], 3).astype(np.uint8)
+
+
+def _prep_batch(seed):
+    """Unsorted lines of 0-700 sites (a third over 128, a few of none),
+    and two long lines that the window's left edge (3000) cuts in their
+    second and third 128-site pieces."""
+    rng = np.random.default_rng(seed)
+    n = 600
+    length = np.concatenate([rng.integers(1, 701, n), [400, 500]])
+    length[rng.choice(n, 4, replace=False)] = 0
+    start = np.concatenate([rng.integers(1, 9000, n),
+                            [3000 - 128 - 40, 3000 - 256 - 7]])
+    width = int(length.max())
+    codes = rng.integers(0, 4, (n + 2, width)).astype(np.uint8)
+    count = rng.integers(1, 300, n + 2)
+    return (start.astype(np.int32), length.astype(np.int32),
+            count.astype(np.int32), codes)
+
+
+@pytest.mark.parametrize("threads", [1, 3])
+@pytest.mark.parametrize("window", [(1, 9800), (3000, 4096)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_stage_prep_equals_numpy_prep(seed, window, threads):
+    """native.stage_prep_native's pieces equal stage_v3's numpy prep and
+    piece split, piece for piece, on one thread or several; their codes,
+    read through p_src / p_off in the caller's codes, equal the numpy
+    prep's copied rows."""
+    start, length, count, codes = _prep_batch(seed)
+    got = pnat.stage_prep_native(start, length, count, codes, *window,
+                                 threads=threads)
+    p_g, p_rr, p_len, p_cnt, p_src, p_off, n_split = got
+    assert all(a.dtype == np.int32 for a in got[:6])
+    want = _numpy_pieces(start, length, count, codes, *window)
+    for a, b in zip((p_g, p_rr, p_len, p_cnt), want[:4]):
+        assert np.array_equal(a, b)
+    assert np.array_equal(_cut(codes, p_src, p_off, p_len), want[4])
+    long = length[length > 128]
+    assert n_split == int(((long + 127) // 128).sum()) > 0
+    # a line of no site makes an empty piece, unless the clip shortened a
+    # line
+    assert (p_rr + p_len <= 128).all() and (p_len >= 0).all()
+    assert (p_len == 0).any() == (window[0] == 1)
+
+
+def test_stage_prep_refuses_bad_lines():
+    """None, as the placers' wrappers refuse theirs, for a negative length
+    and for codes narrower than a line; an empty batch has no pieces; arrays
+    of different lengths raise."""
+    start, length, count, codes = _prep_batch(3)
+    bad = length.copy()
+    bad[7] = -1
+    assert pnat.stage_prep_native(start, bad, count, codes, 1, 9800) is None
+    assert pnat.stage_prep_native(start, length, count, codes[:, :600], 1,
+                                  9800) is None
+    got = pnat.stage_prep_native(start[:0], length[:0], count[:0],
+                                 codes[:0], 1, 9800)
+    assert all(a.size == 0 for a in got[:6]) and got[6] == 0
+    with pytest.raises(ValueError, match="as many"):
+        pnat.stage_prep_native(start, length[:-1], count, codes, 1, 9800)
 
 
 def test_genome_nr_sites_equals_jax(mini_genome):

@@ -3,6 +3,8 @@ array (tolerance 0), for the value-plane form (fused and split planes),
 the lane-count form and the classic form (with the JAX package's gates
 between them), and raises where the JAX package would fall back."""
 
+from functools import partial
+
 import numpy as np
 import pytest
 
@@ -10,6 +12,7 @@ pytest.importorskip("torch")
 
 from synth import random_frags  # noqa: E402
 from test_torch_oracle_lib import oracle_lib  # noqa: E402
+from wgbs_tools_tpu.formats.pat import CODE_DOT  # noqa: E402
 from wgbs_tools_tpu.ops import pileup_tpu3 as jax_v3  # noqa: E402
 from wgbs_tools_tpu_torch.ops import pileup_v3  # noqa: E402
 
@@ -18,7 +21,76 @@ pytestmark = pytest.mark.skipif(oracle_lib() is None,
 
 SMALL = dict(tile=512, rc=64, g_max=4)
 
-# (fragments, window_start, window_len, geometry); fragments from a seed
+
+def _lines(rng, starts, lengths, counts=None):
+    """(start, length, count, codes) of pat lines in the given order: codes
+    T, C, H or '.' at random, '.' past each line's end, counts 1-5 unless
+    given."""
+    starts = np.asarray(starts, np.int32)
+    lengths = np.asarray(lengths, np.int32)
+    width = int(lengths.max(initial=1))
+    codes = rng.integers(0, 4, (starts.size, width)).astype(np.uint8)
+    codes[np.arange(width)[None, :] >= lengths[:, None]] = CODE_DOT
+    if counts is None:
+        counts = rng.integers(1, 6, starts.size)
+    return starts, lengths, np.asarray(counts, np.int32), codes
+
+
+def _sorted_lines(rng, starts, lengths, **kw):
+    order = np.argsort(starts, kind="stable")
+    return _lines(rng, np.asarray(starts)[order], np.asarray(lengths)[order],
+                  **kw)
+
+
+def edge_lengths(rng):
+    """Lines of exactly 127, 128, 129, 256 and 257 sites, 40 of each."""
+    lengths = np.repeat([127, 128, 129, 256, 257], 40)
+    rng.shuffle(lengths)
+    return _sorted_lines(rng, rng.integers(1, 6000, lengths.size), lengths)
+
+
+def ont_like(rng, top_count=5):
+    """Nanopore-like lines: log-normal spans (median 100 sites, sigma 1,
+    cap 3,000), so ~40 % are over 128 sites; one long line's count is
+    `top_count`."""
+    n = 300
+    lengths = np.clip(np.rint(np.exp(rng.normal(np.log(100), 1.0, n))), 1,
+                      3000).astype(np.int32)
+    counts = rng.integers(1, 6, n)
+    counts[np.argmax(lengths)] = top_count
+    return _sorted_lines(rng, rng.integers(1, 30_000, n), lengths,
+                         counts=counts)
+
+
+def unsorted_long(rng):
+    """Unsorted lines of 1-400 sites; after them, short lines whose starts
+    tie the first and the second 128-site piece of a long line."""
+    lengths = rng.integers(1, 401, 300)
+    starts = rng.integers(1, 8000, 300)
+    i = int(np.argmax(lengths > 128))
+    starts = np.concatenate([starts, [starts[i], starts[i] + 128]])
+    lengths = np.concatenate([lengths, [10, 20]])
+    return _lines(rng, starts, lengths)
+
+
+def left_edge_cuts_long(rng):
+    """Lines of 1-400 sites about the window's left edge (2500), and two
+    long lines that the edge cuts in their second and third 128-site
+    pieces."""
+    starts = np.concatenate([rng.integers(1, 6000, 300),
+                             [2500 - 128 - 50, 2500 - 256 - 30]])
+    lengths = np.concatenate([rng.integers(1, 401, 300), [400, 300]])
+    return _sorted_lines(rng, starts, lengths)
+
+
+def before_window(rng):
+    """Lines (some over 128 sites) that all end before the window."""
+    return _sorted_lines(rng, rng.integers(1, 3000, 200),
+                         rng.integers(1, 300, 200))
+
+
+# (fragments, window_start, window_len, geometry); fragments from a seed:
+# random_frags' keywords, or a function of the generator
 CASES = {
     "vals": (dict(nr_frags=2000, nr_sites=5000, max_len=16, h_rate=0.05),
              1, 5000, SMALL),
@@ -77,6 +149,39 @@ CASES = {
     "classic_lane_counts_3000": (dict(nr_frags=500, nr_sites=4000,
                                       max_len=10, max_count=3000), 1, 4000,
                                  dict(SMALL, vals=False)),
+    # the native prep against the JAX package's split, clip and piece order
+    "vals_lengths_127_to_257": (edge_lengths, 1, 6400, SMALL),
+    "lane_lengths_127_to_257": (edge_lengths, 1, 6400,
+                                dict(SMALL, vals=False)),
+    "classic_lengths_127_to_257": (edge_lengths, 1, 6400,
+                                   dict(SMALL, lane_counts=False)),
+    "vals_ont_like": (ont_like, 1, 33_000, SMALL),
+    "vals_ont_like_default_geometry": (ont_like, 1, 33_000, {}),
+    "lane_ont_like": (ont_like, 1, 33_000, dict(SMALL, vals=False)),
+    "classic_ont_like": (ont_like, 1, 33_000, dict(SMALL, lane_counts=False)),
+    "vals_unsorted_long": (unsorted_long, 1, 8500, SMALL),
+    "lane_unsorted_long": (unsorted_long, 1, 8500, dict(SMALL, vals=False)),
+    "classic_unsorted_long": (unsorted_long, 1, 8500,
+                              dict(SMALL, lane_counts=False)),
+    "vals_left_edge_cuts_long": (left_edge_cuts_long, 2500, 2048, SMALL),
+    "lane_left_edge_cuts_long": (left_edge_cuts_long, 2500, 2048,
+                                 dict(SMALL, vals=False)),
+    "classic_left_edge_cuts_long": (left_edge_cuts_long, 2500, 2048,
+                                    dict(SMALL, lane_counts=False)),
+    # every line clipped away: no piece, the classic form
+    "classic_clipped_away": (before_window, 5000, 1000, SMALL),
+    "classic_clipped_away_lane": (before_window, 5000, 1000,
+                                  dict(SMALL, vals=False)),
+    # the gates with long lines: a count of 255 keeps the count-per-byte
+    # forms, 256 takes the classic one
+    "vals_counts_255_long": (partial(ont_like, top_count=255), 1, 33_000,
+                             SMALL),
+    "lane_counts_255_long": (partial(ont_like, top_count=255), 1, 33_000,
+                             dict(SMALL, vals=False)),
+    "classic_counts_256_long": (partial(ont_like, top_count=256), 1, 33_000,
+                                SMALL),
+    "classic_counts_256_long_lane": (partial(ont_like, top_count=256), 1,
+                                     33_000, dict(SMALL, vals=False)),
 }
 
 WIDTH = {"vals": 10, "lane": 9, "classic": 8}
@@ -99,12 +204,15 @@ def assert_same_staged(a, b):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_stage_v3_equals_jax(case):
-    kw, ws, wl, geo = CASES[case]
+    spec, ws, wl, geo = CASES[case]
     rng = np.random.default_rng(sorted(CASES).index(case) + 11)
-    f = random_frags(rng, **kw)
-    want = jax_v3.stage_v3(f.start, f.length, f.count, f.codes, ws, wl, **geo)
-    got = pileup_v3.stage_v3(f.start, f.length, f.count, f.codes, ws, wl,
-                             **geo)
+    if callable(spec):
+        frags = spec(rng)
+    else:
+        f = random_frags(rng, **spec)
+        frags = (f.start, f.length, f.count, f.codes)
+    want = jax_v3.stage_v3(*frags, ws, wl, **geo)
+    got = pileup_v3.stage_v3(*frags, ws, wl, **geo)
     assert_same_staged(want, got)
     form = next((f for f in ("classic", "lane") if case.startswith(f)),
                 "vals")

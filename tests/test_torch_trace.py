@@ -1,8 +1,8 @@
 """The port's spans and counters (wgbs_tools_tpu_torch/trace.py): nothing is
 recorded and nothing is called while no profiler runs; under a CPU
 profiler, pat2beta and segment name each of their layers, nested as the
-program nests them, and count their sites and bed rows; the stage timings
-dicts keep their keys, and no span synchronises the device."""
+program nests them, and count their sites, split pieces and bed rows; the
+stage timings dicts keep their keys, and no span synchronises the device."""
 
 import json
 import os
@@ -24,6 +24,7 @@ from wgbs_tools_tpu_torch import trace  # noqa: E402
 from wgbs_tools_tpu_torch.cli import cmd_segment  # noqa: E402
 from wgbs_tools_tpu_torch.device import timed  # noqa: E402
 from wgbs_tools_tpu_torch.models import segment_exact_device as sed  # noqa
+from wgbs_tools_tpu_torch.ops.pileup_v3 import stage_v3  # noqa: E402
 from wgbs_tools_tpu_torch.pipeline.pat2beta import pat2beta  # noqa: E402
 
 pytestmark = pytest.mark.skipif(oracle_lib() is None,
@@ -209,6 +210,23 @@ def test_span_and_count_under_a_profiler(tmp_path):
     assert trace.counters() == {"things": 7}
     trace.count("things", 100)
     assert trace.counters() == {"things": 7}
+
+
+@pytest.mark.parametrize("long", [True, False], ids=["long", "short"])
+def test_split_pieces_counted_under_a_profiler(tmp_path, long):
+    """pileup.split_pieces: the 128-site units cut from lines over 128
+    sites a staged batch (0 where no line is over 128), counted only while
+    a profiler runs."""
+    rng = np.random.default_rng(41)
+    f = random_frags(rng, 400, 6000, max_len=400 if long else 128)
+    args = (f.start, f.length, f.count, f.codes, 1, 6400)
+    over = f.length[f.length > 128]
+    want = int(((over + 127) // 128).sum())
+    assert (want > 0) == long
+    _profiled(lambda: stage_v3(*args), tmp_path)
+    assert trace.counters()["pileup.split_pieces"] == want
+    stage_v3(*args)  # no profiler: not counted
+    assert trace.counters()["pileup.split_pieces"] == want
 
 
 def test_timed_names_its_span_after_the_caller(tmp_path):

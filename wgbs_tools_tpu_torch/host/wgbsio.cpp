@@ -1,23 +1,28 @@
 // Host library of the PyTorch port: pat text parsing and serialization,
 // the BGZF block deflater (write_pat's and index_bed's bgzip) and
-// inflater, the host pileup (the oracle of the device kernels), the v3 row
-// packer and placers that the pileup staging runs, and bam2pat's columnar
-// BAM record scan and MM/ML tag parsers. segment_exact.cpp beside it holds the exact segmentation
-// DP; both go into one library.
+// inflater, the host pileup (the oracle of the device kernels), the v3
+// prep pass, row packer and placers that the pileup staging runs, and
+// bam2pat's columnar BAM record scan and MM/ML tag parsers.
+// segment_exact.cpp beside it holds the exact segmentation DP; both go into
+// one library.
 //
 // The port's own copy of the functions it calls from native/wgbsio.cpp,
-// unchanged, with the same C names, so that a reader finds each one's
-// counterpart there; bed_scan (the blocks bed's one pass) is the port's
-// own. wgbs_tools_tpu_torch/native.py builds this file with g++ at first
-// use and binds it with ctypes.
+// with the same C names, so that a reader finds each one's counterpart
+// there; place_pack_rows and place_vals_rows take int32 pieces (the dtype
+// stage_prep_v3 gives). bed_scan (the blocks bed's one pass) and
+// stage_prep_v3 (the v3 staging's prep) are the port's own.
+// wgbs_tools_tpu_torch/native.py builds this file with g++ at first use
+// and binds it with ctypes.
 //
 // Build: g++ -O3 -shared -fPIC -o libwgbs_host.so wgbsio.cpp segment_exact.cpp \
 //            -lz -lpthread
 
 #include <algorithm>
+#include <climits>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
+#include <functional>
 #include <string>
 #include <thread>
 #include <vector>
@@ -507,12 +512,12 @@ int64_t pack_rows128(const int32_t* g, const int32_t* count,
 // in-sub-block position pos -> word column pos % 8, bit 2 * (pos / 8).
 // words must be pre-filled with -1 (0b11 == '.' in every field).
 int64_t place_pack_rows(const uint8_t* codes, int64_t W, int64_t P,
-                        const int64_t* p_src, const int64_t* p_off,
-                        const int64_t* p_rr, const int64_t* p_len,
+                        const int32_t* p_src, const int32_t* p_off,
+                        const int32_t* p_rr, const int32_t* p_len,
                         const int32_t* piece_row, int32_t* words) {
     constexpr int64_t W_COLS = 8;
     for (int64_t p = 0; p < P; p++) {
-        const uint8_t* src = codes + p_src[p] * W + p_off[p];
+        const uint8_t* src = codes + (int64_t)p_src[p] * W + p_off[p];
         int32_t* row = words + (int64_t)piece_row[p] * W_COLS;
         const int64_t rr = p_rr[p], len = p_len[p];
         if (rr < 0 || len < 0 || rr + len > 128) return -1;
@@ -567,12 +572,12 @@ int64_t place_counts_rows(const int32_t* p_cnt, const int32_t* p_rr,
 // (the lane/vals forms are gated off above that; return -1 restores the
 // classic path).
 int64_t place_vals_rows(const uint8_t* codes, int64_t W, int64_t P,
-                        const int64_t* p_src, const int64_t* p_off,
-                        const int64_t* p_rr, const int64_t* p_len,
+                        const int32_t* p_src, const int32_t* p_off,
+                        const int32_t* p_rr, const int32_t* p_len,
                         const int32_t* p_cnt, const int32_t* piece_row,
                         uint8_t* mv, uint8_t* cv) {
     for (int64_t p = 0; p < P; p++) {
-        const uint8_t* src = codes + p_src[p] * W + p_off[p];
+        const uint8_t* src = codes + (int64_t)p_src[p] * W + p_off[p];
         const int64_t rr = p_rr[p], len = p_len[p];
         if (rr < 0 || len < 0 || rr + len > 128) return -1;
         if (p_cnt[p] < 0 || p_cnt[p] > 255) return -1;
@@ -587,6 +592,235 @@ int64_t place_vals_rows(const uint8_t* codes, int64_t W, int64_t P,
             if (code != 0u) mrow[pos] = c;  // codes 1 (C) and 2 (H)
         }
     }
+    return P;
+}
+
+// ---------------------------------------------------------------------------
+// The v3 staging's prep in one pass (ops/pileup_v3.py::stage_v3): a slab's
+// pat lines -> the pieces that pack_rows128 and the placers take. Lines over
+// 128 sites split into 128-site units, units are clipped to the window, and
+// each unit splits at its sub-block boundary into <= 2 pieces. A piece
+// points into the caller's (F, W) codes (p_src = the line's row, p_off =
+// the column of its first site), so no code row is copied.
+//
+// The pieces come out in the order of the JAX package's staging
+// (pileup_tpu2.py::_split_long, pileup_tpu3.py::_prep_window and the
+// stable argsort of stage_v3), so the staged arrays are the same bytes:
+//   1. when some line is long: the lines of <= 128 sites in input order,
+//      then the long lines' units in (line, offset) order, stable-sorted
+//      by start; otherwise input order;
+//   2. the window clip, which keeps that order (a unit that starts left of
+//      the window loses its first sites; when any unit does, units of no
+//      site are dropped too);
+//   3. every unit's first piece, then the second pieces, stable-sorted by
+//      sub-block g.
+// Both sorts are stable and made of counting passes, so the work is linear
+// in lines and pieces whatever order the lines come in.
+// ---------------------------------------------------------------------------
+
+struct PrepUnit {
+    int64_t rel;  // start - window_start, before the clip
+    int32_t src;  // row of the caller's codes
+    int32_t off;  // column of the unit's first site in that row
+    int32_t len;
+};
+
+// Stable LSD radix sort of units by rel, in passes of at most 16 bits.
+static void prep_sort_by_rel(std::vector<PrepUnit>& u) {
+    const size_t n = u.size();
+    if (n < 2) return;
+    int64_t lo = u[0].rel, hi = u[0].rel;
+    bool sorted = true;
+    for (size_t i = 1; i < n; i++) {
+        sorted &= u[i - 1].rel <= u[i].rel;
+        lo = std::min(lo, u[i].rel);
+        hi = std::max(hi, u[i].rel);
+    }
+    if (sorted) return;
+    const uint64_t span = (uint64_t)(hi - lo);
+    int bits = 0;
+    while (bits < 64 && (span >> bits)) bits++;
+    const int passes = (bits + 15) / 16;
+    const int digit = (bits + passes - 1) / passes;
+    const uint64_t mask = (1ULL << digit) - 1;
+    std::vector<PrepUnit> tmp(n);
+    std::vector<int64_t> pos((size_t)1 << digit);
+    for (int p = 0; p < passes; p++) {
+        const int shift = p * digit;
+        std::fill(pos.begin(), pos.end(), 0);
+        for (const PrepUnit& x : u) pos[((uint64_t)(x.rel - lo) >> shift) & mask]++;
+        int64_t acc = 0;
+        for (int64_t& c : pos) {
+            const int64_t k = c;
+            c = acc;
+            acc += k;
+        }
+        for (const PrepUnit& x : u)
+            tmp[pos[((uint64_t)(x.rel - lo) >> shift) & mask]++] = x;
+        u.swap(tmp);
+    }
+}
+
+// start, length, count: the F lines; W: the codes' row width. The six
+// int32 piece arrays hold `cap` entries. Step 3 runs on n_threads threads,
+// each over a contiguous run of units; the pieces are the same for any
+// number. *n_split = the units cut from lines of more than 128 sites
+// (before the clip). Returns the number of pieces, or -1 on a negative
+// length, a length above W, or more pieces than cap.
+int64_t stage_prep_v3(const int32_t* start, const int32_t* length,
+                      const int32_t* count, int64_t F, int64_t W,
+                      int64_t window_start, int64_t window_len, int64_t cap,
+                      int n_threads, int32_t* p_g, int32_t* p_rr,
+                      int32_t* p_len, int32_t* p_cnt, int32_t* p_src,
+                      int32_t* p_off, int64_t* n_split) {
+    constexpr int64_t SB = 128;
+    *n_split = 0;
+    if (F < 0 || F > INT32_MAX || W < 0) return -1;
+    int64_t n_long_units = 0;
+    for (int64_t i = 0; i < F; i++) {
+        const int64_t L = length[i];
+        if (L < 0 || L > W) return -1;
+        if (L > SB) n_long_units += (L + SB - 1) / SB;
+    }
+    *n_split = n_long_units;
+
+    // 1. with a long line, the units kept by the clip ([rel, rel + len)
+    // meets [0, window_len)) in their order: dropping the others before the
+    // stable sort keeps the order of the rest. Without one, the units are
+    // the lines.
+    std::vector<PrepUnit> u;
+    if (n_long_units) {
+        for (int64_t i = 0; i < F; i++) {
+            const int64_t L = length[i];
+            const int64_t rel = start[i] - window_start;
+            if (L <= SB && rel + L > 0 && rel < window_len)
+                u.push_back({rel, (int32_t)i, 0, (int32_t)L});
+        }
+        for (int64_t i = 0; i < F; i++) {
+            const int64_t L = length[i];
+            if (L <= SB) continue;
+            for (int64_t off = 0; off < L; off += SB) {
+                const int64_t ln = std::min(SB, L - off);
+                const int64_t rel = start[i] + off - window_start;
+                if (rel + ln > 0 && rel < window_len)
+                    u.push_back({rel, (int32_t)i, (int32_t)off, (int32_t)ln});
+            }
+        }
+        prep_sort_by_rel(u);
+    }
+    const int64_t n_units = n_long_units ? (int64_t)u.size() : F;
+
+    // 2. unit k after the clip of the window's left edge, which takes a
+    // unit's sites left of the window; false for a unit the clip drops,
+    // and for a unit of no site once the clip has shortened any unit
+    struct Seen {
+        bool clipped = false, empty = false;
+    };
+    bool drop_empty = false;
+    auto unit = [&](int64_t k, PrepUnit& x, Seen& seen) {
+        if (n_long_units) x = u[k];
+        else x = {start[k] - window_start, (int32_t)k, 0, length[k]};
+        if (x.rel + x.len <= 0 || x.rel >= window_len) return false;
+        if (x.rel < 0) {
+            seen.clipped = true;
+            x.off -= (int32_t)x.rel;
+            x.len += (int32_t)x.rel;
+            x.rel = 0;
+        }
+        seen.empty |= x.len == 0;
+        return !(drop_empty && x.len == 0);
+    };
+
+    // 3. pieces: a counting sort by sub-block g, first pieces before second
+    // pieces, parts in order within each
+    struct Part {
+        // by sub-block: the part's first and second pieces, then where the
+        // next of each goes
+        std::vector<int64_t> first, second;
+        Seen seen;
+    };
+    const int T = (int)std::max<int64_t>(1, std::min<int64_t>(n_threads,
+                                                              n_units));
+    std::vector<Part> parts(T);
+    auto each_part = [&](const std::function<void(int)>& body) {
+        std::vector<std::thread> ts;
+        for (int t = 1; t < T; t++) ts.emplace_back(body, t);
+        body(0);
+        for (auto& th : ts) th.join();
+    };
+    auto histogram = [&](int t) {
+        std::vector<int64_t> first, second;
+        Seen seen;
+        PrepUnit x;
+        for (int64_t k = n_units * t / T; k < n_units * (t + 1) / T; k++) {
+            if (!unit(k, x, seen)) continue;
+            const size_t g = (size_t)(x.rel / SB);
+            if (g + 2 > first.size()) {
+                first.resize(std::max(g + 2, 2 * first.size()));
+                second.resize(first.size());
+            }
+            first[g]++;
+            if (x.len > SB - x.rel % SB) second[g + 1]++;
+        }
+        parts[t] = {std::move(first), std::move(second), seen};
+    };
+    each_part(histogram);
+    Seen seen;
+    for (const Part& q : parts) {
+        seen.clipped |= q.seen.clipped;
+        seen.empty |= q.seen.empty;
+    }
+    if (seen.clipped && seen.empty) {
+        drop_empty = true;
+        each_part(histogram);
+    }
+    size_t n_g = 0;
+    for (const Part& q : parts) n_g = std::max(n_g, q.first.size());
+    int64_t P = 0;
+    for (Part& q : parts) {
+        q.first.resize(n_g);
+        q.second.resize(n_g);
+    }
+    for (size_t g = 0; g < n_g; g++) {
+        for (Part& q : parts) {
+            const int64_t c = q.first[g];
+            q.first[g] = P;
+            P += c;
+        }
+        for (Part& q : parts) {
+            const int64_t c = q.second[g];
+            q.second[g] = P;
+            P += c;
+        }
+    }
+    if (P > cap) return -1;
+    each_part([&](int t) {
+        // copies, so that no two threads write one cache line
+        std::vector<int64_t> first = parts[t].first;
+        std::vector<int64_t> second = parts[t].second;
+        Seen seen;
+        PrepUnit x;
+        for (int64_t k = n_units * t / T; k < n_units * (t + 1) / T; k++) {
+            if (!unit(k, x, seen)) continue;
+            const int64_t g = x.rel / SB, rr = x.rel % SB;
+            const int64_t len1 = std::min<int64_t>(x.len, SB - rr);
+            int64_t j = first[g]++;
+            p_g[j] = (int32_t)g;
+            p_rr[j] = (int32_t)rr;
+            p_len[j] = (int32_t)len1;
+            p_cnt[j] = count[x.src];
+            p_src[j] = x.src;
+            p_off[j] = x.off;
+            if (x.len == len1) continue;
+            j = second[g + 1]++;
+            p_g[j] = (int32_t)(g + 1);
+            p_rr[j] = 0;
+            p_len[j] = (int32_t)(x.len - len1);
+            p_cnt[j] = count[x.src];
+            p_src[j] = x.src;
+            p_off[j] = (int32_t)(x.off + len1);
+        }
+    });
     return P;
 }
 

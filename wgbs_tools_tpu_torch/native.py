@@ -88,6 +88,9 @@ def _bind(lib):
     lib.place_counts_rows.argtypes = [vp] * 4 + [i64, vp]
     lib.place_vals_rows.restype = i64
     lib.place_vals_rows.argtypes = [vp, i64, i64] + [vp] * 8
+    lib.stage_prep_v3.restype = i64
+    lib.stage_prep_v3.argtypes = [vp, vp, vp] + [i64] * 5 \
+        + [ctypes.c_int] + [vp] * 7
     lib.segment_exact_dp.restype = i64
     lib.segment_exact_dp.argtypes = [vp, i64, i64, vp, ctypes.c_int32,
                                      ctypes.c_uint32, ctypes.c_float, vp]
@@ -383,6 +386,47 @@ def mm_parse_native(buf, mm_off, mm_len):
             sec_nskip[:S], skips[:K])
 
 
+def stage_prep_native(start, length, count, codes, window_start,
+                      window_len, threads=None):
+    """The v3 staging's prep in one pass (host/wgbsio.cpp::stage_prep_v3):
+    a slab's pat lines over the 1-based window [window_start, window_start
+    + window_len) -> its pieces, each inside one 128-site sub-block, in the
+    order of the JAX package's staging: int32 (p_g, p_rr, p_len, p_cnt,
+    p_src, p_off), the arrays the packer and the placers take, and the
+    number of 128-site units cut from lines over 128 sites. A piece's codes
+    are codes[p_src, p_off : p_off + p_len], read in place. The counting
+    sort of the pieces runs on `threads` threads (default: up to 4 from
+    2^16 lines; the pieces are the same for any number). None when a
+    length is negative or wider than codes, or a start is outside int32."""
+    lib = get_lib()
+    start = np.asarray(start)
+    if start.dtype != np.int32 and start.size and (
+            start.min() < -2**31 or start.max() >= 2**31):
+        return None
+    start, length, count = (_c(a, np.int32) for a in (start, length, count))
+    codes = np.asarray(codes)
+    F = start.shape[0]
+    if not (start.shape == length.shape == count.shape == (F,)
+            and codes.ndim == 2 and codes.shape[0] == F):
+        raise ValueError("stage_prep_native: start, length, count and the "
+                         "rows of a 2-D codes must be as many")
+    if threads is None:
+        threads = min(os.cpu_count() or 1, 4) if F >= (1 << 16) else 1
+    # a line of L sites gives <= ceil(L / 128) units of <= 2 pieces each
+    # (a negative length is refused before any piece is written)
+    cap = 2 * (F + int(length.sum(dtype=np.int64)) // 128)
+    out = [np.empty(max(cap, 1), np.int32) for _ in range(6)]
+    n_split = ctypes.c_int64(0)
+    P = lib.stage_prep_v3(
+        start.ctypes.data, length.ctypes.data, count.ctypes.data, F,
+        codes.shape[1], int(window_start),
+        int(window_len), cap, int(threads), *(a.ctypes.data for a in out),
+        ctypes.byref(n_split))
+    if P < 0:
+        return None
+    return tuple(a[:P] for a in out) + (n_split.value,)
+
+
 def pack_rows_native(g, count, rr, ln):
     """First-fit 128-bit-mask interval packing for the v3 pileup staging.
 
@@ -410,9 +454,8 @@ def place_pack_native(codes, p_src, p_off, p_rr, p_len, piece_row, words):
     or None on a piece outside its sub-block."""
     lib = get_lib()
     codes = _c(codes, np.uint8)
-    p_src, p_off, p_rr, p_len = (_c(a, np.int64)
-                                 for a in (p_src, p_off, p_rr, p_len))
-    piece_row = _c(piece_row, np.int32)
+    p_src, p_off, p_rr, p_len, piece_row = (
+        _c(a, np.int32) for a in (p_src, p_off, p_rr, p_len, piece_row))
     if words.dtype != np.int32 or not words.flags.c_contiguous:
         raise ValueError("words: want a C-contiguous int32 array")
     got = lib.place_pack_rows(
@@ -448,9 +491,9 @@ def place_vals_native(codes, p_src, p_off, p_rr, p_len, p_cnt, piece_row,
     when a count exceeds 255 or a piece leaves its sub-block."""
     lib = get_lib()
     codes = _c(codes, np.uint8)
-    p_src, p_off, p_rr, p_len = (_c(a, np.int64)
-                                 for a in (p_src, p_off, p_rr, p_len))
-    p_cnt, piece_row = _c(p_cnt, np.int32), _c(piece_row, np.int32)
+    p_src, p_off, p_rr, p_len, p_cnt, piece_row = (
+        _c(a, np.int32) for a in (p_src, p_off, p_rr, p_len, p_cnt,
+                                  piece_row))
     for name, plane in (("mv", mv), ("cv", cv)):
         if plane.dtype != np.uint8 or not plane.flags.c_contiguous:
             raise ValueError(f"{name}: want a C-contiguous uint8 array")

@@ -2,13 +2,15 @@
 plain PyTorch twins.
 
 Port of wgbs_tools_tpu/ops/pileup_tpu3.py (with pileup_tpu2.py's
-`_split_long`). The host staging is the JAX package's, line for line, so
-the staged arrays are identical and the tests compare them one to one:
-fragments are split at 128-site sub-blocks, the pieces are packed into
-rows by the native first-fit packer, and the rows are chunked (at most
-rc - 1 rows, g_max sub-blocks and one output tile per chunk). Four staged
-forms reach a kernel; while every count is < 256 the first applicable of
-them is taken (the JAX package's gates, pileup_tpu3.py:834-843):
+`_split_long`). The host staging gives the JAX package's staged arrays,
+byte for byte, and the tests compare them one to one: one native pass
+(host/wgbsio.cpp::stage_prep_v3) splits long fragments, clips them to the
+window and splits them at 128-site sub-blocks into pieces, in the JAX
+package's order; the pieces are packed into rows by the native first-fit
+packer, and the rows are chunked (at most rc - 1 rows, g_max sub-blocks
+and one output tile per chunk). Four staged forms reach a kernel; while
+every count is < 256 the first applicable of them is taken (the JAX
+package's gates, pileup_tpu3.py:834-843):
 
 - "vals" (`stage_v3()`, the default): one uint8 (rows, 256) plane, lanes
   0-127 = the count where the code is a methylation call, 128-255 = the
@@ -45,7 +47,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import _kernels, native
+from .. import _kernels, native, trace
 from ..formats.pat import CODE_DOT
 from ..trace import span
 
@@ -72,7 +74,8 @@ def _native_ok(result, what):
 
 
 def _split_long(start, length, count, codes, max_piece=SB):
-    """Split fragments longer than max_piece into independent pieces."""
+    """Split fragments longer than max_piece into independent pieces
+    (stage_v2's prep; stage_v3 does this in native.stage_prep_native)."""
     start = np.asarray(start, dtype=np.int64)
     length = np.asarray(length, dtype=np.int32)
     count = np.asarray(count, dtype=np.int32)
@@ -106,7 +109,8 @@ def _split_long(start, length, count, codes, max_piece=SB):
 
 def _prep_window(start, length, count, codes, window_start, window_len):
     """Split long frags, clip to the window; returns (rel, length, count,
-    codes) with rel in [0, window_len) and length <= SB."""
+    codes) with rel in [0, window_len) and length <= SB (stage_v2's prep;
+    stage_v3 does this in native.stage_prep_native)."""
     codes = np.asarray(codes)
     start, length, count, codes = _split_long(start, length, count, codes)
     rel = (np.asarray(start) - window_start).astype(np.int64)
@@ -157,35 +161,20 @@ def stage_v3(start, length, count, codes, window_start, window_len,
     another form or to v2."""
     native.get_lib()
     with span("pileup.stage.prep"):
-        rel, length, count, codes = _prep_window(
-            start, length, count, codes, window_start, window_len)
-        F = rel.shape[0]
-
-        # split at sub-block boundaries: each fragment (len <= SB) yields <= 2
-        # pieces, each inside a single sub-block
-        rr_all = (rel % SB).astype(np.int64)
-        g_all = (rel // SB).astype(np.int64)
-        len1 = np.minimum(length, SB - rr_all).astype(np.int64)
-        len2 = (length - len1).astype(np.int64)
-        has2 = len2 > 0
-
-        p_g = np.concatenate([g_all, g_all[has2] + 1])
-        p_rr = np.concatenate([rr_all, np.zeros(int(has2.sum()), np.int64)])
-        p_len = np.concatenate([len1, len2[has2]])
-        p_cnt = np.concatenate([count, count[has2]]).astype(np.int32)
-        # piece code source: (frag index, column offset within the fragment)
-        p_src = np.concatenate([np.arange(F), np.nonzero(has2)[0]])
-        p_off = np.concatenate([np.zeros(F, np.int64), len1[has2]])
-
-        order = np.argsort(p_g, kind="stable")
-        p_g, p_rr, p_len, p_cnt = (p_g[order], p_rr[order], p_len[order],
-                                   p_cnt[order])
-        p_src, p_off = p_src[order], p_off[order]
+        # the split of long lines, the window clip and the split at
+        # sub-block boundaries (each unit yields <= 2 pieces, each inside a
+        # single sub-block), in one native pass; pieces point into `codes`
+        prep = _native_ok(native.stage_prep_native(
+            start, length, count, codes, window_start, window_len),
+            "stage_prep_v3")
+        p_g, p_rr, p_len, p_cnt, p_src, p_off, n_split = prep
+        trace.count("pileup.split_pieces", n_split)
+        P = p_g.shape[0]
 
     # value planes and count words hold one count per byte: any count >=
     # 256 (and the empty batch, as in JAX) takes the classic per-count-row
     # form
-    lane_counts = bool(lane_counts and F and int(p_cnt.max(initial=0)) < 256)
+    lane_counts = bool(lane_counts and P and int(p_cnt.max(initial=0)) < 256)
     vals = bool(vals and lane_counts)
     fused = bool(fused and vals)
     geom = VALS_GEOMETRY if vals else CLASSIC_GEOMETRY
@@ -205,7 +194,7 @@ def stage_v3(start, length, count, codes, window_start, window_len,
     tile_sb = tile // SB
 
     with span("pileup.stage.pack"):
-        if F:
+        if P:
             # value-plane and lane-count rows are count-agnostic: pieces of
             # any count share
             pk_cnt = np.ones_like(p_cnt) if lane_counts else p_cnt
@@ -227,7 +216,7 @@ def stage_v3(start, length, count, codes, window_start, window_len,
                        "place_vals_rows")
         else:
             all_words = np.full((max(R, 1), SB // 16), -1, dtype=np.int32)
-            if F:
+            if P:
                 _native_ok(native.place_pack_native(codes, p_src, p_off,
                                                     p_rr, p_len, piece_row,
                                                     all_words),
